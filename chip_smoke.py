@@ -1,0 +1,536 @@
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Builds both CUDA kernels from the sources in this checkout, holds each one
+against its plain PyTorch version on the card, then serves full-width
+qwen1.5-0.5b (24 layers, d_model 1024, random weights from a seed) through
+the port's continuous-batching scheduler in the two modes that run the
+kernels: ``quant`` (every linear on the int8 GEMM kernel) and ``pim_sim``
+(every linear on the crossbar microcode kernel).  Each serve phase zeroes
+the kernels' launch counters just before it and reads them just after.
+
+    python3 chip_smoke.py
+
+After both serves it profiles one decode step per mode (torch.profiler)
+and prints its wall and device-busy time and its costliest kernels.  The
+last line of standard output is ``{"ok": true, "device": {...}}``; the
+line before it lists the card's name and power limit, and the one before
+that the per-kernel JSON.  Any failure raises and exits non-zero before
+those lines.  Without a CUDA device it exits non-zero at once.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import platform
+import subprocess
+import sys
+import time
+from unittest import mock
+
+import numpy as np
+import torch
+
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+INT8_TENSOR_OPS_PER_S = 1979e12
+CUDA_CORE_32BIT_OPS_PER_S = 67e12     # the non-tensor 32-bit rate
+
+QUANT_SHAPES_KN = ((1024, 1024), (1024, 2816), (2816, 1024))
+# ~25 ms at the H100's clock: longer than the host takes to queue any timed
+# run of launches below
+SLEEP_CYCLES = 50_000_000
+
+
+def say(*a):
+    print(*a, flush=True)
+
+
+def gpu_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn(i)`` over ``reps`` back-to-back calls (CUDA
+    events).  A sleep kernel queued first holds the stream while the host
+    queues every call, so the events time the device work alone, not the
+    rate at which the host launches it."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for i in range(reps):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest |got - want| over integer tensors of one shape."""
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def rotating(make, nbytes: int, budget: int = 200 << 20):
+    """Enough copies of an input that cycling through them overruns the
+    50 MB L2: each launch finds its weight cold, as in a served step."""
+    return [make() for _ in range(max(1, min(64, -(-budget // nbytes))))]
+
+
+# --------------------------------------------------------------------------
+# phase 2: quant_matmul_int
+# --------------------------------------------------------------------------
+
+def check_quant_kernel(dev):
+    from repro_torch.kernels.quant_matmul import (quant_matmul_int,
+                                                  quant_matmul_int_ref)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randint(-128, 128, shape, dtype=torch.int8, device=dev,
+                             generator=g)
+
+    path = [(m, k, n) for m in (1, 4, 16, 32, 48, 64)
+            for k, n in QUANT_SHAPES_KN]
+    ragged = [(1, 1, 1), (3, 77, 5), (17, 200, 130), (5, 1000, 1001),
+              (129, 33, 257), (2, 4097, 3)]
+    err = 0
+
+    def check(x, w, what):
+        nonlocal err
+        e = max_abs_err(quant_matmul_int(x, w), quant_matmul_int_ref(x, w))
+        if e:
+            raise AssertionError(f"quant_matmul_int != plain ({what}): max "
+                                 f"abs error {e}")
+        err = max(err, e)
+
+    for m, k, n in path + ragged:
+        check(rand(m, k), rand(k, n), f"M, K, N = {m, k, n}")
+    for m, k, n in ((4, 2816, 1024), (64, 1024, 2816)):
+        for xv, wv in ((-128, -128), (127, -128), (127, 127), (-128, 127)):
+            x = torch.full((m, k), xv, dtype=torch.int8, device=dev)
+            w = torch.full((k, n), wv, dtype=torch.int8, device=dev)
+            check(x, w, f"all {xv} @ all {wv} at {m, k, n}")
+            if int(quant_matmul_int(x, w)[0, 0]) != xv * wv * k:
+                raise AssertionError(f"extreme operands {xv}, {wv} at "
+                                     f"{m, k, n}")
+        x, w = rand(m, k), rand(k, n)
+        x[:, ::3] = -128
+        w[::5] = 127
+        check(x, w, f"mixed extremes at {m, k, n}")
+    torch.cuda.synchronize()
+    say(f"[quant_matmul_int] == plain (exact int32, max abs error {err}) on "
+        f"{len(path)} path shapes, {len(ragged)} ragged shapes and 10 "
+        "extreme-operand cases")
+
+    rows = {}
+    for m, k, n in path:
+        if m not in (1, 4, 16, 64):
+            continue
+        x = rand(m, k)
+        ws = rotating(lambda: rand(k, n), k * n)
+        ms = cuda_ms(lambda i: quant_matmul_int(x, ws[i % len(ws)]), 50)
+        plain = cuda_ms(lambda i: quant_matmul_int_ref(x, ws[i % len(ws)]),
+                        20)
+        if m > 16:
+            lib = cuda_ms(lambda i: torch._int_mm(x, ws[i % len(ws)]), 50)
+        else:
+            lib = None
+        nbytes = m * k + k * n + 4 * m * n
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * m * k * n / INT8_TENSOR_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        rows[(m, k, n)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=bound, max_abs_err=err,
+                               bound_by="bytes" if t_bytes >= t_ops
+                               else "operations")
+        lib_s = "  n/a  " if lib is None else f"{lib * 1e3:7.2f}"
+        say(f"[quant_matmul_int] M={m:3d} K={k:4d} N={n:4d}: kernel "
+            f"{ms * 1e3:7.2f} us | plain {plain * 1e3:8.2f} us | _int_mm "
+            f"{lib_s} us | bound {bound * 1e3:5.2f} us "
+            f"({rows[(m, k, n)]['bound_by']}) | {bound / ms * 100:5.1f}% of "
+            "bound")
+    say("[quant_matmul_int] torch._int_mm is timed only at M > 16: it "
+        "refuses M <= 16 on CUDA (its first operand needs more than 16 rows)")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 3: crossbar_exec
+# --------------------------------------------------------------------------
+
+def check_crossbar_kernel(dev):
+    from repro_torch.kernels.crossbar_exec import (crossbar_exec,
+                                                   crossbar_exec_ref)
+    from repro_torch.pim import engine
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    n, w_words = 1024, 8
+
+    def rand_state(c):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, (c, n, w_words),
+                             dtype=torch.int32, device=dev, generator=g)
+
+    n_ops = 6000
+    mc = torch.stack(
+        [torch.randint(0, 6, (n_ops,), device=dev, generator=g)]
+        + [torch.randint(0, n, (n_ops,), device=dev, generator=g)
+           for _ in range(3)], dim=1).to(torch.int32).contiguous()
+    err = 0
+
+    def check(st, mc, what):
+        nonlocal err
+        e = max_abs_err(crossbar_exec(st, mc), crossbar_exec_ref(st, mc))
+        if e:
+            raise AssertionError(f"crossbar_exec != plain ({what}): max abs "
+                                 f"error {e}")
+        err = max(err, e)
+
+    check(rand_state(3), mc, "random microcode")
+    codes = torch.bincount(mc[:, 0].long(), minlength=6)
+    say(f"[crossbar_exec] == plain (exact state) on random microcode "
+        f"(C=3, n={n}, W={w_words}, G={n_ops}, all six codes: "
+        f"{codes.tolist()})")
+
+    art37 = engine.compile_dot(37, 8)
+    mc37 = art37.microcode_on(dev)
+    for c, art in ((3, art37), (5, engine.compile_dot(25, 8)),
+                   (2, engine.compile_dot(4, 8))):
+        mcd = art.microcode_on(dev)
+        check(rand_state(c), mcd, f"the {art.n_terms}-term dot program")
+        say(f"[crossbar_exec] == plain (exact state) on the real "
+            f"{art.n_terms}-term dot program ({mcd.shape[0]} microcode "
+            f"rows) over {c} crossbars")
+
+    # the integer GEMM the kernel serves: packing + kernel + unpacking on
+    # the card against the exact product, at decode-batch-2 widths
+    gi = np.random.default_rng(2)
+    for k, o in ((1024, 2816), (2816, 1024)):
+        x = torch.as_tensor(gi.integers(0, 256, (2, k)), device=dev)
+        wt = torch.as_tensor(gi.integers(0, 256, (o, k)), device=dev)
+        got = engine.matmul_int(x, wt, 8)
+        exact = (x.double() @ wt.double().T).long()
+        if not torch.equal(got, exact):
+            raise AssertionError(f"matmul_int != exact product at "
+                                 f"M=2 K={k} O={o}")
+    torch.cuda.synchronize()
+    say("[crossbar_exec] engine.matmul_int on the card == exact integer "
+        "product at M=2, (K, O) = (1024, 2816) and (2816, 1024)")
+
+    # one full-width decode-shape launch: w_in (O=2816, K=1024) at batch 2
+    # runs its 27 full 37-term chunks as 27 * ceil(2 * 2816 / 256) = 594
+    # crossbars in one launch
+    c = 27 * math.ceil(2 * 2816 / 256)
+    st = rand_state(c)
+    ms = cuda_ms(lambda i: crossbar_exec(st, mc37), 5, warmup=1)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    plain_out = crossbar_exec_ref(st, mc37)
+    end.record()
+    end.synchronize()
+    plain = start.elapsed_time(end)
+    e = max_abs_err(crossbar_exec(st, mc37), plain_out)
+    if e:
+        raise AssertionError(f"crossbar_exec != plain at the w_in decode "
+                             f"shape: max abs error {e}")
+    err = max(err, e)
+    g_rows = mc37.shape[0]
+    nbytes = 2 * st.numel() * 4 + mc37.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = g_rows * c * w_words / CUDA_CORE_32BIT_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    row = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound,
+               max_abs_err=err,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               shape=[c, n, w_words, g_rows])
+    say(f"[crossbar_exec] w_in decode shape C={c} n={n} W={w_words} "
+        f"G={g_rows}: kernel {ms:.3f} ms | plain {plain:.1f} ms | bound "
+        f"{bound * 1e3:.2f} us ({row['bound_by']}) | "
+        f"{bound / ms * 100:.3f}% of bound | {g_rows / (ms * 1e-3) / 1e6:.1f}"
+        " M gates/s per row-word chain")
+    return row
+
+
+# --------------------------------------------------------------------------
+# phases 4 and 5: serve full-width qwen1.5-0.5b
+# --------------------------------------------------------------------------
+
+def reset_counters():
+    from repro_torch.kernels.crossbar_exec import crossbar_exec
+    from repro_torch.kernels.quant_matmul import quant_matmul_int
+
+    quant_matmul_int.launches = 0
+    crossbar_exec.launches = 0
+
+
+def counters():
+    from repro_torch.kernels.crossbar_exec import crossbar_exec
+    from repro_torch.kernels.quant_matmul import quant_matmul_int
+
+    return quant_matmul_int.launches, crossbar_exec.launches
+
+
+def serve(params, cfg, dev, *, n_requests, prompt_lens, max_new, max_batch,
+          seed):
+    from repro_torch.launch.serve import serve_trace
+    from repro_torch.serving import synthetic_requests
+
+    reqs = synthetic_requests(n_requests, vocab_size=cfg.vocab_size,
+                              prompt_lens=prompt_lens,
+                              max_new_tokens=max_new, seed=seed,
+                              start_time=time.monotonic())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, summary = serve_trace(
+        params, cfg, reqs, max_batch=max_batch,
+        prompt_bucket=max(8, max(prompt_lens) // 4), paged=True,
+        device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if summary["n_finished"] != n_requests or len(results) != n_requests:
+        raise AssertionError(f"served {summary['n_finished']} of "
+                             f"{n_requests} requests")
+    for rid, toks in results.items():
+        if len(toks) != max_new or toks.min() < 0 \
+                or toks.max() >= cfg.padded_vocab:
+            raise AssertionError(f"request {rid}: bad tokens {toks}")
+    if summary["decode_traces"] != 1:
+        raise AssertionError(f"decode step saw {summary['decode_traces']} "
+                             "input shapes, expected 1")
+    return results, summary, wall
+
+
+def prefill_logits(params, cfg, tokens):
+    from repro_torch.models import model_lib as M
+
+    with torch.no_grad():
+        logits, _ = M.prefill(params, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize()
+    return logits
+
+
+def serve_quant(params, base_cfg, dev):
+    from repro_torch.kernels.quant_matmul import ops, quant_matmul_int_ref
+
+    plens, max_new = (16, 32, 48, 64), 16
+    cfg = base_cfg.scaled(pim_mode="quant", max_seq_len=max(plens) + max_new)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 64)), device=dev)
+    reset_counters()
+    got = prefill_logits(params, cfg, toks)
+    per_prefill = counters()[0]
+    with mock.patch.object(ops, "quant_matmul_int", quant_matmul_int_ref):
+        want = prefill_logits(params, cfg, toks)
+    if not (torch.isfinite(got).all() and torch.equal(got, want)):
+        raise AssertionError("full-width quant prefill logits differ "
+                             "between the kernel and the plain GEMM")
+    say(f"[quant] full-width 64-token prefill logits {tuple(got.shape)}: "
+        f"kernel == plain GEMM (identical); {per_prefill} quant_matmul_int "
+        "launches in the prefill")
+
+    reset_counters()
+    results, summary, wall = serve(params, cfg, dev, n_requests=8,
+                                   prompt_lens=plens, max_new=max_new,
+                                   max_batch=4, seed=4)
+    q_launches, x_launches = counters()
+    if q_launches <= 0:
+        raise AssertionError("the quant serve never launched "
+                             "quant_matmul_int")
+    say(f"[quant] served {summary['n_finished']}/{summary['n_requests']} "
+        f"requests (prompts {plens}, {max_new} new tokens, max_batch 4, "
+        f"paged) in {wall:.2f} s: {summary['total_tokens']} tokens @ "
+        f"{summary['tokens_per_s']:.2f} tok/s | mean TTFT "
+        f"{summary['mean_ttft_s'] * 1e3:.1f} ms | mean TPOT "
+        f"{summary['mean_tpot_s'] * 1e3:.2f} ms | decode_traces "
+        f"{summary['decode_traces']} | quant_matmul_int launches "
+        f"{q_launches} | crossbar_exec launches {x_launches}")
+    say(f"[quant] sample generation: {results[min(results)].tolist()}")
+    return q_launches, cfg
+
+
+def serve_pim(params, base_cfg, dev):
+    from repro_torch.pim import engine
+
+    plen, max_new = 16, 4
+    cfg = base_cfg.scaled(pim_mode="pim_sim", max_seq_len=plen + max_new)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, plen)), device=dev)
+    reset_counters()
+    t0 = time.perf_counter()
+    got = prefill_logits(params, cfg, toks)
+    t_kernel = time.perf_counter() - t0
+    per_prefill = counters()[1]
+
+    def exact(x, w, n_bits=8, **kw):
+        # each linear as the exact integer product: |sum| < 2**53
+        return (x.double() @ w.double().T).long()
+
+    with mock.patch.object(engine, "matmul_int", exact):
+        want = prefill_logits(params, cfg, toks)
+    if not (torch.isfinite(got).all() and torch.equal(got, want)):
+        raise AssertionError("full-width pim_sim prefill logits differ from "
+                             "the exact 7-bit integer product")
+    say(f"[pim_sim] full-width {plen}-token prefill logits "
+        f"{tuple(got.shape)} on the crossbar kernel == exact 7-bit integer "
+        f"product with the same float64 rescale (bit-identical); crossbar "
+        f"prefill {t_kernel:.2f} s (cold uploads), {per_prefill} "
+        "crossbar_exec launches")
+
+    info0 = engine.cache_info()
+    reset_counters()
+    results, summary, wall = serve(params, cfg, dev, n_requests=2,
+                                   prompt_lens=(plen,), max_new=max_new,
+                                   max_batch=2, seed=6)
+    q_launches, x_launches = counters()
+    info = engine.cache_info()
+    if x_launches <= 0:
+        raise AssertionError("the pim_sim serve never launched "
+                             "crossbar_exec")
+    say(f"[pim_sim] served {summary['n_finished']}/{summary['n_requests']} "
+        f"requests ({plen}-token prompts, {max_new} new tokens, max_batch 2,"
+        f" paged) in {wall:.2f} s: {summary['tokens_per_s']:.3f} tok/s | "
+        f"mean TTFT {summary['mean_ttft_s'] * 1e3:.0f} ms | mean TPOT "
+        f"{summary['mean_tpot_s'] * 1e3:.0f} ms | crossbar_exec launches "
+        f"{x_launches} | quant_matmul_int launches {q_launches} | session "
+        f"exec_hits {info.exec_hits - info0.exec_hits} exec_uploads "
+        f"{info.exec_uploads - info0.exec_uploads}")
+    say(f"[pim_sim] tokens: {[r.tolist() for r in results.values()]}")
+    return x_launches, cfg
+
+
+def profile_decode(params, cfg, dev, max_batch, top=6):
+    """Profile one decode step of a warm scheduler: wall and device-busy
+    time, kernel launches, and the ``top`` kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import (Scheduler, ServingConfig,
+                                     synthetic_requests)
+
+    sched = Scheduler(params, cfg, ServingConfig(
+        max_batch=max_batch, prompt_bucket=16, paged=True), device=dev)
+    for r in synthetic_requests(max_batch, vocab_size=cfg.vocab_size,
+                                prompt_lens=(16,), max_new_tokens=4, seed=7,
+                                start_time=time.monotonic()):
+        sched.submit_request(r)
+    sched.step()                      # admit + one decode step (warm)
+    torch.cuda.synchronize()
+    reset_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = counters()
+    events = prof.key_averages()
+    kernels = sorted((e for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    host_us = sum(e.self_cpu_time_total for e in events)
+    name = f"{cfg.pim_mode} decode step, batch {max_batch}"
+    say(f"[profile] {name}: wall {wall * 1e3:.2f} ms, device busy "
+        f"{dev_us / 1e3:.2f} ms ({dev_us / 1e3 / (wall * 1e3) * 100:.1f}%), "
+        f"host ops {host_us / 1e3:.2f} ms, launches (quant_matmul_int, "
+        f"crossbar_exec) {launches}")
+    for e in kernels[:top]:
+        say(f"[profile] {name}: {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:5d} x {e.self_device_time_total / e.count:9.2f} us  "
+            f"{e.key[:70]}")
+
+
+# --------------------------------------------------------------------------
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this test "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.crossbar_exec import crossbar_exec
+    from repro_torch.kernels.quant_matmul import quant_matmul_int
+    from repro_torch.models import model_lib as M
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    card = gpu_line()
+    say(card)
+    say(f"[device] {torch.cuda.get_device_name(0)} x"
+        f"{torch.cuda.device_count()} | torch {torch.__version__} | CUDA "
+        f"{torch.version.cuda} | python {platform.python_version()}")
+
+    # phase 1: build both kernels, one nvcc each, started together
+    t0 = time.perf_counter()
+    infos = build.build()
+    say(f"[build] {', '.join(infos)} in {time.perf_counter() - t0:.2f} s "
+        f"into {build.BUILD_DIR}")
+    for name, info in infos.items():
+        for ln in info.ptxas_lines:
+            say(f"[ptxas {name}] {ln}")
+
+    quant_rows = check_quant_kernel(dev)
+    xbar_row = check_crossbar_kernel(dev)
+
+    base = configs.get("qwen1.5-0.5b")
+    t0 = time.perf_counter()
+    params = M.init_params(base, seed=0, device=dev)
+    torch.cuda.synchronize()
+    say(f"[params] full-width {base.name}: {M.param_count(base) / 1e6:.1f}M "
+        f"parameters ({base.n_layers} layers, d_model {base.d_model}, "
+        f"d_ff {base.d_ff}, vocab {base.vocab_size} padded to "
+        f"{base.padded_vocab}, {base.dtype}) from seed 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    q_launches, qcfg = serve_quant(params, base, dev)
+    x_launches, pcfg = serve_pim(params, base, dev)
+    profile_decode(params, qcfg, dev, 4)
+    profile_decode(params, pcfg, dev, 2)
+
+    qrow = quant_rows[(4, 1024, 2816)]
+    kernels = [
+        dict(name="quant_matmul_int", route="cuda",
+             source="src/repro_torch/kernels/csrc/quant_matmul.cu",
+             replaces="src/repro/kernels/quant_matmul/quant_matmul.py:53",
+             launches=q_launches, max_abs_err=qrow["max_abs_err"],
+             exact=qrow["max_abs_err"] == 0,
+             shape=[4, 1024, 2816], ms=qrow["ms"], plain_ms=qrow["plain_ms"],
+             bound_ms=qrow["bound_ms"], bound_by=qrow["bound_by"],
+             library_ms=qrow["library_ms"]),
+        dict(name="crossbar_exec", route="cuda",
+             source="src/repro_torch/kernels/csrc/crossbar_exec.cu",
+             replaces="src/repro/kernels/crossbar_exec/crossbar_exec.py:66",
+             launches=x_launches, max_abs_err=xbar_row["max_abs_err"],
+             exact=xbar_row["max_abs_err"] == 0,
+             shape=xbar_row["shape"], ms=xbar_row["ms"],
+             plain_ms=xbar_row["plain_ms"], bound_ms=xbar_row["bound_ms"],
+             bound_by=xbar_row["bound_by"], library_ms=None),
+    ]
+    say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s;"
+        f" launch counters now {quant_matmul_int.launches}, "
+        f"{crossbar_exec.launches}")
+    say(json.dumps({"kernels": kernels}))
+    say(card)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,132 @@
+"""Attention: GQA/MQA, sliding-window masks, KV-cache decode.
+
+Eager PyTorch: these are plain jnp functions in the reference, not Pallas
+kernels.  ``flash_attention`` keeps the reference's blockwise online
+softmax (query/key blocks of 512), so memory is O(Bq*Bk) per block pair;
+``direct_attention`` materializes the scores.  Scores and the weighted sum
+accumulate in float32, as the reference's ``preferred_element_type``
+does.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _repeat_kv(k, n_rep: int):
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def direct_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
+                     q_offset: int = 0) -> torch.Tensor:
+    """Materialized-scores attention. q: (B, Sq, H, D), k/v: (B, Sk, Hkv, D)."""
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    k = _repeat_kv(k, h // hkv)
+    v = _repeat_kv(v, h // hkv)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) / math.sqrt(d)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    k_pos = torch.arange(sk, device=q.device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    s = torch.where(mask[None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(torch.float32),
+                        v.to(torch.float32)).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
+                    q_offset: int = 0, block_q: int = 512,
+                    block_k: int = 512) -> torch.Tensor:
+    """q: (B, Sq, H, D), k/v: (B, Sk, Hkv, D) -> (B, Sq, H, D).
+
+    ``q_offset``: absolute position of q[0] (for prefill continuation).
+    ``window``: sliding-window radius (attend to keys in (pos-window, pos]).
+    """
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    k = _repeat_kv(k, h // hkv)
+    v = _repeat_kv(v, h // hkv)
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    qt = q.permute(0, 2, 1, 3)            # (B, H, Sq, D)
+    kt = k.permute(0, 2, 1, 3)
+    vt = v.permute(0, 2, 1, 3)
+    outs = []
+    for q0 in range(0, sq, block_q):
+        qblk = qt[:, :, q0:q0 + block_q].to(torch.float32)
+        bq = qblk.shape[2]
+        q_pos = q_offset + q0 + torch.arange(bq, device=dev)
+        m = torch.full((b, h, bq), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, h, bq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, h, bq, d), dtype=torch.float32, device=dev)
+        for k0 in range(0, sk, block_k):
+            kblk = kt[:, :, k0:k0 + block_k]
+            vblk = vt[:, :, k0:k0 + block_k]
+            k_pos = k0 + torch.arange(kblk.shape[2], device=dev)
+            s = torch.einsum("bhqd,bhkd->bhqk", qblk,
+                             kblk.to(torch.float32)) * scale
+            mask = torch.ones((bq, kblk.shape[2]), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask &= q_pos[:, None] >= k_pos[None, :]
+            if window is not None:
+                mask &= q_pos[:, None] - k_pos[None, :] < window
+            s = torch.where(mask[None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(vblk.dtype).to(torch.float32),
+                vblk.to(torch.float32))
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=2).permute(0, 2, 1, 3)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len=None, *,
+                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Decode-step attention: q (B, Sq, H, D) over cache (B, S, Hkv, D).
+
+    The key mask comes from ``cache_len`` (prefix semantics: indices below
+    it are live; a scalar, or (B, 1) per slot)
+    or, for non-contiguous cache layouts, from an explicit ``valid`` (B, S)
+    boolean mask — the paged pool's gather path computes per-logical-index
+    validity (unallocated sentinel blocks) that a prefix length can't
+    express — or a per-query (B, Sq, S) mask.
+    """
+    b, sq, h, d = q.shape
+    _, s, hkv, _ = k_cache.shape
+    n_rep = h // hkv
+    qg = q.reshape(b, sq, hkv, n_rep, d)
+    scores = torch.einsum("bqhgd,bshd->bhgqs", qg.to(torch.float32),
+                          k_cache.to(torch.float32))
+    scores = scores / math.sqrt(d)
+    if valid is not None:
+        mask = valid
+    else:
+        pos = torch.arange(s, device=q.device)
+        mask = pos[None, :] < cache_len
+    if mask.dim() == 3:          # per-query validity (B, Sq, S)
+        mask5 = mask[:, None, None, :, :]
+    else:
+        mask5 = torch.broadcast_to(mask, (b, s))[:, None, None, None, :]
+    scores = torch.where(mask5, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bhgqs,bshd->bqhgd", p.to(torch.float32),
+                       v_cache.to(torch.float32))
+    return out.reshape(b, sq, h, d).to(q.dtype)

@@ -1,0 +1,478 @@
+"""Model assembly: parameter specs, prefill, decode — the dense ``"ad"`` path.
+
+Parameters keep the reference's tree: ``{"embed", "final_norm", "blocks":
+{"0": {name: (n_super, ...)}}}`` with every block weight stacked over the
+layers, and the layers run as a Python loop over those stacks.  Caches keep
+the reference's layout too: ``{"0": {"k": (n_super, B, cap, hkv, hd),
+...}}`` for the contiguous pool, ``(n_super, num_blocks, block, hkv, hd)``
+for the block-paged one.
+
+Decode updates the caches **in place** and returns the same tree (the
+reference, being functional, returns new arrays): a decode step writes one
+row per slot, and copying the pool every step would cost its whole size.
+
+Not ported yet (ROADMAP queue 1): MoE, Mamba, xLSTM, cross-attention and
+encoders, sliding windows, ``prefill_packed``, prefix resume and
+``decode_run_slots``; they raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (activation, apply_rope, embed_lookup,
+                                       linear, rms_norm, unembed)
+
+Params = Dict[str, Any]
+# (shape, dtype, init kind) — init is "normal" (std 1/sqrt(fan_in)), "zeros"
+# or "ones", as in the reference's ``layers.materialize``
+Spec = Tuple[Tuple[int, ...], torch.dtype, str]
+
+#: Attention-KV leaf names eligible for block paging.
+PAGED_KV_KEYS = ("k", "v", "k_scale", "v_scale")
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    bad = [k for k in cfg.pattern if k != "ad"]
+    if bad or cfg.is_encoder_decoder or cfg.vision_dim:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense 'ad' stack is ported so far (MoE, "
+            "SSM, xLSTM and enc-dec wait in ROADMAP.md queue 1)")
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            f"{cfg.name}: sliding-window attention is not ported yet "
+            "(ROADMAP.md queue 1)")
+
+
+# ==========================================================================
+# parameter specs
+# ==========================================================================
+
+def _block_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
+    d, h, hkv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                         cfg.d_ff)
+    f32 = torch.float32
+    s = {
+        "norm1": ((d,), f32, "ones"),
+        "wq": ((d, h * hd), dt, "normal"),
+        "wk": ((d, hkv * hd), dt, "normal"),
+        "wv": ((d, hkv * hd), dt, "normal"),
+        "wo": ((h * hd, d), dt, "normal"),
+    }
+    if cfg.qkv_bias:
+        s.update(bq=((h * hd,), f32, "zeros"),
+                 bk=((hkv * hd,), f32, "zeros"),
+                 bv=((hkv * hd,), f32, "zeros"))
+    s.update(norm2=((d,), f32, "ones"),
+             w_in=((d, ff), dt, "normal"),
+             w_out=((ff, d), dt, "normal"))
+    if cfg.gated_mlp:
+        s["w_gate"] = ((d, ff), dt, "normal")
+    return s
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The parameter tree as ``(shape, dtype, init)`` leaves."""
+    _check_supported(cfg)
+    dt = cfg.compute_dtype
+    v, d, ns = cfg.padded_vocab, cfg.d_model, cfg.n_super
+    out: Params = {
+        "embed": ((v, d), dt, "normal"),
+        "final_norm": ((d,), torch.float32, "ones"),
+        "blocks": {str(i): {k: ((ns,) + shp, t, init) for k, (shp, t, init)
+                            in _block_specs(cfg, dt).items()}
+                   for i in range(len(cfg.pattern))},
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ((v, d), dt, "normal")
+    return out
+
+
+def _leaves(tree, prefix=()):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _set(tree, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
+    """Random parameters from a numpy seed (the reference's init rule:
+    normal leaves draw std ``1/sqrt(fan_in)``).  Leaves are drawn in
+    sorted-path order from one ``numpy.random.Generator(PCG64(seed))``,
+    as float32, then cast to the leaf dtype on ``device``."""
+    dev = resolve_device(device)
+    rng = np.random.Generator(np.random.PCG64(seed))
+    out: Params = {}
+    for path, (shape, dt, init) in _leaves(param_specs(cfg)):
+        if init == "zeros":
+            t = torch.zeros(shape, dtype=dt, device=dev)
+        elif init == "ones":
+            t = torch.ones(shape, dtype=dt, device=dev)
+        else:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            a = rng.standard_normal(shape, dtype=np.float32)
+            a *= np.float32(1.0 / math.sqrt(max(1, fan_in)))
+            t = torch.from_numpy(a).to(device=dev, dtype=dt)
+        _set(out, path, t)
+    return out
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    a = np.array(a, copy=True, order="C")    # writable, contiguous
+    if a.dtype.name == "bfloat16":      # ml_dtypes bfloat16: same bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def from_reference(params_np, cfg: ModelConfig, device="cuda") -> Params:
+    """The port's parameters from the reference's ``init_params`` tree
+    (leaves as numpy arrays, block weights stacked per layer), bit for
+    bit, on ``device``."""
+    dev = resolve_device(device)
+    out: Params = {}
+    for path, (shape, dt, _) in _leaves(param_specs(cfg)):
+        node = params_np
+        for k in path:
+            node = node[k]
+        t = _from_numpy(np.asarray(node))
+        if tuple(t.shape) != tuple(shape) or t.dtype != dt:
+            raise ValueError(f"reference leaf {'/'.join(path)} is "
+                             f"{tuple(t.shape)} {t.dtype}, expected "
+                             f"{shape} {dt}")
+        _set(out, path, t.to(dev))
+    return out
+
+
+# ==========================================================================
+# block application
+# ==========================================================================
+
+def _quantize_kv(x):
+    """(B, S, H, D) -> (int8 values, f32 per-(B,S,H) scales)."""
+    xf = x.to(torch.float32)
+    amax = torch.amax(torch.abs(xf), dim=-1)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127
+                    ).to(torch.int8)
+    return q, scale
+
+
+def _dequantize_kv(q, scale, dtype):
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+def _kv_leaves(k, v, quant: bool):
+    if quant:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return {"k": k, "v": v}
+
+
+def _read_kv(c, cfg: ModelConfig, quant: bool):
+    if quant:
+        return (_dequantize_kv(c["k"], c["k_scale"], cfg.compute_dtype),
+                _dequantize_kv(c["v"], c["v_scale"], cfg.compute_dtype))
+    return c["k"], c["v"]
+
+
+def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
+                    block_tables=None):
+    b, s, d = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    quant = cfg.kv_cache_dtype == "int8"
+    hh = rms_norm(x, p["norm1"], cfg.norm_eps)
+    q = linear(hh, p["wq"], p.get("bq")).reshape(b, s, h, hd)
+    k = linear(hh, p["wk"], p.get("bk")).reshape(b, s, hkv, hd)
+    v = linear(hh, p["wv"], p.get("bv")).reshape(b, s, hkv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    new_cache = None
+    if mode == "decode" and s > 1:
+        raise NotImplementedError(
+            "multi-position decode (speculative verify) is not ported yet "
+            "(ROADMAP.md queue 1)")
+    if mode == "decode" and block_tables is not None:
+        # Block-paged cache: leaves are (num_blocks, block, ...) physical
+        # stores shared by every slot; ``block_tables`` (B, blocks_per_slot)
+        # maps each slot's logical blocks to physical ones (sentinel
+        # entries point at the reserved trash block 0, which no reader
+        # unmasks).  A write at or past the slot's logical capacity lcap is
+        # routed to the trash block: the clamped table gather would
+        # otherwise resolve to the slot's *last real block* and overwrite a
+        # committed row.
+        bs_blk = cache["k"].shape[1]
+        lcap = block_tables.shape[1] * bs_blk
+        r = torch.arange(lcap, device=x.device)
+        bidx = torch.arange(b, device=x.device)
+        valid = r[None, :] <= pos[:, None]
+        blk = block_tables[bidx, torch.clamp(pos, max=lcap - 1) // bs_blk]
+        blk = torch.where(pos < lcap, blk, torch.zeros_like(blk))
+        off = pos % bs_blk
+        for key, new in _kv_leaves(k, v, quant).items():
+            cache[key][blk, off] = new[:, 0].to(cache[key].dtype)
+        gathered = {key: c[block_tables].reshape((b, lcap) + c.shape[2:])
+                    for key, c in cache.items()}
+        k_full, v_full = _read_kv(gathered, cfg, quant)
+        out = attn.decode_attention(q, k_full, v_full, valid=valid)
+        new_cache = cache
+    elif mode == "decode":
+        cap = cache["k"].shape[1]
+        leaves = _kv_leaves(k, v, quant)
+        if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+            # continuous batching: each slot writes its token at its own
+            # absolute position; a write at or past the capacity is
+            # dropped (it keeps the row's old value) rather than wrapped
+            # onto live row 0
+            bidx = torch.arange(b, device=x.device)
+            keep = (pos < cap)
+            idx = torch.clamp(pos, max=cap - 1)
+            for key, new in leaves.items():
+                c = cache[key]
+                new = new[:, 0].to(c.dtype)
+                kshape = (b,) + (1,) * (new.dim() - 1)
+                c[bidx, idx] = torch.where(keep.reshape(kshape), new,
+                                           c[bidx, idx])
+            cache_len = torch.clamp(pos + 1, max=cap)[:, None]
+        else:
+            idx = int(pos) % cap
+            for key, new in leaves.items():
+                cache[key][:, idx:idx + s] = new.to(cache[key].dtype)
+            cache_len = min(int(pos) + 1, cap)
+        k_full, v_full = _read_kv(cache, cfg, quant)
+        out = attn.decode_attention(q, k_full, v_full, cache_len)
+        new_cache = cache
+    else:
+        attn_fn = attn.flash_attention if cfg.flash_attention \
+            else attn.direct_attention
+        out = attn_fn(q, k, v, causal=True)
+        if mode == "prefill":
+            # full cache with decode headroom up to max_seq_len
+            cap = max(s, cfg.max_seq_len)
+            pad = (0, 0, 0, 0, 0, cap - s)
+            kc = torch.nn.functional.pad(k, pad) if cap > s else k
+            vc = torch.nn.functional.pad(v, pad) if cap > s else v
+            if not quant:
+                kc, vc = kc.to(cfg.compute_dtype), vc.to(cfg.compute_dtype)
+            new_cache = _kv_leaves(kc, vc, quant)
+    y = linear(out.reshape(b, s, h * hd), p["wo"])
+    return x + y, new_cache
+
+
+def _dense_ffn(hh, p, cfg: ModelConfig):
+    act = activation(cfg.activation)
+    h = act(linear(hh, p["w_in"]))
+    if cfg.gated_mlp:
+        h = h * linear(hh, p["w_gate"])
+    return linear(h, p["w_out"])
+
+
+def _mlp(x, p, cfg: ModelConfig):
+    hh = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + _dense_ffn(hh, p, cfg)
+
+
+def apply_block(kind: str, x, p, cfg: ModelConfig, *, positions, mode,
+                cache=None, pos=None, block_tables=None):
+    """Returns (x, cache_out or None)."""
+    if kind != "ad":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    x, c = _self_attention(x, p, cfg, positions, mode, cache, pos,
+                           block_tables=block_tables)
+    x = _mlp(x, p, cfg)
+    return x, c
+
+
+# ==========================================================================
+# stacks
+# ==========================================================================
+
+def _decoder_stack(params, x, cfg: ModelConfig, *, positions, mode,
+                   caches=None, pos=None, block_tables=None):
+    """Loop over super-blocks.  ``caches``: {pattern index: stacked cache}.
+    Prefill returns freshly stacked caches; decode updates ``caches`` in
+    place and returns it."""
+    per_layer = {str(i): [] for i in range(len(cfg.pattern))}
+    for layer in range(cfg.n_super):
+        for i, kind in enumerate(cfg.pattern):
+            p = {k: v[layer] for k, v in params["blocks"][str(i)].items()}
+            c = ({k: v[layer] for k, v in caches[str(i)].items()}
+                 if caches is not None else None)
+            x, cout = apply_block(kind, x, p, cfg, positions=positions,
+                                  mode=mode, cache=c, pos=pos,
+                                  block_tables=block_tables)
+            per_layer[str(i)].append(cout)
+    if mode == "decode":
+        return x, caches
+    if mode == "prefill":
+        return x, {i: {k: torch.stack([c[k] for c in cs])
+                       for k in cs[0]} for i, cs in per_layer.items()}
+    return x, None
+
+
+# ==========================================================================
+# entry points: prefill / decode
+# ==========================================================================
+
+def _embed_in(params, tokens, cfg: ModelConfig):
+    x = embed_lookup(params["embed"], tokens).to(cfg.compute_dtype)
+    if cfg.name.startswith("gemma"):
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _unembed_table(params, cfg):
+    return params.get("lm_head", params["embed"])
+
+
+def _pim_ctx(cfg: ModelConfig):
+    """Thread ``cfg.pim_mode`` into every ``linear`` below the entry
+    point; ``None`` defers to the caller's ambient ``pim.engine.mode``."""
+    if cfg.pim_mode is None:
+        return contextlib.nullcontext()
+    from repro_torch.pim import engine
+
+    return engine.mode(cfg.pim_mode)
+
+
+def prefill(params, batch, cfg: ModelConfig, last_index=None):
+    """Forward the prompt; return (last-token logits, caches).
+
+    ``last_index`` — optional (B,) int index of each request's last real
+    prompt token, for right-padded (bucketed) prompts: logits are read
+    there instead of at ``S - 1``.  Causal masking makes every position
+    <= ``last_index`` independent of the padding, so bucketed prefill is
+    exact for full-attention stacks.
+    """
+    _check_supported(cfg)
+    with _pim_ctx(cfg):
+        tokens = batch["tokens"]
+        x = _embed_in(params, tokens, cfg)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x, caches = _decoder_stack(params, x, cfg, positions=positions,
+                                   mode="prefill")
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if last_index is None:
+            xl = x[:, -1]
+        else:
+            li = torch.as_tensor(last_index, device=x.device).long()
+            xl = x[torch.arange(x.shape[0], device=x.device), li]
+        logits = unembed(xl, _unembed_table(params, cfg))
+        return logits.to(torch.float32), caches
+
+
+def decode_step(params, token, pos, caches, cfg: ModelConfig):
+    """One greedy decode step. token: (B, 1) int; pos: scalar int.
+    Updates ``caches`` in place."""
+    _check_supported(cfg)
+    with _pim_ctx(cfg):
+        x = _embed_in(params, token, cfg)
+        positions = torch.full((1,), int(pos), dtype=torch.int64,
+                               device=token.device)
+        x, new_caches = _decoder_stack(params, x, cfg, positions=positions,
+                                       mode="decode", caches=caches,
+                                       pos=int(pos))
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = unembed(x[:, -1], _unembed_table(params, cfg)
+                         ).to(torch.float32)
+        next_tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        return next_tok, logits, new_caches
+
+
+def decode_step_slots(params, tokens, pos, active, caches, cfg: ModelConfig,
+                      block_tables=None):
+    """One decode step over a slot batch (continuous batching).
+
+    ``tokens``: (B, 1) int current token per slot; ``pos``: (B,) int
+    absolute position of that token per slot; ``active``: (B,) bool slot
+    occupancy.  Shapes are fixed at ``B = max_batch``: slots attend only
+    up to their own ``pos``, and finished/empty slots keep computing on
+    stale state — an inactive slot writes its garbage KV at its own
+    position (contiguous) or, through its all-sentinel table row, into the
+    trash block (paged); its emitted token is pinned to 0.
+
+    ``block_tables`` (B, blocks_per_slot) int switches the attention
+    leaves to the block-paged layout.  Updates ``caches`` in place.
+    """
+    _check_supported(cfg)
+    with _pim_ctx(cfg):
+        pos = pos.long()
+        x = _embed_in(params, tokens, cfg)
+        x, new_caches = _decoder_stack(
+            params, x, cfg, positions=pos[:, None], mode="decode",
+            caches=caches, pos=pos,
+            block_tables=None if block_tables is None
+            else block_tables.long())
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = unembed(x[:, -1], _unembed_table(params, cfg)
+                         ).to(torch.float32)
+        next_tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        next_tok = torch.where(active[:, None], next_tok,
+                               torch.zeros_like(next_tok))
+        return next_tok, logits, new_caches
+
+
+# ==========================================================================
+# cache specs
+# ==========================================================================
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Dict:
+    """``(shape, dtype)`` of the contiguous decode caches."""
+    _check_supported(cfg)
+    ns, hkv, hd = cfg.n_super, cfg.n_kv_heads, cfg.hd
+    kv_dt = torch.int8 if cfg.kv_cache_dtype == "int8" else cfg.compute_dtype
+    out: Dict[str, Any] = {}
+    for i in range(len(cfg.pattern)):
+        c = {"k": ((ns, batch, seq_len, hkv, hd), kv_dt),
+             "v": ((ns, batch, seq_len, hkv, hd), kv_dt)}
+        if cfg.kv_cache_dtype == "int8":
+            c["k_scale"] = ((ns, batch, seq_len, hkv), torch.float32)
+            c["v_scale"] = ((ns, batch, seq_len, hkv), torch.float32)
+        out[str(i)] = c
+    return out
+
+
+def paged_cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
+                      num_blocks: int, block_size: int) -> Dict:
+    """``cache_specs`` with the attention-KV leaves re-laid as
+    ``(n_super, num_blocks, block_size, ...)`` block pools (block 0 is the
+    pool's reserved sentinel/trash block)."""
+    out = cache_specs(cfg, batch, seq_len)
+    for c in out.values():
+        for key in PAGED_KV_KEYS:
+            if key in c:
+                shape, dt = c[key]
+                c[key] = ((shape[0], num_blocks, block_size) + shape[3:], dt)
+    return out
+
+
+def zeros_like_specs(specs: Dict, device) -> Dict:
+    """Allocate a zeroed cache tree from ``(shape, dtype)`` specs."""
+    return {i: {k: torch.zeros(shape, dtype=dt, device=device)
+                for k, (shape, dt) in c.items()} for i, c in specs.items()}
+
+
+def param_count(cfg: ModelConfig) -> int:
+    return int(sum(math.prod(shape)
+                   for _, (shape, _, _) in _leaves(param_specs(cfg))))
+
+
+__all__ = ["PAGED_KV_KEYS", "param_specs", "init_params", "from_reference",
+           "apply_block", "prefill", "decode_step",
+           "decode_step_slots", "cache_specs", "paged_cache_specs",
+           "zeros_like_specs", "param_count"]

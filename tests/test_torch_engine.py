@@ -1,0 +1,132 @@
+"""The port's compile-once / execute-many engine against ``repro``:
+``matmul_int`` exact across K chunks, ``sim_linear`` bit-identical to the
+reference's host math, weight-stationary sessions exact, and the
+straight-through gradient."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.pim import engine as r_engine
+from repro_torch.pim import engine
+
+
+def _exact(x, w):
+    return x.astype(np.int64) @ w.astype(np.int64).T
+
+
+@pytest.mark.parametrize("m,k,o", [(3, 30, 5), (2, 80, 7)])
+def test_matmul_int_exact(m, k, o):
+    # K=80 runs two full 37-term chunks in one batch plus a 6-term chunk
+    rng = np.random.default_rng(k)
+    x = rng.integers(0, 256, (m, k))
+    w = rng.integers(0, 256, (o, k))
+    got = engine.matmul_int(torch.from_numpy(x), torch.from_numpy(w), 8)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), _exact(x, w))
+    want = r_engine.matmul_int(x.astype(np.uint64), w.astype(np.uint64), 8,
+                               backend="numpy")
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+def test_compile_cache_returns_one_artifact():
+    a = engine.compile_dot(5, 8)
+    info = engine.cache_info()
+    b = engine.compile_matmul(5, 8)
+    assert a is b
+    assert engine.cache_info().hits == info.hits + 1
+    assert a.microcode_on("cpu") is a.microcode_on("cpu")
+    r = r_engine.compile_dot(5, 8)
+    np.testing.assert_array_equal(a.microcode, r.microcode)
+    assert (a.x_cols, a.w_cols, a.acc_cols) == (r.x_cols, r.w_cols,
+                                                r.acc_cols)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sim_linear_bit_identical(dtype):
+    # K=64 at the smoke width: a 37-term and a 27-term chunk
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 3, 64)).astype(np.float32)
+    w = (rng.normal(size=(64, 24)) * 0.2).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = r_engine.sim_linear(jnp.asarray(x, jdt), jnp.asarray(w, jdt))
+    xt = torch.from_numpy(x).to(tdt)
+    wt = torch.from_numpy(w).to(tdt)
+    got = engine.sim_linear(xt, wt)
+    assert got.dtype == tdt and got.shape == (2, 3, 24)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+
+
+def test_sessions_keep_weights_resident_and_exact():
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy((rng.normal(size=(30, 6)) * 0.3).astype(np.float32))
+    x1 = torch.from_numpy(rng.normal(size=(4, 30)).astype(np.float32))
+    x2 = torch.from_numpy(rng.normal(size=(4, 30)).astype(np.float32))
+
+    def ref(x, w):
+        return np.asarray(r_engine.sim_linear(jnp.asarray(x.numpy()),
+                                              jnp.asarray(w.numpy())))
+
+    i0 = engine.cache_info()
+    y1 = engine.sim_linear(x1, w)
+    i1 = engine.cache_info()
+    assert i1.exec_uploads == i0.exec_uploads + 1      # cold upload
+    y2 = engine.sim_linear(x2, w)
+    y1b = engine.sim_linear(x1, w)
+    i2 = engine.cache_info()
+    assert i2.exec_hits == i1.exec_hits + 2            # weight-stationary
+    assert i2.exec_uploads == i1.exec_uploads
+    assert torch.equal(y1, y1b)
+    np.testing.assert_array_equal(y1.numpy(), ref(x1, w))
+    np.testing.assert_array_equal(y2.numpy(), ref(x2, w))
+    # an in-place change of the weight bumps its version: a cold upload,
+    # and the result follows the new weight
+    w.mul_(-0.5)
+    y3 = engine.sim_linear(x1, w)
+    i3 = engine.cache_info()
+    assert i3.exec_uploads == i2.exec_uploads + 1
+    np.testing.assert_array_equal(y3.numpy(), ref(x1, w))
+
+
+def test_session_batches_chunks_into_one_state():
+    art = engine.compile_dot(4, 8)
+    sess = engine.ExecutionSession(art)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.integers(0, 256, (3, 2, 4)))
+    w = torch.from_numpy(rng.integers(0, 256, (3, 5, 4)))
+    got = sess.execute(x, w)
+    assert got.shape == (3, 2, 5) and sess.uploads == 3
+    for p in range(3):
+        np.testing.assert_array_equal(got[p].numpy(),
+                                      _exact(x[p].numpy(), w[p].numpy()))
+    with pytest.raises(ValueError, match="terms"):
+        sess.execute(x[0, :, :3], w[0, :, :3])
+
+
+def test_sim_linear_straight_through_gradient():
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(2, 3, 16)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(16, 5)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(2, 3, 5)).astype(np.float32))
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    (engine.sim_linear(x, w) * g).sum().backward()
+    x2 = x.detach().clone().requires_grad_(True)
+    w2 = w.detach().clone().requires_grad_(True)
+    ((x2 @ w2) * g).sum().backward()        # the ideal matmul's gradient
+    torch.testing.assert_close(x.grad, x2.grad, rtol=0, atol=1e-6)
+    torch.testing.assert_close(w.grad, w2.grad, rtol=0, atol=1e-6)
+
+
+def test_mode_context():
+    assert engine.current_mode() == "xla"
+    with engine.mode("quant"):
+        assert engine.resolve_mode() == "quant"
+        with engine.mode("pim_sim"):
+            assert engine.current_mode() == "pim_sim"
+        assert engine.resolve_mode("xla") == "xla"
+    assert engine.current_mode() == "xla"
+    assert engine.MODES == r_engine.MODES
+    with pytest.raises(ValueError):
+        engine.resolve_mode("bogus")

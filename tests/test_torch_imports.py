@@ -1,0 +1,67 @@
+"""The port stands alone: no jax, nothing of ``repro``; explicit devices."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.path[:0] = [{src!r}, {root!r}]
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke                  # its top-level imports
+bad = sorted(m for m in sys.modules
+             if m == "repro" or m.startswith("repro.")
+             or (m.startswith("jax") and sys.modules[m] is not None))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_without_jax_or_reference():
+    code = _PROBE.format(src=os.path.abspath(os.path.join(ROOT, "src")),
+                         root=os.path.abspath(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 25            # every module of the port was imported
+    assert bad == "[]"
+
+
+def test_device_rule_is_explicit():
+    from repro_torch.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        # no quiet fallback: the default device is CUDA, and without a
+        # card asking for it raises
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device()
+        with pytest.raises(RuntimeError):
+            resolve_device("cuda")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """Run alone (no repo beside it) or without CUDA, the chip smoke test
+    exits non-zero and prints no result line."""
+    import shutil
+
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    env = dict(os.environ, PYTHONPATH="")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
