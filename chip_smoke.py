@@ -10,12 +10,19 @@ the kernels' launch counters just before it and reads them just after.
 
     python3 chip_smoke.py
 
-After both serves it profiles one decode step per mode (torch.profiler)
-and prints its wall and device-busy time and its costliest kernels.  The
-last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it lists the card's name and power limit, and the one before
-that the per-kernel JSON.  Any failure raises and exits non-zero before
-those lines.  Without a CUDA device it exits non-zero at once.
+The crossbar kernel is also held against its plain version on schedule
+edge cases (self-reads, a long RAW chain, a level wider than a group) and
+on the packed states of the one launch each decode-shape linear makes.
+The ``pim_sim`` phase serves twice, and its tokens must equal each other
+and those of the exact integer product; the second serve must make no
+cold upload.  After both modes it profiles one decode step per mode
+(torch.profiler) and prints its wall and device-busy time and its
+costliest kernels; the ``pim_sim`` step must make one crossbar launch per
+linear.  The last line of standard output is ``{"ok": true, "device":
+{...}}``; the line before it lists the card's name and power limit, and the
+one before that the per-kernel JSON.  Any failure raises and exits
+non-zero before those lines.  Without a CUDA device it exits non-zero at
+once.
 """
 from __future__ import annotations
 
@@ -36,7 +43,9 @@ SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
-CUDA_CORE_32BIT_OPS_PER_S = 67e12     # the non-tensor 32-bit rate
+# 32-bit integer logic runs on the INT32 lanes: 64 per SM per clock (NVIDIA
+# H100 Tensor Core GPU Architecture white paper) x 132 SMs x 1.98 GHz
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 QUANT_SHAPES_KN = ((1024, 1024), (1024, 2816), (2816, 1024))
 # ~25 ms at the H100's clock: longer than the host takes to queue any timed
@@ -174,8 +183,10 @@ def check_quant_kernel(dev):
 # --------------------------------------------------------------------------
 
 def check_crossbar_kernel(dev):
+    from repro_torch.kernels import crossbar_exec as xb
     from repro_torch.kernels.crossbar_exec import (crossbar_exec,
-                                                   crossbar_exec_ref)
+                                                   crossbar_exec_ref, plan)
+    from repro_torch.kernels.crossbar_exec.schedule import GROUP_WIDTH
     from repro_torch.pim import engine
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -185,11 +196,15 @@ def check_crossbar_kernel(dev):
         return torch.randint(-2 ** 31, 2 ** 31 - 1, (c, n, w_words),
                              dtype=torch.int32, device=dev, generator=g)
 
+    def rand_cols(k, hi=n):
+        return torch.randint(0, hi, (k,), device=dev, generator=g)
+
+    def microcode(*cols):
+        return torch.stack(cols, dim=1).to(torch.int32).contiguous()
+
     n_ops = 6000
-    mc = torch.stack(
-        [torch.randint(0, 6, (n_ops,), device=dev, generator=g)]
-        + [torch.randint(0, n, (n_ops,), device=dev, generator=g)
-           for _ in range(3)], dim=1).to(torch.int32).contiguous()
+    mc = microcode(torch.randint(0, 6, (n_ops,), device=dev, generator=g),
+                   *(rand_cols(n_ops) for _ in range(3)))
     err = 0
 
     def check(st, mc, what):
@@ -205,6 +220,38 @@ def check_crossbar_kernel(dev):
     say(f"[crossbar_exec] == plain (exact state) on random microcode "
         f"(C=3, n={n}, W={w_words}, G={n_ops}, all six codes: "
         f"{codes.tolist()})")
+    # ragged shapes: W not a multiple of 4 (word-wise state copies), odd
+    # row-word counts, tiny n, many crossbars per block
+    ragged = ((2, 5, 3, 300), (7, 64, 1, 2000), (3, 300, 2, 2000),
+              (1, 17, 5, 500), (200, 40, 1, 800))
+    for c, nn, ww, k in ragged:
+        st = torch.randint(-2 ** 31, 2 ** 31 - 1, (c, nn, ww),
+                           dtype=torch.int32, device=dev, generator=g)
+        m = microcode(torch.randint(0, 6, (k,), device=dev, generator=g),
+                      *(rand_cols(k, nn) for _ in range(3)))
+        check(st, m, f"random microcode at C, n, W = {c, nn, ww}")
+    say(f"[crossbar_exec] == plain (exact state) on random microcode at "
+        f"ragged (C, n, W, G) = {ragged}")
+
+    # edge cases of the schedule: gates that read their own destination;
+    # a 3000-gate RAW chain (each gate reads the one before: groups of 1);
+    # 2000 independent gates (one level far wider than the group width)
+    k = 3000
+    selfread = mc[:k].clone()
+    selfread[::2, 1] = selfread[::2, 3]
+    dst = rand_cols(k)
+    chain = microcode(torch.full((k,), 4, device=dev),
+                      torch.cat([dst[-1:], dst[:-1]]), rand_cols(k), dst)
+    wide = microcode(torch.randint(0, 6, (2000,), device=dev, generator=g),
+                     rand_cols(2000, 512), rand_cols(2000, 512),
+                     512 + torch.arange(2000, device=dev) % 512)
+    for name, m in (("self-reads (ia == dst)", selfread),
+                    ("a 3000-gate RAW chain", chain),
+                    ("a 2000-gate level, wider than the group", wide)):
+        check(rand_state(3), m, name)
+        p = plan(m, n)
+        say(f"[crossbar_exec] == plain (exact state) on {name}: {len(m)} "
+            f"rows in {p.n_groups} groups of {GROUP_WIDTH}")
 
     art37 = engine.compile_dot(37, 8)
     mc37 = art37.microcode_on(dev)
@@ -212,56 +259,80 @@ def check_crossbar_kernel(dev):
                    (2, engine.compile_dot(4, 8))):
         mcd = art.microcode_on(dev)
         check(rand_state(c), mcd, f"the {art.n_terms}-term dot program")
+        p = plan(mcd, n)
         say(f"[crossbar_exec] == plain (exact state) on the real "
-            f"{art.n_terms}-term dot program ({mcd.shape[0]} microcode "
-            f"rows) over {c} crossbars")
+            f"{art.n_terms}-term dot program over {c} crossbars; schedule: "
+            f"{mcd.shape[0]} rows in {p.n_groups} groups of {GROUP_WIDTH}, "
+            f"{mcd.shape[0] / p.n_groups:.2f} gates per group, padding "
+            f"{1 - mcd.shape[0] / (p.n_groups * GROUP_WIDTH):.4f}")
 
     # the integer GEMM the kernel serves: packing + kernel + unpacking on
-    # the card against the exact product, at decode-batch-2 widths
+    # the card against the exact product, at decode-batch-2 widths.  Each
+    # runs all its zero-padded 37-term chunks as one launch over 616
+    # crossbars: w_in (K=1024) 28 x 22, w_down (K=2816) 77 x 8; the
+    # captured launch input is held against the per-gate plain version.
     gi = np.random.default_rng(2)
+    seen = []
+    real = xb.crossbar_exec
+
+    def capture(state, m):
+        seen.append((state.clone(), m))
+        return real(state, m)
+
     for k, o in ((1024, 2816), (2816, 1024)):
         x = torch.as_tensor(gi.integers(0, 256, (2, k)), device=dev)
         wt = torch.as_tensor(gi.integers(0, 256, (o, k)), device=dev)
-        got = engine.matmul_int(x, wt, 8)
+        seen.clear()
+        with mock.patch.object(xb, "crossbar_exec", capture):
+            got = engine.matmul_int(x, wt, 8)
         exact = (x.double() @ wt.double().T).long()
         if not torch.equal(got, exact):
             raise AssertionError(f"matmul_int != exact product at "
                                  f"M=2 K={k} O={o}")
+        if len(seen) != 1 or seen[0][0].shape[0] != 616:
+            raise AssertionError(f"matmul_int at K={k} made "
+                                 f"{[s[0].shape[0] for s in seen]} "
+                                 "launches of crossbars, expected one of 616")
+        check(*seen[0], f"the packed state of M=2 K={k} O={o}")
     torch.cuda.synchronize()
     say("[crossbar_exec] engine.matmul_int on the card == exact integer "
-        "product at M=2, (K, O) = (1024, 2816) and (2816, 1024)")
+        "product at M=2, (K, O) = (1024, 2816) and (2816, 1024), one launch "
+        "of 616 crossbars each; kernel == plain on both packed states")
 
-    # one full-width decode-shape launch: w_in (O=2816, K=1024) at batch 2
-    # runs its 27 full 37-term chunks as 27 * ceil(2 * 2816 / 256) = 594
-    # crossbars in one launch
-    c = 27 * math.ceil(2 * 2816 / 256)
-    st = rand_state(c)
-    ms = cuda_ms(lambda i: crossbar_exec(st, mc37), 5, warmup=1)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    plain_out = crossbar_exec_ref(st, mc37)
-    end.record()
-    end.synchronize()
-    plain = start.elapsed_time(end)
-    e = max_abs_err(crossbar_exec(st, mc37), plain_out)
-    if e:
-        raise AssertionError(f"crossbar_exec != plain at the w_in decode "
-                             f"shape: max abs error {e}")
-    err = max(err, e)
+    # full-width decode-shape launches: w_in (O=2816, K=1024) at batch 2,
+    # 594 crossbars (its 27 full 37-term chunks, the shape timed before the
+    # last chunk was padded) and 616 (all 28 chunks, the last zero-padded,
+    # as matmul_int runs them)
+    rows = {}
     g_rows = mc37.shape[0]
-    nbytes = 2 * st.numel() * 4 + mc37.numel() * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = g_rows * c * w_words / CUDA_CORE_32BIT_OPS_PER_S * 1e3
-    bound = max(t_bytes, t_ops)
-    row = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound,
-               max_abs_err=err,
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               shape=[c, n, w_words, g_rows])
-    say(f"[crossbar_exec] w_in decode shape C={c} n={n} W={w_words} "
-        f"G={g_rows}: kernel {ms:.3f} ms | plain {plain:.1f} ms | bound "
-        f"{bound * 1e3:.2f} us ({row['bound_by']}) | "
-        f"{bound / ms * 100:.3f}% of bound | {g_rows / (ms * 1e-3) / 1e6:.1f}"
-        " M gates/s per row-word chain")
+    for c in (27 * math.ceil(2 * 2816 / 256), 28 * math.ceil(2 * 2816 / 256)):
+        st = rand_state(c)
+        ms = cuda_ms(lambda i: crossbar_exec(st, mc37), 10, warmup=1)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        plain_out = crossbar_exec_ref(st, mc37)
+        end.record()
+        end.synchronize()
+        plain = start.elapsed_time(end)
+        e = max_abs_err(crossbar_exec(st, mc37), plain_out)
+        if e:
+            raise AssertionError(f"crossbar_exec != plain at the w_in decode "
+                                 f"shape C={c}: max abs error {e}")
+        err = max(err, e)
+        nbytes = 2 * st.numel() * 4 + mc37.numel() * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = g_rows * c * w_words / INT32_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        rows[c] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                       bound_ms=bound,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       shape=[c, n, w_words, g_rows])
+        say(f"[crossbar_exec] w_in decode shape C={c} n={n} W={w_words} "
+            f"G={g_rows}: kernel {ms:.4f} ms | plain {plain:.1f} ms | bound "
+            f"{bound * 1e3:.2f} us ({rows[c]['bound_by']}) | "
+            f"{bound / ms * 100:.2f}% of bound | "
+            f"{g_rows / (ms * 1e-3) / 1e6:.1f} M gates/s per row-word")
+    row = dict(rows[594], max_abs_err=err, ms_616=rows[616]["ms"])
     return row
 
 
@@ -390,25 +461,48 @@ def serve_pim(params, base_cfg, dev):
         f"prefill {t_kernel:.2f} s (cold uploads), {per_prefill} "
         "crossbar_exec launches")
 
-    info0 = engine.cache_info()
-    reset_counters()
-    results, summary, wall = serve(params, cfg, dev, n_requests=2,
-                                   prompt_lens=(plen,), max_new=max_new,
-                                   max_batch=2, seed=6)
-    q_launches, x_launches = counters()
-    info = engine.cache_info()
-    if x_launches <= 0:
-        raise AssertionError("the pim_sim serve never launched "
-                             "crossbar_exec")
-    say(f"[pim_sim] served {summary['n_finished']}/{summary['n_requests']} "
-        f"requests ({plen}-token prompts, {max_new} new tokens, max_batch 2,"
-        f" paged) in {wall:.2f} s: {summary['tokens_per_s']:.3f} tok/s | "
-        f"mean TTFT {summary['mean_ttft_s'] * 1e3:.0f} ms | mean TPOT "
-        f"{summary['mean_tpot_s'] * 1e3:.0f} ms | crossbar_exec launches "
-        f"{x_launches} | quant_matmul_int launches {q_launches} | session "
-        f"exec_hits {info.exec_hits - info0.exec_hits} exec_uploads "
-        f"{info.exec_uploads - info0.exec_uploads}")
-    say(f"[pim_sim] tokens: {[r.tolist() for r in results.values()]}")
+    def serve_once(label):
+        info0 = engine.cache_info()
+        reset_counters()
+        results, summary, wall = serve(params, cfg, dev, n_requests=2,
+                                       prompt_lens=(plen,), max_new=max_new,
+                                       max_batch=2, seed=6)
+        q_launches, x_launches = counters()
+        info = engine.cache_info()
+        uploads = info.exec_uploads - info0.exec_uploads
+        if x_launches <= 0:
+            raise AssertionError("the pim_sim serve never launched "
+                                 "crossbar_exec")
+        say(f"[pim_sim] {label}: served {summary['n_finished']}/"
+            f"{summary['n_requests']} requests ({plen}-token prompts, "
+            f"{max_new} new tokens, max_batch 2, paged) in {wall:.2f} s: "
+            f"{summary['tokens_per_s']:.3f} tok/s | mean TTFT "
+            f"{summary['mean_ttft_s'] * 1e3:.1f} ms | mean TPOT "
+            f"{summary['mean_tpot_s'] * 1e3:.1f} ms | crossbar_exec launches "
+            f"{x_launches} | quant_matmul_int launches {q_launches} | "
+            f"session exec_hits {info.exec_hits - info0.exec_hits} "
+            f"exec_uploads {uploads}")
+        return results, x_launches, uploads
+
+    results, x_launches, _ = serve_once("first serve")
+    again, _, uploads = serve_once("second serve, same weights")
+    if uploads:
+        raise AssertionError(f"the second serve of the same weights made "
+                             f"{uploads} cold uploads, expected 0")
+    with mock.patch.object(engine, "matmul_int", exact):
+        want, _, _ = serve(params, cfg, dev, n_requests=2,
+                           prompt_lens=(plen,), max_new=max_new, max_batch=2,
+                           seed=6)
+    # request ids are unique per process: compare in submission order
+    first, second, oracle = ([r[k] for k in sorted(r)]
+                             for r in (results, again, want))
+    if not all(np.array_equal(a, b) and np.array_equal(a, c)
+               for a, b, c in zip(first, second, oracle)):
+        raise AssertionError(f"served tokens differ between serves "
+                             f"({first} vs {second}) or from the exact "
+                             f"integer product ({oracle})")
+    say(f"[pim_sim] tokens (both serves == exact 7-bit integer product): "
+        f"{[t.tolist() for t in first]}")
     return x_launches, cfg
 
 
@@ -436,6 +530,10 @@ def profile_decode(params, cfg, dev, max_batch, top=6):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = counters()
+    if cfg.pim_mode == "pim_sim" and launches[1] != 7 * cfg.n_layers:
+        raise AssertionError(f"the pim_sim decode step made {launches[1]} "
+                             f"crossbar_exec launches, expected one per "
+                             f"linear: {7 * cfg.n_layers}")
     events = prof.key_averages()
     kernels = sorted((e for e in events
                       if e.device_type == torch.autograd.DeviceType.CUDA),
@@ -518,6 +616,7 @@ def main() -> int:
              launches=x_launches, max_abs_err=xbar_row["max_abs_err"],
              exact=xbar_row["max_abs_err"] == 0,
              shape=xbar_row["shape"], ms=xbar_row["ms"],
+             ms_616=xbar_row["ms_616"],
              plain_ms=xbar_row["plain_ms"], bound_ms=xbar_row["bound_ms"],
              bound_by=xbar_row["bound_by"], library_ms=None),
     ]

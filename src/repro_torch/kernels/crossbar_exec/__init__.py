@@ -1,4 +1,6 @@
 from repro_torch.kernels.crossbar_exec.crossbar_exec import (
-    check_microcode, crossbar_exec, crossbar_exec_ref)
+    Plan, check_microcode, crossbar_exec, crossbar_exec_grouped_ref,
+    crossbar_exec_ref, plan)
 
-__all__ = ["check_microcode", "crossbar_exec", "crossbar_exec_ref"]
+__all__ = ["Plan", "check_microcode", "crossbar_exec",
+           "crossbar_exec_grouped_ref", "crossbar_exec_ref", "plan"]

@@ -1,22 +1,34 @@
-"""Crossbar microcode executor: the CUDA kernel's wrapper and its plain version.
+"""Crossbar microcode executor: the CUDA kernel's wrapper and its plain versions.
 
 Replaces the Pallas TPU kernel ``repro/kernels/crossbar_exec/
 crossbar_exec.py::crossbar_exec``.  The kernel is ``csrc/crossbar_exec.cu``
 (its source note gives the bound and the design).  State is ``(C, n, W)``
 int32 holding the bits of the reference's uint32 words; microcode is
 ``(G, 4)`` int32 rows ``(code, ia, ib, dst)`` with codes 0 INIT, 1 NOT,
-2 NOR, 3 OR, 4 NAND, 5 AND.  :func:`crossbar_exec` runs
-:func:`crossbar_exec_ref` for CPU tensors and launches the kernel for CUDA
-tensors; ``crossbar_exec.launches`` counts the launches.
+2 NOR, 3 OR, 4 NAND, 5 AND.
+
+The kernel runs the microcode as groups of independent gates that
+``schedule.py`` builds on the host, once per microcode tensor
+(:func:`plan`).  :func:`crossbar_exec` runs :func:`crossbar_exec_grouped_ref`
+(the same groups, in the kernel's order) for CPU tensors and launches the
+kernel for CUDA tensors; ``crossbar_exec.launches`` counts the launches.
+:func:`crossbar_exec_ref`, a per-gate loop, is the oracle both are held
+against.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
 
-__all__ = ["crossbar_exec", "crossbar_exec_ref", "check_microcode"]
+from repro_torch.kernels.crossbar_exec import schedule as sched
+
+__all__ = ["Plan", "plan", "crossbar_exec", "crossbar_exec_ref",
+           "crossbar_exec_grouped_ref", "check_microcode"]
 
 
 def crossbar_exec_ref(state: torch.Tensor, microcode: torch.Tensor
@@ -46,10 +58,33 @@ def crossbar_exec_ref(state: torch.Tensor, microcode: torch.Tensor
     return st.permute(1, 0, 2).contiguous()
 
 
-# microcode already validated for a column count: (identity) -> tensor.  The
-# entry holds the tensor, so its address cannot be reused while it is here.
-_validated: "collections.OrderedDict" = collections.OrderedDict()
-_VALIDATED_MAX = 64
+def crossbar_exec_grouped_ref(state: torch.Tensor, rows, offsets
+                              ) -> torch.Tensor:
+    """Plain version in the kernel's order: ``rows`` and ``offsets`` as
+    :func:`schedule.schedule` gives them, each group run as "gather every
+    input column, compute, scatter", vectorised over the group, on an extra
+    all-zero column ``n`` (see :func:`schedule.decode`).  Runs on the host,
+    over a CPU ``state``."""
+    if state.device.type != "cpu":
+        raise ValueError(f"the grouped plain version runs on the host; got "
+                         f"state on {state.device}")
+    c, n, w = state.shape
+    a, b, dst, orm, inv = sched.decode(np.asarray(rows), n)
+    ab = np.stack([a, b]).astype(np.intp)
+    dst = dst.astype(np.intp)
+    orm, inv = orm[:, None, None], inv[:, None, None]
+    st = np.zeros((n + 1, c, w), np.int32)
+    st[:n] = state.numpy().transpose(1, 0, 2)
+    bounds = np.asarray(offsets).tolist()
+    for s, e in zip(bounds[:-1], bounds[1:]):
+        x, y = st[ab[0, s:e]], st[ab[1, s:e]]
+        out = x & y
+        x |= y
+        x &= orm[s:e]
+        out |= x
+        out ^= inv[s:e]
+        st[dst[s:e]] = out
+    return torch.from_numpy(np.ascontiguousarray(st[:n].transpose(1, 0, 2)))
 
 
 def check_microcode(microcode: torch.Tensor, n: int) -> None:
@@ -66,14 +101,59 @@ def check_microcode(microcode: torch.Tensor, n: int) -> None:
         raise ValueError(f"microcode addresses a column outside [0, {n})")
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Plan:
+    """A microcode tensor's schedule for ``n`` columns.  ``groups`` is the
+    kernel's group records on the microcode's CUDA device (None on the
+    CPU)."""
+
+    microcode: torch.Tensor     # held, so its address is not reused
+    rows: np.ndarray            # (groups * width, 4) int32
+    offsets: np.ndarray         # (groups + 1,) int64
+    groups: Optional[torch.Tensor]
+
+    @property
+    def n_groups(self) -> int:
+        return len(self.offsets) - 1
+
+
+# schedules per microcode tensor (identity, see plan) -> Plan.  Bounded LRU.
+_plans: "collections.OrderedDict" = collections.OrderedDict()
+_PLANS_MAX = 64
+
+
+def plan(microcode: torch.Tensor, n: int) -> Plan:
+    """Validate and schedule ``microcode`` for ``n`` columns, once per
+    microcode tensor (keyed by its identity: device, address, in-place
+    version and shape).  A CUDA microcode is copied to the host once, on
+    first use, and its group records are copied back once."""
+    key = (microcode.device, microcode.data_ptr(), microcode._version,
+           tuple(microcode.shape), n)
+    hit = _plans.pop(key, None)
+    if hit is None:
+        host = microcode.cpu()
+        check_microcode(host, n)
+        rows, offsets = sched.schedule(host.numpy(), n)
+        groups = None
+        if microcode.device.type == "cuda":
+            groups = torch.from_numpy(sched.pack(rows, n)).to(
+                microcode.device)
+        hit = Plan(microcode, rows, offsets, groups)
+    _plans[key] = hit
+    while len(_plans) > _PLANS_MAX:
+        _plans.popitem(last=False)
+    return hit
+
+
 def _lib():
     from repro_torch.kernels import build
 
     lib = build.load("crossbar_exec")
     if not getattr(lib, "_typed", False):
         lib.crossbar_exec_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
         lib.crossbar_exec_launch.restype = ctypes.c_int
         lib.crossbar_exec_error_string.argtypes = [ctypes.c_int]
         lib.crossbar_exec_error_string.restype = ctypes.c_char_p
@@ -85,9 +165,9 @@ def crossbar_exec(state: torch.Tensor, microcode: torch.Tensor
                   ) -> torch.Tensor:
     """Run microcode (G, 4) int32 over state (C, n, W) int32 -> new state.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel on
-    the current stream (or raise).  The microcode's columns are checked
-    against ``n`` once per microcode tensor."""
+    CPU tensors run the grouped plain version; CUDA tensors launch the
+    kernel on the current stream (or raise).  The microcode is checked
+    against ``n`` and scheduled once per microcode tensor (:func:`plan`)."""
     if state.dim() != 3:
         raise ValueError(f"state must be (C, n, W), got {tuple(state.shape)}")
     if state.dtype != torch.int32 or microcode.dtype != torch.int32:
@@ -96,31 +176,22 @@ def crossbar_exec(state: torch.Tensor, microcode: torch.Tensor
     if state.device != microcode.device:
         raise ValueError(f"state on {state.device}, microcode on "
                          f"{microcode.device}")
-    c, n, w = state.shape
-    key = (microcode.device, microcode.data_ptr(), microcode._version,
-           tuple(microcode.shape), n)
-    if key not in _validated:
-        check_microcode(microcode, n)
-        _validated[key] = microcode
-        while len(_validated) > _VALIDATED_MAX:
-            _validated.popitem(last=False)
-    if state.device.type == "cpu":
-        return crossbar_exec_ref(state, microcode)
-    if state.device.type != "cuda":
+    if state.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {state.device}")
-    if not (state.is_contiguous() and microcode.is_contiguous()):
-        raise ValueError("crossbar_exec needs contiguous state and microcode")
-    if microcode.data_ptr() % 16:
-        raise ValueError("crossbar_exec reads microcode rows as int4: it "
-                         "must start on a 16-byte boundary")
+    c, n, w = state.shape
+    p = plan(microcode, n)
+    if state.device.type == "cpu":
+        return crossbar_exec_grouped_ref(state, p.rows, p.offsets)
+    if not state.is_contiguous():
+        raise ValueError("crossbar_exec needs a contiguous state")
     out = torch.empty_like(state)
     if c == 0:
         return out
     lib = _lib()
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
-        err = lib.crossbar_exec_launch(microcode.data_ptr(),
-                                       microcode.shape[0], state.data_ptr(),
+        err = lib.crossbar_exec_launch(p.groups.data_ptr(), p.n_groups,
+                                       sched.GROUP_WIDTH, state.data_ptr(),
                                        out.data_ptr(), c, n, w, stream)
     if err:
         raise RuntimeError("crossbar_exec launch failed: "

@@ -18,9 +18,9 @@ The driving side of the partitioned crossbar, as one API:
   CUDA crossbar kernel for a CUDA tensor and on its plain version for a
   CPU tensor (``kernels.crossbar_exec``).
 * :func:`matmul_int` — the exact integer GEMM over the session pool, with
-  inner dimensions longer than one row's column budget split into chunks;
-  all chunks of one length run as one batch of crossbars, so a linear
-  costs one kernel launch per distinct chunk length.
+  inner dimensions longer than one row's column budget split into chunks
+  and the last chunk zero-padded to a whole one; all chunks run as one
+  batch of crossbars, so a linear costs one kernel launch.
 * :func:`mode` / :func:`current_mode` / :func:`resolve_mode` — an
   explicit, exception-safe context manager selecting how
   ``models.layers.linear`` lowers a matmul (``"xla"`` | ``"quant"`` |
@@ -258,6 +258,7 @@ def clear_cache() -> None:
         _sessions.clear()
         _exec_hits = _exec_uploads = 0
     _derived.clear()
+    _chunked.clear()
 
 
 # ==========================================================================
@@ -417,11 +418,13 @@ def matmul_int(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8, *,
     ``x`` (M, K) and ``w`` (O, K) hold unsigned ints below ``2**n_bits``;
     returns (M, O) int64 on their device.  The compile step is cached.
     Inner dimensions longer than one row's column budget
-    (``max_dot_terms``) are split into chunks; the full-length chunks run
-    as one batch of GEMMs (one launch, one artifact) and the remainder as
-    another, and the partials are summed exactly in int64.  Execution goes
-    through the pooled :class:`ExecutionSession` of each artifact, so
-    repeated calls with the same ``w`` tensor keep crossbar state resident.
+    (``max_dot_terms``) are zero-padded to whole chunks, and all
+    ``ceil(K / chunk)`` chunks run as one batch of GEMMs: one artifact, one
+    kernel launch.  Zero terms add nothing, so the partials, summed in
+    int64, are exact.  Execution goes through the pooled
+    :class:`ExecutionSession` of the artifact, so repeated calls with the
+    same ``w`` tensor keep crossbar state resident (the padded weight is
+    made once per weight tensor, see :func:`_chunked_weight`).
     """
     from repro_torch.pim.matmul import max_dot_terms
 
@@ -432,24 +435,39 @@ def matmul_int(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8, *,
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1]:
         raise ValueError(f"expected (M, K) x (O, K), got {tuple(x.shape)} x "
                          f"{tuple(w.shape)}")
-
-    def run(xs, ws):
-        artifact = compile_matmul(xs.shape[-1], n_bits, model=model,
-                                  accumulate=accumulate, n_cols=n_cols)
-        return session_for(artifact, rows_per_crossbar=rows_per_crossbar
-                           ).execute(xs, ws)
-
     k = x.shape[1]
-    if k <= chunk:
-        return run(x, w)
-    n_full, rem = divmod(k, chunk)
-    cut = n_full * chunk
-    acc = run(x[:, :cut].unflatten(1, (n_full, chunk)).transpose(0, 1),
-              w[:, :cut].unflatten(1, (n_full, chunk)).transpose(0, 1)
-              ).sum(dim=0)
-    if rem:
-        acc = acc + run(x[:, cut:], w[:, cut:])
-    return acc
+    if k > chunk:
+        p = -(-k // chunk)
+        x = torch.nn.functional.pad(x, (0, p * chunk - k))
+        x = x.unflatten(1, (p, chunk)).transpose(0, 1)
+        w = _chunked_weight(w, p, chunk)
+    artifact = compile_matmul(min(k, chunk), n_bits, model=model,
+                              accumulate=accumulate, n_cols=n_cols)
+    acc = session_for(artifact, rows_per_crossbar=rows_per_crossbar
+                      ).execute(x, w)
+    return acc.sum(dim=0) if k > chunk else acc
+
+
+# zero-padded, chunked weights per weight tensor (identity key, see
+# _tensor_key) -> (weight, (P, O, chunk) view).  The cached view's stable
+# identity is what keeps the crossbar state resident across calls.
+# Bounded LRU.
+_chunked: "collections.OrderedDict" = collections.OrderedDict()
+_CHUNKED_MAX = 4096
+
+
+def _chunked_weight(w: torch.Tensor, p: int, chunk: int) -> torch.Tensor:
+    """``w`` (O, K) zero-padded to (O, p * chunk), as a (p, O, chunk) view;
+    made once per weight tensor."""
+    key = (_tensor_key(w), p, chunk)
+    hit = _chunked.pop(key, None)
+    if hit is None:
+        wp = torch.nn.functional.pad(w, (0, p * chunk - w.shape[1]))
+        hit = (w, wp.unflatten(1, (p, chunk)).transpose(0, 1))
+    _chunked[key] = hit
+    while len(_chunked) > _CHUNKED_MAX:
+        _chunked.popitem(last=False)
+    return hit[1]
 
 
 # ==========================================================================

@@ -10,7 +10,7 @@ ops on the CPU); compare with the reference through
 ``numpy.view(np.uint32)``.
 
 :func:`execute` runs the microcode on the state's device: the CUDA kernel
-``kernels.crossbar_exec`` for a CUDA tensor, its plain per-gate version for
+``kernels.crossbar_exec`` for a CUDA tensor, its grouped plain version for
 a CPU tensor.  The writers update the state in place (it can be large, and
 every caller replaces its state anyway) and return it.
 

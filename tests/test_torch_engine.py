@@ -15,9 +15,11 @@ def _exact(x, w):
     return x.astype(np.int64) @ w.astype(np.int64).T
 
 
-@pytest.mark.parametrize("m,k,o", [(3, 30, 5), (2, 80, 7)])
+@pytest.mark.parametrize("m,k,o", [(3, 30, 5), (2, 80, 7), (2, 79, 4),
+                                   (2, 1024, 3)])
 def test_matmul_int_exact(m, k, o):
-    # K=80 runs two full 37-term chunks in one batch plus a 6-term chunk
+    # K > 37 runs ceil(K / 37) 37-term chunks, the last zero-padded, as one
+    # batch: K=79 is 2 * 37 + 5, K=1024 is 27 * 37 + 25
     rng = np.random.default_rng(k)
     x = rng.integers(0, 256, (m, k))
     w = rng.integers(0, 256, (o, k))
@@ -44,7 +46,7 @@ def test_compile_cache_returns_one_artifact():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_sim_linear_bit_identical(dtype):
-    # K=64 at the smoke width: a 37-term and a 27-term chunk
+    # K=64 at the smoke width: two 37-term chunks, the second zero-padded
     rng = np.random.default_rng(0)
     x = rng.normal(size=(2, 3, 64)).astype(np.float32)
     w = (rng.normal(size=(64, 24)) * 0.2).astype(np.float32)
@@ -87,6 +89,35 @@ def test_sessions_keep_weights_resident_and_exact():
     i3 = engine.cache_info()
     assert i3.exec_uploads == i2.exec_uploads + 1
     np.testing.assert_array_equal(y3.numpy(), ref(x1, w))
+
+
+def test_one_artifact_and_one_launch_per_linear():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.integers(0, 256, (2, 79)))
+    w = torch.from_numpy(rng.integers(0, 256, (3, 79)))
+    engine.clear_cache()
+    got = engine.matmul_int(x, w, 8)
+    info = engine.cache_info()
+    assert info.builds == 1 and info.size == 1       # the 37-term program
+    assert info.exec_uploads == 3                    # one per chunk GEMM
+    np.testing.assert_array_equal(got.numpy(), _exact(x.numpy(), w.numpy()))
+
+
+def test_second_call_with_the_same_weight_uploads_nothing():
+    # the zero-padded weight is made once per weight tensor, so the padded
+    # chunks keep their crossbar state resident across calls
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy((rng.normal(size=(79, 4)) * 0.2).astype(np.float32))
+    x1 = torch.from_numpy(rng.normal(size=(2, 79)).astype(np.float32))
+    x2 = torch.from_numpy(rng.normal(size=(2, 79)).astype(np.float32))
+    engine.sim_linear(x1, w)
+    i1 = engine.cache_info()
+    y2 = engine.sim_linear(x2, w)
+    i2 = engine.cache_info()
+    assert i2.exec_uploads == i1.exec_uploads
+    assert i2.exec_hits == i1.exec_hits + 3
+    want = r_engine.sim_linear(jnp.asarray(x2.numpy()), jnp.asarray(w.numpy()))
+    np.testing.assert_array_equal(y2.numpy(), np.asarray(want))
 
 
 def test_session_batches_chunks_into_one_state():
