@@ -10,15 +10,22 @@ the kernels' launch counters just before it and reads them just after.
 
     python3 chip_smoke.py
 
-The crossbar kernel is also held against its plain version on schedule
-edge cases (self-reads, a long RAW chain, a level wider than a group) and
-on the packed states of the one launch each decode-shape linear makes.
+The int8 GEMM kernel is held against its plain version at the path's
+shapes, at ragged shapes, on extreme operands, at K and N off the split and
+tile sizes, at unaligned pointers and in back-to-back calls (its split-K
+arrival counters must come back to zero); one call must be one device
+operation (the nodes of a CUDA graph captured around it; a torch.profiler
+trace may show nothing else), and its times sit beside its bound, an empty
+launch and torch._int_mm.  The crossbar kernel is also held against its
+plain version on schedule edge cases (self-reads, a long RAW chain, a
+level wider than a group) and on the packed states of the one launch each
+decode-shape linear makes.
 The ``pim_sim`` phase serves twice, and its tokens must equal each other
 and those of the exact integer product; the second serve must make no
 cold upload.  After both modes it profiles one decode step per mode
 (torch.profiler) and prints its wall and device-busy time and its
-costliest kernels; the ``pim_sim`` step must make one crossbar launch per
-linear.  The last line of standard output is ``{"ok": true, "device":
+costliest kernels; each step must make one launch of its mode's kernel
+per linear.  The last line of standard output is ``{"ok": true, "device":
 {...}}``; the line before it lists the card's name and power limit, and the
 one before that the per-kernel JSON.  Any failure raises and exits
 non-zero before those lines.  Without a CUDA device it exits non-zero at
@@ -26,6 +33,8 @@ once.
 """
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -93,6 +102,44 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
+# CUgraphNodeType (CUDA driver API)
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "graph", 5: "empty", 6: "wait_event",
+                    7: "event_record"}
+
+
+def graph_ops(fn) -> list:
+    """The device operations one call of ``fn`` enqueues: the node types of
+    a CUDA graph captured around the call, read through the driver API.
+    Unlike a profiler trace this count cannot lose an operation.  ``fn`` is
+    called once on the capture stream first, so that what it allocates
+    once per stream is not part of the capture."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * max(count.value, 1))()
+    if count.value and cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes[:count.value]:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds.append(GRAPH_NODE_TYPES.get(kind.value, str(kind.value)))
+    del graph
+    return kinds
+
+
 def rotating(make, nbytes: int, budget: int = 200 << 20):
     """Enough copies of an input that cycling through them overruns the
     50 MB L2: each launch finds its weight cold, as in a served step."""
@@ -104,8 +151,12 @@ def rotating(make, nbytes: int, budget: int = 200 << 20):
 # --------------------------------------------------------------------------
 
 def check_quant_kernel(dev):
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.kernels.quant_matmul import (quant_matmul_int,
-                                                  quant_matmul_int_ref)
+                                                  quant_matmul_int_ref,
+                                                  quantize_sym)
+    from repro_torch.kernels.quant_matmul.quant_matmul import _launch, plan
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -117,6 +168,11 @@ def check_quant_kernel(dev):
             for k, n in QUANT_SHAPES_KN]
     ragged = [(1, 1, 1), (3, 77, 5), (17, 200, 130), (5, 1000, 1001),
               (129, 33, 257), (2, 4097, 3)]
+    # K not a multiple of the split or of 32, N not a multiple of 16, and a
+    # large M split in two
+    edges = [(4, 2815, 1024), (4, 2817, 1024), (4, 4097, 1024),
+             (4, 2817, 2816), (4, 1024, 1000), (16, 1024, 1030),
+             (64, 2816, 1000), (2100, 2048, 2048)]
     err = 0
 
     def check(x, w, what):
@@ -127,7 +183,7 @@ def check_quant_kernel(dev):
                                  f"abs error {e}")
         err = max(err, e)
 
-    for m, k, n in path + ragged:
+    for m, k, n in path + ragged + edges:
         check(rand(m, k), rand(k, n), f"M, K, N = {m, k, n}")
     for m, k, n in ((4, 2816, 1024), (64, 1024, 2816)):
         for xv, wv in ((-128, -128), (127, -128), (127, 127), (-128, 127)):
@@ -141,11 +197,97 @@ def check_quant_kernel(dev):
         x[:, ::3] = -128
         w[::5] = 127
         check(x, w, f"mixed extremes at {m, k, n}")
+    # operands at pointers off a 16-byte boundary: contiguous slices of a
+    # larger buffer
+    for m, k, n, xo, wo in ((4, 1024, 2816, 0, 1), (4, 1024, 2816, 3, 8),
+                            (16, 2816, 1024, 5, 4), (3, 77, 130, 1, 7)):
+        xb, wb = rand(m * k + xo), rand(k * n + wo)
+        check(xb[xo:].view(m, k), wb[wo:].view(k, n),
+              f"M, K, N = {m, k, n} at byte offsets {xo} (x), {wo} (w)")
+    # the arrival counters come back to zero: one shape three times, then
+    # two shapes interleaved on one stream, every result exact
+    runs = [(4, 1024, 2816)] * 3 + [(4, 1024, 1024), (16, 2816, 1024)] * 3
+    ops = [(rand(m, k), rand(k, n)) for m, k, n in runs]
+    outs = [quant_matmul_int(x, w) for x, w in ops]
+    for (x, w), got, shape in zip(ops, outs, runs):
+        e = max_abs_err(got, quant_matmul_int_ref(x, w))
+        if e:
+            raise AssertionError(f"quant_matmul_int != plain in back-to-back"
+                                 f" calls at {shape}: max abs error {e}")
     torch.cuda.synchronize()
     say(f"[quant_matmul_int] == plain (exact int32, max abs error {err}) on "
-        f"{len(path)} path shapes, {len(ragged)} ragged shapes and 10 "
-        "extreme-operand cases")
+        f"{len(path)} path shapes, {len(ragged)} ragged shapes, "
+        f"{len(edges)} split/column edges {edges}, 10 extreme-operand cases, "
+        f"4 unaligned-pointer cases and {len(runs)} back-to-back calls (one "
+        "shape 3 times, two interleaved)")
 
+    # device operations in one call: the kernel alone (no memset), counted
+    # twice.  First the nodes of a CUDA graph captured around one call: an
+    # exact count, and it must be 1.  Then a torch.profiler trace of 10
+    # calls between two marker kernels.  A trace can lose events (on the
+    # H100 some showed fewer calls than were made and no marker, one showed
+    # no device operation at all), but it cannot add any, so every trace
+    # must show nothing but the kernel, at most once per call; a trace that
+    # lost a marker or a call is taken again, up to 3 times.
+    def device_ops(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [(e.key, e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    x, w = rand(4, 1024), rand(1024, 2816)
+    graph_kinds = graph_ops(lambda: quant_matmul_int(x, w))
+    n_ops = len(graph_kinds)
+    say(f"[quant_matmul_int] device operations in one call at M, K, N = "
+        f"(4, 1024, 2816), from a CUDA graph captured around it: {n_ops} "
+        f"{graph_kinds}")
+    if graph_kinds != ["kernel"]:
+        raise AssertionError(f"one quant_matmul_int call ran {n_ops} device "
+                             f"operations, expected 1 kernel: {graph_kinds}")
+    calls, traced = 10, None
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                quant_matmul_int(x, w)
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        ops = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+        markers = sum(c for key, c in ops.items() if "spin_kernel" in key)
+        ours = sum(c for key, c in ops.items()
+                   if "quant_matmul_kernel" in key)
+        other = {key: c for key, c in ops.items() if "spin_kernel" not in key
+                 and "quant_matmul_kernel" not in key}
+        if other or ours > calls or markers > 2:
+            raise AssertionError(f"{calls} quant_matmul_int calls ran device "
+                                 f"operations other than the kernel: {ops}")
+        if markers == 2 and ours == calls:
+            traced = ours / calls
+            break
+        say(f"[quant_matmul_int] torch.profiler trace {attempt} lost events "
+            f"(markers {markers} of 2, kernels {ours} of {calls}); tracing "
+            "again")
+    say(f"[quant_matmul_int] device operations per call in a torch.profiler "
+        f"trace of {calls} calls: "
+        + (f"{traced:g} (trace {attempt})" if traced is not None else
+           "not measured (all 3 traces lost events; none showed another "
+           "operation)"))
+    # the rest of a quant linear: the per-column quantization of a weight
+    wf = torch.randn(1024, 2816, device=dev, dtype=torch.bfloat16)
+    q_ops = device_ops(lambda: quantize_sym(wf.float(), axis=0))
+    say(f"[quant_matmul_int] beside it, quantize_sym of a (1024, 2816) "
+        f"weight: {sum(c for _, c in q_ops)} device operations, of them "
+        f"{sum(c for k, c in q_ops if 'memset' in k.lower())} memsets")
+
+    floor = cuda_ms(lambda i: torch.cuda._sleep(0), 50)
+    say(f"[quant_matmul_int] launch floor (an empty kernel, back to back): "
+        f"{floor * 1e3:.2f} us")
     rows = {}
     for m, k, n in path:
         if m not in (1, 4, 16, 64):
@@ -155,26 +297,43 @@ def check_quant_kernel(dev):
         ms = cuda_ms(lambda i: quant_matmul_int(x, ws[i % len(ws)]), 50)
         plain = cuda_ms(lambda i: quant_matmul_int_ref(x, ws[i % len(ws)]),
                         20)
-        if m > 16:
-            lib = cuda_ms(lambda i: torch._int_mm(x, ws[i % len(ws)]), 50)
-        else:
-            lib = None
+        # torch._int_mm refuses M <= 16: there it runs x zero-padded to 32
+        # rows, padded once here
+        xl = x if m > 16 else torch.cat(
+            [x, x.new_zeros(32 - m, k)]).contiguous()
+        lib = cuda_ms(lambda i: torch._int_mm(xl, ws[i % len(ws)]), 50)
         nbytes = m * k + k * n + 4 * m * n
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = 2 * m * k * n / INT8_TENSOR_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
-        rows[(m, k, n)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                               bound_ms=bound, max_abs_err=err,
-                               bound_by="bytes" if t_bytes >= t_ops
-                               else "operations")
-        lib_s = "  n/a  " if lib is None else f"{lib * 1e3:7.2f}"
-        say(f"[quant_matmul_int] M={m:3d} K={k:4d} N={n:4d}: kernel "
-            f"{ms * 1e3:7.2f} us | plain {plain * 1e3:8.2f} us | _int_mm "
-            f"{lib_s} us | bound {bound * 1e3:5.2f} us "
-            f"({rows[(m, k, n)]['bound_by']}) | {bound / ms * 100:5.1f}% of "
-            "bound")
-    say("[quant_matmul_int] torch._int_mm is timed only at M > 16: it "
-        "refuses M <= 16 on CUDA (its first operand needs more than 16 rows)")
+        p = plan(m, k, n)
+        if p.splits == 1 and k == 1024:
+            # the same call with K split 3 ways across blocks (192 blocks,
+            # one per SM and more), for the plan's choice not to split
+            p3 = dataclasses.replace(p, splits=3)
+            ms3 = cuda_ms(lambda i: _launch(x, ws[i % len(ws)], p3), 50)
+            e = max_abs_err(_launch(x, ws[0], p3),
+                            quant_matmul_int_ref(x, ws[0]))
+            if e:
+                raise AssertionError(f"quant_matmul_int with 3 splits != "
+                                     f"plain at {m, k, n}: {e}")
+            say(f"[quant_matmul_int] M={m:3d} K={k:4d} N={n:4d}: "
+                f"{p.col_tiles}x1 blocks {ms * 1e3:6.2f} us | "
+                f"{p.col_tiles}x3 blocks {ms3 * 1e3:6.2f} us")
+        rows[(m, k, n)] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib,
+            library="torch._int_mm" if m > 16
+            else "torch._int_mm, M padded to 32",
+            launch_floor_ms=floor, device_ops_per_call=n_ops,
+            device_ops_per_call_traced=traced,
+            bound_ms=bound, max_abs_err=err,
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        say(f"[quant_matmul_int] M={m:3d} K={k:4d} N={n:4d} "
+            f"({p.col_tiles}x{p.splits} blocks): kernel {ms * 1e3:6.2f} us |"
+            f" plain {plain * 1e3:7.2f} us | {rows[(m, k, n)]['library']} "
+            f"{lib * 1e3:6.2f} us | launch floor {floor * 1e3:5.2f} us | "
+            f"bound {bound * 1e3:5.2f} us ({rows[(m, k, n)]['bound_by']}) | "
+            f"{bound / ms * 100:5.1f}% of bound")
     return rows
 
 
@@ -508,7 +667,8 @@ def serve_pim(params, base_cfg, dev):
 
 def profile_decode(params, cfg, dev, max_batch, top=6):
     """Profile one decode step of a warm scheduler: wall and device-busy
-    time, kernel launches, and the ``top`` kernels by device time."""
+    time, kernel launches, memset nodes, the ``top`` kernels by device time
+    and the port's own kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import (Scheduler, ServingConfig,
@@ -530,6 +690,10 @@ def profile_decode(params, cfg, dev, max_batch, top=6):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = counters()
+    if cfg.pim_mode == "quant" and launches[0] != 7 * cfg.n_layers:
+        raise AssertionError(f"the quant decode step made {launches[0]} "
+                             f"quant_matmul_int launches, expected one per "
+                             f"linear: {7 * cfg.n_layers}")
     if cfg.pim_mode == "pim_sim" and launches[1] != 7 * cfg.n_layers:
         raise AssertionError(f"the pim_sim decode step made {launches[1]} "
                              f"crossbar_exec launches, expected one per "
@@ -540,12 +704,15 @@ def profile_decode(params, cfg, dev, max_batch, top=6):
                      key=lambda e: -e.self_device_time_total)
     dev_us = sum(e.self_device_time_total for e in kernels)
     host_us = sum(e.self_cpu_time_total for e in events)
+    memsets = sum(e.count for e in kernels if "memset" in e.key.lower())
     name = f"{cfg.pim_mode} decode step, batch {max_batch}"
     say(f"[profile] {name}: wall {wall * 1e3:.2f} ms, device busy "
         f"{dev_us / 1e3:.2f} ms ({dev_us / 1e3 / (wall * 1e3) * 100:.1f}%), "
         f"host ops {host_us / 1e3:.2f} ms, launches (quant_matmul_int, "
-        f"crossbar_exec) {launches}")
-    for e in kernels[:top]:
+        f"crossbar_exec) {launches}, memset nodes {memsets}")
+    ours = [e for e in kernels[top:] if "quant_matmul_kernel" in e.key
+            or "crossbar_exec_kernel" in e.key]
+    for e in kernels[:top] + ours:
         say(f"[profile] {name}: {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:5d} x {e.self_device_time_total / e.count:9.2f} us  "
             f"{e.key[:70]}")
@@ -609,7 +776,10 @@ def main() -> int:
              exact=qrow["max_abs_err"] == 0,
              shape=[4, 1024, 2816], ms=qrow["ms"], plain_ms=qrow["plain_ms"],
              bound_ms=qrow["bound_ms"], bound_by=qrow["bound_by"],
-             library_ms=qrow["library_ms"]),
+             library_ms=qrow["library_ms"], library=qrow["library"],
+             launch_floor_ms=qrow["launch_floor_ms"],
+             device_ops_per_call=qrow["device_ops_per_call"],
+             device_ops_per_call_traced=qrow["device_ops_per_call_traced"]),
         dict(name="crossbar_exec", route="cuda",
              source="src/repro_torch/kernels/csrc/crossbar_exec.cu",
              replaces="src/repro/kernels/crossbar_exec/crossbar_exec.py:66",
