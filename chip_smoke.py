@@ -21,8 +21,22 @@ plain version on schedule edge cases (self-reads, a long RAW chain, a
 level wider than a group) and on the packed states of the one launch each
 decode-shape linear makes.
 The ``pim_sim`` phase serves twice, and its tokens must equal each other
-and those of the exact integer product; the second serve must make no
-cold upload.  After both modes it profiles one decode step per mode
+and those of the exact integer product; prefill runs on transient crossbar
+state, and the second serve's decode steps must make no cold upload.
+
+Then both modes serve through the prefix cache, chunked and packed
+prefill.  ``quant`` serves one trace (four short prompts, then eight
+requests sharing a 32-token system prompt) on the plain path and with
+``prefix_cache``, ``prefill_chunk=32``, ``step_token_budget=64`` and
+``packed_prefill``: the tokens must be equal, prefix hits, chunks and
+packed prefills must occur, and one prompt's last-token logits from
+whole, prefix-resumed, chunked and packed prefill must agree within
+``PREFIX_LOGIT_TOL``; a fork in the paged pool must copy its shared
+boundary block on write and leave the index's blocks unchanged.
+``pim_sim`` serves three requests sharing a 16-token prefix through the
+prefix cache and 16-token chunks, tokens held to the exact integer
+product, then one 64-token prompt whose memory high-water mark must stay
+below ``PIM_PEAK_BYTES``.  Last it profiles one decode step per mode
 (torch.profiler) and prints its wall and device-busy time and its
 costliest kernels; each step must make one launch of its mode's kernel
 per linear.  The last line of standard output is ``{"ok": true, "device":
@@ -57,6 +71,12 @@ INT8_TENSOR_OPS_PER_S = 1979e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 QUANT_SHAPES_KN = ((1024, 1024), (1024, 2816), (2816, 1024))
+# last-token logits of one prompt from whole, prefix-resumed, chunked and
+# packed prefill (bf16 model, |logit| below about 0.5): a few bf16 ulps
+PREFIX_LOGIT_TOL = 0.02
+# the pim_sim phase that serves a 64-token prompt (prefill states are
+# transient; kept resident they would take about 64 GiB)
+PIM_PEAK_BYTES = 16 << 30
 # ~25 ms at the H100's clock: longer than the host takes to queue any timed
 # run of launches below
 SLEEP_CYCLES = 50_000_000
@@ -164,7 +184,9 @@ def check_quant_kernel(dev):
         return torch.randint(-128, 128, shape, dtype=torch.int8, device=dev,
                              generator=g)
 
-    path = [(m, k, n) for m in (1, 4, 16, 32, 48, 64)
+    # M up to 512: prefix tails, chunks and packed streams (the packed
+    # stream's cap); 23 and 80 are ragged tails
+    path = [(m, k, n) for m in (1, 4, 16, 23, 32, 48, 64, 80, 128, 512)
             for k, n in QUANT_SHAPES_KN]
     ragged = [(1, 1, 1), (3, 77, 5), (17, 200, 130), (5, 1000, 1001),
               (129, 33, 257), (2, 4097, 3)]
@@ -514,34 +536,46 @@ def counters():
     return quant_matmul_int.launches, crossbar_exec.launches
 
 
+def serve_requests(params, cfg, dev, trace, **kw):
+    """Serve ``trace`` [(prompt, new tokens)] through the scheduler with
+    ``ServingConfig(**kw)``; returns the tokens in submission order, the
+    metrics summary and the wall time."""
+    from repro_torch.launch.serve import serve_trace
+    from repro_torch.serving import make_request
+
+    reqs = [make_request(p, n, arrival_time=time.monotonic())
+            for p, n in trace]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, summary = serve_trace(params, cfg, reqs, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = [results[r.rid] for r in reqs]
+    if summary["n_finished"] != len(trace):
+        raise AssertionError(f"served {summary['n_finished']} of "
+                             f"{len(trace)} requests")
+    for (_, n), t in zip(trace, toks):
+        if len(t) != n or t.min() < 0 or t.max() >= cfg.padded_vocab:
+            raise AssertionError(f"bad tokens {t}")
+    if summary["decode_traces"] != 1:
+        raise AssertionError(f"decode step saw {summary['decode_traces']} "
+                             "input shapes, expected 1")
+    return [t.tolist() for t in toks], summary, wall
+
+
 def serve(params, cfg, dev, *, n_requests, prompt_lens, max_new, max_batch,
           seed):
-    from repro_torch.launch.serve import serve_trace
+    """A synthetic trace through the paged scheduler; returns the tokens in
+    submission order, the summary and the wall time (``serve_requests``)."""
     from repro_torch.serving import synthetic_requests
 
     reqs = synthetic_requests(n_requests, vocab_size=cfg.vocab_size,
                               prompt_lens=prompt_lens,
-                              max_new_tokens=max_new, seed=seed,
-                              start_time=time.monotonic())
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results, summary = serve_trace(
-        params, cfg, reqs, max_batch=max_batch,
-        prompt_bucket=max(8, max(prompt_lens) // 4), paged=True,
-        device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    if summary["n_finished"] != n_requests or len(results) != n_requests:
-        raise AssertionError(f"served {summary['n_finished']} of "
-                             f"{n_requests} requests")
-    for rid, toks in results.items():
-        if len(toks) != max_new or toks.min() < 0 \
-                or toks.max() >= cfg.padded_vocab:
-            raise AssertionError(f"request {rid}: bad tokens {toks}")
-    if summary["decode_traces"] != 1:
-        raise AssertionError(f"decode step saw {summary['decode_traces']} "
-                             "input shapes, expected 1")
-    return results, summary, wall
+                              max_new_tokens=max_new, seed=seed)
+    return serve_requests(params, cfg, dev,
+                          [(r.prompt, r.max_new_tokens) for r in reqs],
+                          max_batch=max_batch, paged=True,
+                          prompt_bucket=max(8, max(prompt_lens) // 4))
 
 
 def prefill_logits(params, cfg, tokens):
@@ -588,7 +622,7 @@ def serve_quant(params, base_cfg, dev):
         f"{summary['mean_tpot_s'] * 1e3:.2f} ms | decode_traces "
         f"{summary['decode_traces']} | quant_matmul_int launches "
         f"{q_launches} | crossbar_exec launches {x_launches}")
-    say(f"[quant] sample generation: {results[min(results)].tolist()}")
+    say(f"[quant] sample generation: {results[0]}")
     return q_launches, cfg
 
 
@@ -600,10 +634,16 @@ def serve_pim(params, base_cfg, dev):
     toks = torch.as_tensor(np.random.default_rng(5).integers(
         0, cfg.vocab_size, (1, plen)), device=dev)
     reset_counters()
+    info0 = engine.cache_info()
     t0 = time.perf_counter()
     got = prefill_logits(params, cfg, toks)
     t_kernel = time.perf_counter() - t0
     per_prefill = counters()[1]
+    info = engine.cache_info()
+    if info.resident_entries != info0.resident_entries or \
+            info.exec_uploads != info0.exec_uploads:
+        raise AssertionError("a pim_sim prefill kept crossbar state "
+                             "resident")
 
     def exact(x, w, n_bits=8, **kw):
         # each linear as the exact integer product: |sum| < 2**53
@@ -617,8 +657,9 @@ def serve_pim(params, base_cfg, dev):
     say(f"[pim_sim] full-width {plen}-token prefill logits "
         f"{tuple(got.shape)} on the crossbar kernel == exact 7-bit integer "
         f"product with the same float64 rescale (bit-identical); crossbar "
-        f"prefill {t_kernel:.2f} s (cold uploads), {per_prefill} "
-        "crossbar_exec launches")
+        f"prefill {t_kernel:.2f} s on transient state "
+        f"({info.exec_transient - info0.exec_transient} chunk GEMMs, none "
+        f"kept resident), {per_prefill} crossbar_exec launches")
 
     def serve_once(label):
         info0 = engine.cache_info()
@@ -628,6 +669,8 @@ def serve_pim(params, base_cfg, dev):
                                        max_batch=2, seed=6)
         q_launches, x_launches = counters()
         info = engine.cache_info()
+        # uploads count resident state only, i.e. the decode steps';
+        # prefill runs on transient state, counted apart
         uploads = info.exec_uploads - info0.exec_uploads
         if x_launches <= 0:
             raise AssertionError("the pim_sim serve never launched "
@@ -639,30 +682,301 @@ def serve_pim(params, base_cfg, dev):
             f"{summary['mean_ttft_s'] * 1e3:.1f} ms | mean TPOT "
             f"{summary['mean_tpot_s'] * 1e3:.1f} ms | crossbar_exec launches "
             f"{x_launches} | quant_matmul_int launches {q_launches} | "
-            f"session exec_hits {info.exec_hits - info0.exec_hits} "
-            f"exec_uploads {uploads}")
+            f"decode exec_hits {info.exec_hits - info0.exec_hits} "
+            f"exec_uploads {uploads} | prefill (transient) "
+            f"{info.exec_transient - info0.exec_transient} | resident "
+            f"{info.resident_entries} states, "
+            f"{info.resident_bytes / 2 ** 30:.2f} GiB")
         return results, x_launches, uploads
 
     results, x_launches, _ = serve_once("first serve")
     again, _, uploads = serve_once("second serve, same weights")
     if uploads:
-        raise AssertionError(f"the second serve of the same weights made "
-                             f"{uploads} cold uploads, expected 0")
+        raise AssertionError(f"the second serve's decode steps made "
+                             f"{uploads} cold uploads of the same weights, "
+                             "expected 0")
     with mock.patch.object(engine, "matmul_int", exact):
         want, _, _ = serve(params, cfg, dev, n_requests=2,
                            prompt_lens=(plen,), max_new=max_new, max_batch=2,
                            seed=6)
-    # request ids are unique per process: compare in submission order
-    first, second, oracle = ([r[k] for k in sorted(r)]
-                             for r in (results, again, want))
-    if not all(np.array_equal(a, b) and np.array_equal(a, c)
-               for a, b, c in zip(first, second, oracle)):
+    if not results == again == want:
         raise AssertionError(f"served tokens differ between serves "
-                             f"({first} vs {second}) or from the exact "
-                             f"integer product ({oracle})")
+                             f"({results} vs {again}) or from the exact "
+                             f"integer product ({want})")
     say(f"[pim_sim] tokens (both serves == exact 7-bit integer product): "
-        f"{[t.tolist() for t in first]}")
+        f"{results}")
     return x_launches, cfg
+
+
+def prefix_logit_diffs(params, cfg, dev, prompt, other, bucket, chunk):
+    """Last-token logits of ``prompt`` from whole prefill, from a resume
+    after its first ``chunk`` tokens, from ``chunk``-token chunks, and
+    packed behind ``other``, with the scheduler's bucket rule; returns the
+    max abs difference of each from whole prefill."""
+    from repro_torch.models import model_lib as M
+
+    def rup(n):
+        return -(-n // bucket) * bucket
+
+    def run(tokens, prefix=None):
+        t = torch.zeros((1, rup(len(tokens))), dtype=torch.long, device=dev)
+        t[0, :len(tokens)] = torch.as_tensor(tokens, device=dev)
+        return M.prefill(params, {"tokens": t}, cfg, prefix=prefix,
+                         last_index=torch.tensor([len(tokens) - 1],
+                                                 device=dev))
+
+    def take(cache, n):
+        return {i: {k: v[:, :, :n] for k, v in c.items()}
+                for i, c in cache.items()}
+
+    def cat(a, b):
+        return {i: {k: torch.cat([v, b[i][k]], dim=2) for k, v in c.items()}
+                for i, c in a.items()}
+
+    plen = len(prompt)
+    with torch.no_grad():
+        whole, _ = run(prompt)
+        _, head = run(prompt[:chunk])
+        resumed, _ = run(prompt[chunk:], take(head, chunk))
+        prefix, done = take(head, chunk), chunk
+        while True:
+            logits, tail = run(prompt[done:done + chunk], prefix)
+            if done + chunk >= plen:
+                break
+            prefix, done = cat(prefix, take(tail, chunk)), done + chunk
+        chunked = logits
+        widths = [rup(len(other)), rup(plen)]
+        toks = torch.zeros((1, sum(widths)), dtype=torch.long, device=dev)
+        pos = torch.zeros(sum(widths), dtype=torch.long, device=dev)
+        seg = torch.full((sum(widths),), -1, dtype=torch.long, device=dev)
+        s0 = 0
+        for i, (p, w) in enumerate(zip((other, prompt), widths)):
+            toks[0, s0:s0 + len(p)] = torch.as_tensor(p, device=dev)
+            pos[s0:s0 + w] = torch.arange(w, device=dev)
+            seg[s0:s0 + len(p)] = i
+            s0 += w
+        last = torch.tensor([len(other) - 1, widths[0] + plen - 1],
+                            device=dev)
+        packed = M.prefill_packed(params, toks, pos, seg, last, cfg)[0][1:]
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(x).all() for x in (whole, resumed, chunked,
+                                                 packed)):
+        raise AssertionError("non-finite prefill logits")
+    return {name: float((x - whole).abs().max())
+            for name, x in (("prefix-resume", resumed), ("chunked", chunked),
+                            ("packed", packed))}, float(whole.abs().max())
+
+
+def check_fork_cow(params, cfg, dev, prompt):
+    """A fork in the paged pool at full width: the boundary block is copied
+    on the sibling's first write (once), the index's blocks and the
+    original's keep their bits, and the sibling's tokens equal a private
+    continuation of the same prompt."""
+    from repro_torch.models import model_lib as M
+    from repro_torch.serving import PagedCachePool
+
+    plen, steps = len(prompt), 4
+    t = torch.as_tensor(prompt, device=dev)[None]
+    with torch.no_grad():
+        logits, cache = M.prefill(params, {"tokens": t}, cfg)
+    first = int(torch.argmax(logits, -1)[0])
+    div = (first + 1) % cfg.vocab_size
+
+    def decode(pool, firsts):
+        n = len(firsts)
+        tokens = torch.tensor(firsts, device=dev)[:, None]
+        pos = torch.full((n,), plen, device=dev)
+        act = torch.ones(n, dtype=torch.bool, device=dev)
+        outs = []
+        with torch.no_grad():
+            for _ in range(steps):
+                for s in range(n):
+                    pool.ensure_writable(s, int(pos[s]))
+                tokens, _, _ = M.decode_step_slots(
+                    params, tokens, pos, act, pool.caches, cfg,
+                    block_tables=pool.block_tables)
+                outs.append(tokens[:, 0].tolist())
+                pos = pos + 1
+        return [list(o) for o in zip(*outs)]
+
+    pool = PagedCachePool(cfg, 2, cfg.max_seq_len, device=dev,
+                          prefix_cache=True)
+    pool.admit(0, cache, plen, plen + steps, prompt=prompt)
+    pool.fork(0, 1, plen, plen + steps)
+    index = sorted(pool.prefix.blocks())
+    before = [leaf[:, index].clone() for _, _, leaf in pool._leaves()]
+    a, b = decode(pool, [first, div])
+    if pool.cow_copies != 1:
+        raise AssertionError(f"fork made {pool.cow_copies} COW copies, "
+                             "expected 1 (the shared boundary block)")
+    for old, (_, _, leaf) in zip(before, pool._leaves()):
+        if not torch.equal(old, leaf[:, index]):
+            raise AssertionError("a COW copy wrote into a block the "
+                                 "prefix index holds")
+    for slot in (0, 1):
+        for li, c in pool.read_slot(slot).items():
+            for key, leaf in c.items():
+                if not torch.equal(leaf[:, :, :plen],
+                                   cache[li][key][:, :, :plen]):
+                    raise AssertionError(f"slot {slot} lost its prompt's "
+                                         f"{key} rows in the COW copy")
+    solo = PagedCachePool(cfg, 1, cfg.max_seq_len, device=dev)
+    solo.admit(0, cache, plen, plen + steps)
+    (private,) = decode(solo, [div])
+    if private != b:
+        raise AssertionError(f"forked sibling {b} != private continuation "
+                             f"{private}")
+    pool.evict(0)
+    pool.evict(1)
+    if pool.blocks_in_use != pool.prefix.n_blocks or pool.has_shared:
+        raise AssertionError("fork left blocks referenced after eviction")
+    return pool.cow_copies, len(index), a, b
+
+
+def serve_quant_prefix(params, base_cfg, dev):
+    """The quant trace on the plain path and through the prefix cache,
+    chunked and packed prefill: equal tokens, and every feature used.
+    Returns the feature path's quant_matmul_int launches."""
+    from repro_torch.serving import synthetic_requests
+
+    max_new = 16
+    cfg = base_cfg.scaled(pim_mode="quant", max_seq_len=32 + 48 + max_new)
+    short = synthetic_requests(4, vocab_size=cfg.vocab_size,
+                               prompt_lens=(8, 16), max_new_tokens=max_new,
+                               seed=9)
+    shared = synthetic_requests(8, vocab_size=cfg.vocab_size,
+                                prompt_lens=(8, 16, 48),
+                                max_new_tokens=max_new, shared_prefix_len=32,
+                                seed=10)
+    trace = [(r.prompt, r.max_new_tokens) for r in short + shared]
+    base = dict(max_batch=4, prompt_bucket=16)
+    feats = dict(prefix_cache=True, prefill_chunk=32, step_token_budget=64,
+                 packed_prefill=True)
+    plain, s1, w1 = serve_requests(params, cfg, dev, trace, paged=True,
+                                   **base)
+    reset_counters()
+    got, s2, w2 = serve_requests(params, cfg, dev, trace, **base, **feats)
+    q_launches, x_launches = counters()
+    for label, s, w in (("plain path", s1, w1),
+                        ("prefix cache + chunked + packed", s2, w2)):
+        say(f"[quant prefix] {label}: {s['n_finished']} requests in "
+            f"{w:.2f} s, {s['tokens_per_s']:.2f} tok/s | mean TTFT "
+            f"{s['mean_ttft_s'] * 1e3:.1f} ms | mean TPOT "
+            f"{s['mean_tpot_s'] * 1e3:.2f} ms | p99 TPOT "
+            f"{s['p99_tpot_s'] * 1e3:.2f} ms")
+    say(f"[quant prefix] prefix hit rate {s2['prefix_hit_rate']:.3f} "
+        f"({s2['prefix_tokens_reused']:.0f} prompt tokens from the index, "
+        f"TTFT hit {s2['mean_ttft_hit_s'] * 1e3:.1f} ms vs miss "
+        f"{s2['mean_ttft_miss_s'] * 1e3:.1f} ms) | peak blocks shared "
+        f"{s2['peak_blocks_shared']:.0f} | COW copies in the serve "
+        f"{s2['cow_copies']:.0f} | prefill chunks {s2['prefill_chunks']} | "
+        f"packed prefills {s2['packed_prefills']} | quant_matmul_int "
+        f"launches {q_launches} | crossbar_exec launches {x_launches}")
+    if plain != got:
+        bad = [i for i, (a, b) in enumerate(zip(plain, got)) if a != b]
+        raise AssertionError(f"tokens differ between the plain path and the "
+                             f"prefix/chunked/packed path at requests {bad}: "
+                             f"{[plain[i] for i in bad]} vs "
+                             f"{[got[i] for i in bad]}")
+    for key in ("prefix_hit_rate", "prefill_chunks", "packed_prefills"):
+        if not s2[key] > 0:
+            raise AssertionError(f"{key} is {s2[key]}, expected > 0")
+    if q_launches <= 0:
+        raise AssertionError("the prefix/chunked/packed serve never launched "
+                             "quant_matmul_int")
+    say(f"[quant prefix] tokens equal on both paths for all {len(trace)} "
+        f"requests; sample {got[-1]}")
+
+    diffs, mag = prefix_logit_diffs(params, cfg, dev, shared[2].prompt,
+                                    short[1].prompt, 16, 32)
+    say(f"[quant prefix] last-token logits of one {len(shared[2].prompt)}-"
+        f"token prompt (|logit| <= {mag:.4f}), max abs difference from "
+        f"whole prefill: " + ", ".join(f"{k} {v:.6g}"
+                                       for k, v in diffs.items())
+        + f" (tolerance {PREFIX_LOGIT_TOL})")
+    if max(diffs.values()) > PREFIX_LOGIT_TOL:
+        raise AssertionError(f"prefill logits differ beyond "
+                             f"{PREFIX_LOGIT_TOL}: {diffs}")
+    cow, n_index, a, b = check_fork_cow(params, cfg, dev, shared[0].prompt)
+    say(f"[quant prefix] fork of a {len(shared[0].prompt)}-token prompt in "
+        f"the paged pool: {cow} COW copy of the shared boundary block, the "
+        f"index's {n_index} blocks unchanged, sibling {b} == its private "
+        f"continuation (original {a})")
+    return q_launches
+
+
+def serve_pim_prefix(params, base_cfg, dev):
+    """pim_sim through the prefix cache and chunked prefill, tokens held to
+    the exact integer product; then one 64-token prompt under a memory
+    high-water mark.  Returns the prefix path's crossbar_exec launches."""
+    from repro_torch.pim import engine
+    from repro_torch.serving import synthetic_requests
+
+    def exact(x, w, n_bits=8, **kw):
+        return (x.double() @ w.double().T).long()
+
+    max_new = 4
+    cfg = base_cfg.scaled(pim_mode="pim_sim", max_seq_len=32 + max_new)
+    reqs = synthetic_requests(3, vocab_size=cfg.vocab_size,
+                              prompt_lens=(16,), max_new_tokens=max_new,
+                              shared_prefix_len=16, seed=8)
+    trace = [(r.prompt, r.max_new_tokens) for r in reqs]
+    kw = dict(max_batch=2, prompt_bucket=16, prefix_cache=True,
+              prefill_chunk=16)
+    info0 = engine.cache_info()
+    reset_counters()
+    got, s, wall = serve_requests(params, cfg, dev, trace, **kw)
+    x_launches = counters()[1]
+    info = engine.cache_info()
+    with mock.patch.object(engine, "matmul_int", exact):
+        want, _, _ = serve_requests(params, cfg, dev, trace, **kw)
+    say(f"[pim_sim prefix] 3 requests (16-token shared prefix + 16-token "
+        f"tails, {max_new} new tokens, max_batch 2, prefix cache, 16-token "
+        f"chunks) in {wall:.2f} s: prefix hit rate "
+        f"{s['prefix_hit_rate']:.3f}, prefill chunks {s['prefill_chunks']}, "
+        f"mean TTFT {s['mean_ttft_s'] * 1e3:.1f} ms, mean TPOT "
+        f"{s['mean_tpot_s'] * 1e3:.1f} ms | crossbar_exec launches "
+        f"{x_launches} | decode uploads "
+        f"{info.exec_uploads - info0.exec_uploads}, prefill (transient) "
+        f"{info.exec_transient - info0.exec_transient}")
+    if got != want:
+        raise AssertionError(f"pim_sim prefix/chunked tokens {got} != exact "
+                             f"integer product {want}")
+    if not (s["prefix_hit_rate"] > 0 and s["prefill_chunks"] > 0
+            and x_launches > 0):
+        raise AssertionError("the pim_sim prefix phase used no prefix hit, "
+                             "no chunk or no crossbar launch")
+    say(f"[pim_sim prefix] tokens == exact 7-bit integer product: {got}")
+
+    plen = 64
+    cfg64 = base_cfg.scaled(pim_mode="pim_sim", max_seq_len=plen + max_new)
+    prompt = np.random.default_rng(11).integers(0, cfg.vocab_size, plen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    got64, _, wall64 = serve_requests(params, cfg64, dev,
+                                      [(prompt, max_new)], max_batch=2,
+                                      prompt_bucket=16, paged=True)
+    peak = torch.cuda.max_memory_allocated()
+    info = engine.cache_info()
+    with mock.patch.object(engine, "matmul_int", exact):
+        want64, _, _ = serve_requests(params, cfg64, dev,
+                                      [(prompt, max_new)], max_batch=2,
+                                      prompt_bucket=16, paged=True)
+    say(f"[pim_sim 64] one {plen}-token prompt, {max_new} new tokens, in "
+        f"{wall64:.2f} s: peak allocated {peak / 2 ** 30:.2f} GiB (limit "
+        f"{PIM_PEAK_BYTES / 2 ** 30:.0f} GiB; {base_bytes / 2 ** 30:.2f} GiB "
+        f"allocated before it) | resident after it: "
+        f"{info.resident_entries} states, "
+        f"{info.resident_bytes / 2 ** 30:.2f} GiB | tokens {got64} "
+        f"(exact product {want64})")
+    if peak >= PIM_PEAK_BYTES:
+        raise AssertionError(f"the 64-token pim_sim phase peaked at {peak} "
+                             f"bytes, limit {PIM_PEAK_BYTES}")
+    if got64 != want64:
+        raise AssertionError("64-token pim_sim tokens differ from the exact "
+                             "integer product")
+    return x_launches
 
 
 def profile_decode(params, cfg, dev, max_batch, top=6):
@@ -764,6 +1078,8 @@ def main() -> int:
 
     q_launches, qcfg = serve_quant(params, base, dev)
     x_launches, pcfg = serve_pim(params, base, dev)
+    qp_launches = serve_quant_prefix(params, base, dev)
+    xp_launches = serve_pim_prefix(params, base, dev)
     profile_decode(params, qcfg, dev, 4)
     profile_decode(params, pcfg, dev, 2)
 
@@ -772,7 +1088,8 @@ def main() -> int:
         dict(name="quant_matmul_int", route="cuda",
              source="src/repro_torch/kernels/csrc/quant_matmul.cu",
              replaces="src/repro/kernels/quant_matmul/quant_matmul.py:53",
-             launches=q_launches, max_abs_err=qrow["max_abs_err"],
+             launches=q_launches, launches_prefix_path=qp_launches,
+             max_abs_err=qrow["max_abs_err"],
              exact=qrow["max_abs_err"] == 0,
              shape=[4, 1024, 2816], ms=qrow["ms"], plain_ms=qrow["plain_ms"],
              bound_ms=qrow["bound_ms"], bound_by=qrow["bound_by"],
@@ -783,7 +1100,8 @@ def main() -> int:
         dict(name="crossbar_exec", route="cuda",
              source="src/repro_torch/kernels/csrc/crossbar_exec.cu",
              replaces="src/repro/kernels/crossbar_exec/crossbar_exec.py:66",
-             launches=x_launches, max_abs_err=xbar_row["max_abs_err"],
+             launches=x_launches, launches_prefix_path=xp_launches,
+             max_abs_err=xbar_row["max_abs_err"],
              exact=xbar_row["max_abs_err"] == 0,
              shape=xbar_row["shape"], ms=xbar_row["ms"],
              ms_616=xbar_row["ms_616"],

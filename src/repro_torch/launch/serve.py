@@ -8,6 +8,13 @@ one), and one batched decode step of fixed shape.  ``--pim-mode`` threads
 the linear lowering through the config: ``quant`` runs every linear on the
 int8 GEMM kernel, ``pim_sim`` on the crossbar microcode kernel, whose
 persistent sessions keep each weight's crossbar state resident on the card.
+``--prefix-cache`` (implies paged) attaches the trie prefix index with
+copy-on-write block sharing — pair it with ``--shared-prefix N`` to give
+every synthetic prompt one N-token system prompt; ``--prefill-chunk N`` +
+``--step-token-budget B`` interleave long-prompt prefill with decode
+steps, and ``--packed-prefill`` batches short queued prompts into one
+segment-masked prefill call; generations stay the tokens of whole
+prefill.  ``--queue-policy sjf`` admits the shortest prompt first.
 Weights are random, drawn from ``--seed``.  Runs on ``--device cuda``
 (the default; it raises without a card) or ``--device cpu`` with the
 kernels' plain versions, where ``--smoke`` keeps the model small.
@@ -29,10 +36,19 @@ from repro_torch.serving import Scheduler, ServingConfig, synthetic_requests
 
 
 def serve_trace(params, cfg, requests, *, max_batch: int, prompt_bucket: int,
-                paged: bool = False, device="cuda"):
+                paged: bool = False, block_size: int = 16,
+                num_blocks=None, prefix_cache: bool = False,
+                queue_policy: str = "fifo", prefill_chunk=None,
+                step_token_budget=None, packed_prefill: bool = False,
+                device="cuda"):
     """Run a request trace through the scheduler; returns (results, summary)."""
     scfg = ServingConfig(max_batch=max_batch, prompt_bucket=prompt_bucket,
-                         paged=paged)
+                         paged=paged, block_size=block_size,
+                         num_blocks=num_blocks, prefix_cache=prefix_cache,
+                         queue_policy=queue_policy,
+                         prefill_chunk=prefill_chunk,
+                         step_token_budget=step_token_budget,
+                         packed_prefill=packed_prefill)
     sched = Scheduler(params, cfg, scfg, device=device)
     for req in requests:
         sched.submit_request(req)
@@ -61,6 +77,32 @@ def main(argv=None):
     ap.add_argument("--paged", action="store_true",
                     help="block-paged KV pool (admits reserve blocks from "
                          "a free list)")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="tokens per KV block (paged pool)")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="physical KV blocks (default: full parity with "
+                         "the contiguous pool; smaller oversubscribes and "
+                         "defers admissions under pressure)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="trie prefix index over the paged pool with "
+                         "refcounted copy-on-write block sharing; matched "
+                         "prompt blocks skip prefill (implies --paged)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="split long-prompt prefill into chunks of this "
+                         "many tokens interleaved with decode steps (a "
+                         "--block-size multiple; implies --paged)")
+    ap.add_argument("--step-token-budget", type=int, default=None,
+                    help="max prefill tokens one scheduler step may "
+                         "process (chunks + admissions)")
+    ap.add_argument("--packed-prefill", action="store_true",
+                    help="pack bursts of short queued prompts into one "
+                         "segment-masked prefill call (implies --paged)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend one fixed N-token system prompt to every "
+                         "synthetic request (the prefix-cache workload)")
+    ap.add_argument("--queue-policy", choices=["fifo", "sjf"],
+                    default="fifo",
+                    help="admission order (sjf: shortest prompt first)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -74,16 +116,21 @@ def main(argv=None):
         cfg = cfg.scaled(pim_mode=args.pim_mode)
     plens = [int(p) for p in args.prompt_lens.split(",") if p]
     # right-size the cache pool: capacity = longest prompt + budget
-    cfg = cfg.scaled(max_seq_len=max(plens) + args.max_new_tokens)
+    cfg = cfg.scaled(max_seq_len=args.shared_prefix + max(plens)
+                     + args.max_new_tokens)
     params = M.init_params(cfg, args.seed, device)
     requests = synthetic_requests(
         args.requests, vocab_size=cfg.vocab_size, prompt_lens=plens,
         max_new_tokens=args.max_new_tokens, seed=args.seed,
-        start_time=time.monotonic())
+        start_time=time.monotonic(), shared_prefix_len=args.shared_prefix)
     bucket = max(8, max(plens) // 4)
-    results, summary = serve_trace(params, cfg, requests,
-                                   max_batch=args.batch, prompt_bucket=bucket,
-                                   paged=args.paged, device=device)
+    results, summary = serve_trace(
+        params, cfg, requests, max_batch=args.batch, prompt_bucket=bucket,
+        paged=args.paged, block_size=args.block_size,
+        num_blocks=args.num_blocks, prefix_cache=args.prefix_cache,
+        queue_policy=args.queue_policy, prefill_chunk=args.prefill_chunk,
+        step_token_budget=args.step_token_budget,
+        packed_prefill=args.packed_prefill, device=device)
     print(f"served {summary['n_finished']}/{summary['n_requests']} "
           f"requests, {summary['total_tokens']} tokens @ "
           f"{summary['tokens_per_s']:.1f} tok/s "
@@ -93,16 +140,35 @@ def main(argv=None):
           f"TPOT {summary['mean_tpot_s'] * 1e3:.1f}ms | "
           f"queue wait {summary['mean_queue_wait_s'] * 1e3:.0f}ms | "
           f"active slots {summary['mean_active_slots']:.1f}")
-    if args.paged:
+    paged = (args.paged or args.prefix_cache or args.packed_prefill
+             or args.prefill_chunk is not None)
+    if paged:
         print(f"[pool] peak KV {summary['peak_kv_bytes'] / 1e6:.2f}MB "
               f"(peak {summary['peak_pool_blocks']:.0f} blocks, "
               f"occupancy {summary['mean_block_occupancy'] * 100:.0f}%, "
               f"internal frag {summary['mean_internal_frag'] * 100:.0f}%, "
               f"{summary['deferred_admits']} deferred admits)")
+    if args.prefix_cache:
+        print(f"[prefix] hit rate {summary['prefix_hit_rate'] * 100:.0f}% "
+              f"| {summary['prefix_tokens_reused']:.0f} prompt tokens "
+              f"served from the index | TTFT hit "
+              f"{summary['mean_ttft_hit_s'] * 1e3:.0f}ms vs miss "
+              f"{summary['mean_ttft_miss_s'] * 1e3:.0f}ms | "
+              f"{summary['peak_blocks_shared']:.0f} blocks shared, "
+              f"{summary['cow_copies']:.0f} COW copies")
+    if (args.prefill_chunk or args.step_token_budget
+            or args.packed_prefill):
+        print(f"[chunked] p99 TPOT {summary['p99_tpot_s'] * 1e3:.1f}ms | "
+              f"{summary['prefill_chunks']} prefill chunks, "
+              f"{summary['packed_prefills']} packed prefills (chunk "
+              f"{args.prefill_chunk}, budget {args.step_token_budget})")
     if args.pim_mode == "pim_sim":
         info = engine.cache_info()
         print(f"[pim] crossbar uploads {info.exec_uploads}, "
-              f"weight-stationary session hits {info.exec_hits}")
+              f"weight-stationary session hits {info.exec_hits}, "
+              f"transient (prefill) states {info.exec_transient}, "
+              f"resident {info.resident_entries} states "
+              f"({info.resident_bytes / 2 ** 20:.1f} MiB)")
     rid0 = min(results)
     print("sample generation:", results[rid0][:16].tolist())
     return results

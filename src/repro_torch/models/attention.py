@@ -25,22 +25,43 @@ def _repeat_kv(k, n_rep: int):
         b, s, h * n_rep, d)
 
 
+def _positions(sq: int, sk: int, q_offset: int, positions, device):
+    """(q positions, k positions): ``positions`` (packed prefill; needs
+    Sq == Sk) for both, else ``q_offset + arange(Sq)`` and ``arange(Sk)``."""
+    if positions is not None:
+        if sq != sk:
+            raise ValueError("positions requires Sq == Sk (packed prefill)")
+        pos = torch.as_tensor(positions, device=device).long()
+        return pos, pos
+    return (q_offset + torch.arange(sq, device=device),
+            torch.arange(sk, device=device))
+
+
 def direct_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
-                     q_offset: int = 0) -> torch.Tensor:
-    """Materialized-scores attention. q: (B, Sq, H, D), k/v: (B, Sk, Hkv, D)."""
+                     q_offset: int = 0, segment_ids=None,
+                     positions=None) -> torch.Tensor:
+    """Materialized-scores attention. q: (B, Sq, H, D), k/v: (B, Sk, Hkv, D).
+
+    ``positions``/``segment_ids``: packed-prefill support.  ``positions``
+    (S,) replaces the arange-derived q/k positions (requires Sq == Sk —
+    q and k cover the same packed token stream); ``segment_ids`` (S,)
+    adds a block-diagonal mask so tokens never attend across segments.
+    """
     b, sq, h, d = q.shape
     _, sk, hkv, _ = k.shape
     k = _repeat_kv(k, h // hkv)
     v = _repeat_kv(v, h // hkv)
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                      k.to(torch.float32)) / math.sqrt(d)
-    q_pos = q_offset + torch.arange(sq, device=q.device)
-    k_pos = torch.arange(sk, device=q.device)
+    q_pos, k_pos = _positions(sq, sk, q_offset, positions, q.device)
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= q_pos[:, None] >= k_pos[None, :]
     if window is not None:
         mask &= q_pos[:, None] - k_pos[None, :] < window
+    if segment_ids is not None:
+        seg = torch.as_tensor(segment_ids, device=q.device)
+        mask &= seg[:, None] == seg[None, :]
     s = torch.where(mask[None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p.to(torch.float32),
@@ -49,11 +70,15 @@ def direct_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
 
 def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
                     q_offset: int = 0, block_q: int = 512,
-                    block_k: int = 512) -> torch.Tensor:
+                    block_k: int = 512, segment_ids=None,
+                    positions=None) -> torch.Tensor:
     """q: (B, Sq, H, D), k/v: (B, Sk, Hkv, D) -> (B, Sq, H, D).
 
     ``q_offset``: absolute position of q[0] (for prefill continuation).
     ``window``: sliding-window radius (attend to keys in (pos-window, pos]).
+    ``positions``/``segment_ids``: packed-prefill support — ``positions``
+    (S,) replaces the arange-derived positions for both q and k (requires
+    Sq == Sk), ``segment_ids`` (S,) masks cross-segment pairs.
     """
     b, sq, h, d = q.shape
     _, sk, hkv, _ = k.shape
@@ -64,18 +89,21 @@ def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
     qt = q.permute(0, 2, 1, 3)            # (B, H, Sq, D)
     kt = k.permute(0, 2, 1, 3)
     vt = v.permute(0, 2, 1, 3)
+    q_all, k_all = _positions(sq, sk, q_offset, positions, dev)
+    seg = (None if segment_ids is None
+           else torch.as_tensor(segment_ids, device=dev))
     outs = []
     for q0 in range(0, sq, block_q):
         qblk = qt[:, :, q0:q0 + block_q].to(torch.float32)
         bq = qblk.shape[2]
-        q_pos = q_offset + q0 + torch.arange(bq, device=dev)
+        q_pos = q_all[q0:q0 + bq]
         m = torch.full((b, h, bq), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((b, h, bq), dtype=torch.float32, device=dev)
         acc = torch.zeros((b, h, bq, d), dtype=torch.float32, device=dev)
         for k0 in range(0, sk, block_k):
             kblk = kt[:, :, k0:k0 + block_k]
             vblk = vt[:, :, k0:k0 + block_k]
-            k_pos = k0 + torch.arange(kblk.shape[2], device=dev)
+            k_pos = k_all[k0:k0 + kblk.shape[2]]
             s = torch.einsum("bhqd,bhkd->bhqk", qblk,
                              kblk.to(torch.float32)) * scale
             mask = torch.ones((bq, kblk.shape[2]), dtype=torch.bool,
@@ -84,6 +112,9 @@ def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
                 mask &= q_pos[:, None] >= k_pos[None, :]
             if window is not None:
                 mask &= q_pos[:, None] - k_pos[None, :] < window
+            if seg is not None:
+                mask &= (seg[q0:q0 + bq, None]
+                         == seg[None, k0:k0 + kblk.shape[2]])
             s = torch.where(mask[None, None], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])

@@ -39,8 +39,13 @@ def rms_norm(x, weight, eps: float):
     return x * (scale.to(x.dtype) * weight.to(x.dtype))
 
 
+def _gelu_tanh(x):
+    # jax.nn.gelu's default is the tanh approximation, not the exact erf
+    return F.gelu(x, approximate="tanh")
+
+
 def activation(name: str):
-    return {"silu": F.silu, "gelu": F.gelu, "relu": F.relu}[name]
+    return {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu}[name]
 
 
 def rope_freqs(hd: int, theta: float, device=None):

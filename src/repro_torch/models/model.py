@@ -11,9 +11,13 @@ Decode updates the caches **in place** and returns the same tree (the
 reference, being functional, returns new arrays): a decode step writes one
 row per slot, and copying the pool every step would cost its whole size.
 
+Prefill runs its ``pim_sim`` linears on transient crossbar state
+(``pim.engine.transient``): a prompt's length is a one-off GEMM shape, so
+only the decode step keeps crossbar state resident.
+
 Not ported yet (ROADMAP queue 1): MoE, Mamba, xLSTM, cross-attention and
-encoders, sliding windows, ``prefill_packed``, prefix resume and
-``decode_run_slots``; they raise ``NotImplementedError``.
+encoders, sliding windows and ``decode_run_slots``; they raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -192,7 +196,7 @@ def _read_kv(c, cfg: ModelConfig, quant: bool):
 
 
 def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
-                    block_tables=None):
+                    block_tables=None, segment_ids=None):
     b, s, d = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     quant = cfg.kv_cache_dtype == "int8"
@@ -260,8 +264,33 @@ def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
     else:
         attn_fn = attn.flash_attention if cfg.flash_attention \
             else attn.direct_attention
-        out = attn_fn(q, k, v, causal=True)
-        if mode == "prefill":
+        if mode == "prefill" and cache is not None:
+            # Prefix-resume prefill (prefix caching, chunked prefill):
+            # ``cache`` holds the prompt prefix KV — dense, post-RoPE,
+            # positions 0..m-1, gathered by ``PagedCachePool.read_prefix``
+            # — and the caller shifted ``positions`` by m, so q/k here are
+            # already rotated at absolute positions m..m+s-1.  Queries
+            # attend concat(prefix, tail) with ``q_offset=m``; the emitted
+            # cache is the *tail only*, unpadded — the paged pool scatters
+            # it at block offset m without touching the prefix blocks.
+            m_len = cache["k"].shape[1]
+            pk, pv = _read_kv(cache, cfg, quant)
+            out = attn_fn(q, torch.cat([pk.to(k.dtype), k], dim=1),
+                          torch.cat([pv.to(v.dtype), v], dim=1),
+                          causal=True, q_offset=m_len)
+            new_cache = _tail_kv(k, v, cfg, quant)
+        elif segment_ids is not None:
+            # Packed prefill: several prompts share one (1, L) stream.
+            # ``positions`` restarts at 0 per segment (it already drove
+            # RoPE above) and the segment mask keeps attention
+            # block-diagonal.  The emitted cache is the raw packed k/v;
+            # ``PagedCachePool.admit(start=)`` unpacks each segment.
+            out = attn_fn(q, k, v, causal=True, segment_ids=segment_ids,
+                          positions=positions)
+            new_cache = _tail_kv(k, v, cfg, quant)
+        else:
+            out = attn_fn(q, k, v, causal=True)
+        if mode == "prefill" and new_cache is None:
             # full cache with decode headroom up to max_seq_len
             cap = max(s, cfg.max_seq_len)
             pad = (0, 0, 0, 0, 0, cap - s)
@@ -272,6 +301,14 @@ def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
             new_cache = _kv_leaves(kc, vc, quant)
     y = linear(out.reshape(b, s, h * hd), p["wo"])
     return x + y, new_cache
+
+
+def _tail_kv(k, v, cfg: ModelConfig, quant: bool):
+    """The unpadded cache of a resumed or packed prefill."""
+    if quant:
+        return _kv_leaves(k, v, True)
+    return _kv_leaves(k.to(cfg.compute_dtype), v.to(cfg.compute_dtype),
+                      False)
 
 
 def _dense_ffn(hh, p, cfg: ModelConfig):
@@ -288,12 +325,13 @@ def _mlp(x, p, cfg: ModelConfig):
 
 
 def apply_block(kind: str, x, p, cfg: ModelConfig, *, positions, mode,
-                cache=None, pos=None, block_tables=None):
+                cache=None, pos=None, block_tables=None, segment_ids=None):
     """Returns (x, cache_out or None)."""
     if kind != "ad":
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     x, c = _self_attention(x, p, cfg, positions, mode, cache, pos,
-                           block_tables=block_tables)
+                           block_tables=block_tables,
+                           segment_ids=segment_ids)
     x = _mlp(x, p, cfg)
     return x, c
 
@@ -303,10 +341,12 @@ def apply_block(kind: str, x, p, cfg: ModelConfig, *, positions, mode,
 # ==========================================================================
 
 def _decoder_stack(params, x, cfg: ModelConfig, *, positions, mode,
-                   caches=None, pos=None, block_tables=None):
-    """Loop over super-blocks.  ``caches``: {pattern index: stacked cache}.
-    Prefill returns freshly stacked caches; decode updates ``caches`` in
-    place and returns it."""
+                   caches=None, pos=None, block_tables=None,
+                   segment_ids=None):
+    """Loop over super-blocks.  ``caches``: {pattern index: stacked cache}
+    (in prefill, the mapped prefix to resume from).  Prefill returns
+    freshly stacked caches; decode updates ``caches`` in place and returns
+    it."""
     per_layer = {str(i): [] for i in range(len(cfg.pattern))}
     for layer in range(cfg.n_super):
         for i, kind in enumerate(cfg.pattern):
@@ -315,7 +355,8 @@ def _decoder_stack(params, x, cfg: ModelConfig, *, positions, mode,
                  if caches is not None else None)
             x, cout = apply_block(kind, x, p, cfg, positions=positions,
                                   mode=mode, cache=c, pos=pos,
-                                  block_tables=block_tables)
+                                  block_tables=block_tables,
+                                  segment_ids=segment_ids)
             per_layer[str(i)].append(cout)
     if mode == "decode":
         return x, caches
@@ -350,7 +391,18 @@ def _pim_ctx(cfg: ModelConfig):
     return engine.mode(cfg.pim_mode)
 
 
-def prefill(params, batch, cfg: ModelConfig, last_index=None):
+@contextlib.contextmanager
+def _prefill_ctx(cfg: ModelConfig):
+    """``_pim_ctx`` plus transient crossbar state for every ``pim_sim``
+    linear: a prefill's row count is a one-off shape, so its states are not
+    kept resident (``pim.engine.transient``)."""
+    from repro_torch.pim import engine
+
+    with _pim_ctx(cfg), engine.transient():
+        yield
+
+
+def prefill(params, batch, cfg: ModelConfig, last_index=None, prefix=None):
     """Forward the prompt; return (last-token logits, caches).
 
     ``last_index`` — optional (B,) int index of each request's last real
@@ -358,14 +410,25 @@ def prefill(params, batch, cfg: ModelConfig, last_index=None):
     there instead of at ``S - 1``.  Causal masking makes every position
     <= ``last_index`` independent of the padding, so bucketed prefill is
     exact for full-attention stacks.
+
+    ``prefix`` — optional mapped-prefix KV tree (``{layer: {"k": (ns, 1,
+    m, ...), ...}}`` per super-block, as returned by
+    ``PagedCachePool.read_prefix``): ``batch["tokens"]`` is then the
+    *divergent tail* of the prompt, resumed at absolute position ``m`` —
+    positions/RoPE shift by ``m``, attention reads concat(prefix, tail)
+    keys, and the returned caches hold the tail only (the paged pool
+    scatters them at block offset ``m``).
     """
     _check_supported(cfg)
-    with _pim_ctx(cfg):
+    with _prefill_ctx(cfg):
         tokens = batch["tokens"]
         x = _embed_in(params, tokens, cfg)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        off = 0
+        if prefix is not None:
+            off = next(iter(prefix.values()))["k"].shape[2]
+        positions = off + torch.arange(tokens.shape[1], device=tokens.device)
         x, caches = _decoder_stack(params, x, cfg, positions=positions,
-                                   mode="prefill")
+                                   mode="prefill", caches=prefix)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         if last_index is None:
             xl = x[:, -1]
@@ -373,6 +436,36 @@ def prefill(params, batch, cfg: ModelConfig, last_index=None):
             li = torch.as_tensor(last_index, device=x.device).long()
             xl = x[torch.arange(x.shape[0], device=x.device), li]
         logits = unembed(xl, _unembed_table(params, cfg))
+        return logits.to(torch.float32), caches
+
+
+def prefill_packed(params, tokens, positions, segment_ids, last_index,
+                   cfg: ModelConfig):
+    """Prefill several prompts packed into one (1, L) token stream.
+
+    ``positions`` (L,) restarts at 0 for each prompt (driving RoPE and the
+    causal mask), ``segment_ids`` (L,) keeps attention block-diagonal — one
+    prompt's tokens never attend to another's (padding carries segment id
+    -1 and matches no real segment).  ``last_index`` (K,) indexes each
+    segment's final prompt token in the stream.  Returns ``((K, V) logits,
+    packed caches)`` — cache leaves keep the raw packed (1, L) layout;
+    ``PagedCachePool.admit(start=)`` unpacks each segment.
+    """
+    _check_supported(cfg)
+    with _prefill_ctx(cfg):
+        positions = torch.as_tensor(positions, device=tokens.device).long()
+        x = _embed_in(params, tokens, cfg)
+        x, caches = _decoder_stack(params, x, cfg, positions=positions,
+                                   mode="prefill",
+                                   segment_ids=segment_ids)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        li = torch.as_tensor(last_index, device=x.device).long()
+        xl = x[0, li]                                   # (K, d)
+        table = _unembed_table(params, cfg)
+        # one (1, d) unembed per segment: the row the unpacked prefill
+        # runs, so each segment keeps that prefill's reduction order
+        logits = torch.cat([unembed(xl[i:i + 1], table)
+                            for i in range(xl.shape[0])], dim=0)
         return logits.to(torch.float32), caches
 
 
@@ -473,6 +566,6 @@ def param_count(cfg: ModelConfig) -> int:
 
 
 __all__ = ["PAGED_KV_KEYS", "param_specs", "init_params", "from_reference",
-           "apply_block", "prefill", "decode_step",
+           "apply_block", "prefill", "prefill_packed", "decode_step",
            "decode_step_slots", "cache_specs", "paged_cache_specs",
            "zeros_like_specs", "param_count"]

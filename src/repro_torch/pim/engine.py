@@ -16,7 +16,13 @@ The driving side of the partitioned crossbar, as one API:
   program's microcode re-INITs every working column it reads and never
   writes operand columns, so reuse is bit-exact).  The state runs on the
   CUDA crossbar kernel for a CUDA tensor and on its plain version for a
-  CPU tensor (``kernels.crossbar_exec``).
+  CPU tensor (``kernels.crossbar_exec``).  Resident state is bounded in
+  bytes, process-wide (:data:`MAX_RESIDENT_BYTES`, LRU).
+* :func:`transient` — a context in which every GEMM runs on a fresh
+  state that is dropped after the call.  The model's prefill entry points
+  enter it: a prompt's row count M is a one-off shape, and one M's
+  states for every linear of a full-width model come to about M GiB, so
+  only the decode step (whose M is fixed) keeps state resident.
 * :func:`matmul_int` — the exact integer GEMM over the session pool, with
   inner dimensions longer than one row's column budget split into chunks
   and the last chunk zero-padded to a whole one; all chunks run as one
@@ -55,7 +61,9 @@ __all__ = [
     "cache_info",
     "clear_cache",
     "ExecutionSession",
+    "MAX_RESIDENT_BYTES",
     "session_for",
+    "transient",
     "matmul_int",
     "sim_linear",
     "mode",
@@ -172,9 +180,15 @@ class CacheInfo:
     size: int
     # execution counters (ExecutionSession), one per chunk GEMM: how many
     # reused resident crossbar state (writing only activation columns —
-    # the weights were already resident) vs paid a cold full-state upload.
+    # the weights were already resident) vs paid a cold full-state upload
+    # that stays resident, and how many ran on a transient state (both
+    # operands written, nothing kept; see ``transient``).
     exec_hits: int = 0
     exec_uploads: int = 0
+    exec_transient: int = 0
+    # resident crossbar states across all sessions, and their bytes
+    resident_entries: int = 0
+    resident_bytes: int = 0
 
 
 _cache: Dict[Tuple, CompiledPim] = {}
@@ -246,17 +260,25 @@ def cache_info() -> CacheInfo:
                          size=len(_cache))
     with _session_lock:
         return dataclasses.replace(info, exec_hits=_exec_hits,
-                                   exec_uploads=_exec_uploads)
+                                   exec_uploads=_exec_uploads,
+                                   exec_transient=_exec_transient,
+                                   resident_entries=len(_resident),
+                                   resident_bytes=_resident_bytes)
 
 
 def clear_cache() -> None:
-    global _hits, _misses, _builds, _exec_hits, _exec_uploads
+    global _hits, _misses, _builds, _exec_hits, _exec_uploads, \
+        _exec_transient, _resident_bytes
     with _cache_lock:
         _cache.clear()
         _hits = _misses = _builds = 0
     with _session_lock:
+        for sess, key in list(_resident):
+            sess._states.pop(key, None)
+        _resident.clear()
+        _resident_bytes = 0
         _sessions.clear()
-        _exec_hits = _exec_uploads = 0
+        _exec_hits = _exec_uploads = _exec_transient = 0
     _derived.clear()
     _chunked.clear()
 
@@ -287,6 +309,59 @@ _sessions: Dict[Tuple, "ExecutionSession"] = {}
 _session_lock = threading.Lock()
 _exec_hits = 0
 _exec_uploads = 0
+_exec_transient = 0
+
+#: Bound on the bytes of resident crossbar state over all sessions
+#: (``state.numel() * 4`` per entry), least recently used evicted first.
+#: 8 GiB holds the decode-step states of every linear of full-width
+#: qwen1.5-0.5b (about 1 GiB per decode row) up to batch 8.
+MAX_RESIDENT_BYTES = 8 << 30
+# every resident state, LRU order: (session, key) -> bytes
+_resident: "collections.OrderedDict" = collections.OrderedDict()
+_resident_bytes = 0
+
+
+class _Transient(threading.local):
+    def __init__(self):
+        self.depth = 0
+
+
+_transient = _Transient()
+
+
+@contextlib.contextmanager
+def transient() -> Iterator[None]:
+    """Run every GEMM of the enclosed block on a transient crossbar state:
+    a blank state, both operands written, executed, read, and nothing kept
+    (re-entrant, thread local).  The results are the same bits as on
+    resident state.  ``models.model``'s prefill entry points enter it."""
+    _transient.depth += 1
+    try:
+        yield
+    finally:
+        _transient.depth -= 1
+
+
+def _keep(sess: "ExecutionSession", key: Tuple, w: torch.Tensor,
+          state: torch.Tensor) -> None:
+    """Make ``state`` resident under ``key`` and evict least recently used
+    states (of any session) past the entry and byte bounds."""
+    global _resident_bytes
+    with _session_lock:
+        nbytes = state.numel() * 4
+        sess._states[key] = (w, state)
+        _resident[(sess, key)] = nbytes
+        _resident_bytes += nbytes
+        while len(sess._states) > sess.max_resident:
+            _drop(sess, next(iter(sess._states)))
+        while _resident_bytes > MAX_RESIDENT_BYTES and _resident:
+            _drop(*next(iter(_resident)))
+
+
+def _drop(sess: "ExecutionSession", key: Tuple) -> None:
+    global _resident_bytes
+    sess._states.pop(key, None)
+    _resident_bytes -= _resident.pop((sess, key), 0)
 
 
 class ExecutionSession:
@@ -312,9 +387,14 @@ class ExecutionSession:
     is resident.  An equal weight in another tensor is a different weight
     here (a cold upload), unlike the reference, which compares bytes.
 
-    Counts go to the process-wide ``cache_info`` counters
-    (``exec_hits`` / ``exec_uploads``), one per chunk GEMM.  Not
-    thread-safe.
+    Inside :func:`transient` a call neither reads nor keeps resident
+    state: it writes both operands into a blank state and drops it.
+
+    Resident states are bounded per session by ``max_resident`` entries
+    and over all sessions by :data:`MAX_RESIDENT_BYTES`, least recently
+    used first.  Counts go to the process-wide ``cache_info`` counters
+    (``exec_hits`` / ``exec_uploads`` / ``exec_transient``), one per chunk
+    GEMM.  Not thread-safe.
     """
 
     def __init__(self, artifact: CompiledPim, *, rows_per_crossbar: int = 256,
@@ -326,14 +406,17 @@ class ExecutionSession:
         self._states: "collections.OrderedDict" = collections.OrderedDict()
         self.uploads = 0
         self.hits = 0
+        self.transient = 0
 
-    def _count(self, cold: bool, n: int) -> None:
-        global _exec_hits, _exec_uploads
+    def _count(self, kind: str, n: int) -> None:
+        global _exec_hits, _exec_uploads, _exec_transient
         with _session_lock:
-            if cold:
+            if kind == "upload":
                 _exec_uploads += n
-            else:
+            elif kind == "hit":
                 _exec_hits += n
+            else:
+                _exec_transient += n
 
     def execute(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Integer GEMM ``(M, K) x (O, K) -> (M, O)`` on resident state.
@@ -368,10 +451,15 @@ class ExecutionSession:
         n_cb = (total + rows - 1) // rows
 
         x_cols, w_cols, acc_cols = art.columns_on(x.device)
+        keep = _transient.depth == 0
         key = (p, n_cb, m, o, _tensor_key(w))
-        entry = self._states.pop(key, None)   # pop: re-insert moves to MRU
-        cold = entry is None
-        if cold:
+        entry = None
+        if keep:
+            with _session_lock:
+                entry = self._states.get(key)
+                if entry is not None:
+                    _drop(self, key)     # kept again below, as the MRU
+        if entry is None:
             state = ex.blank_state(p * n_cb, art.n_cols, rows,
                                    device=x.device)
             ws = _grid(w.repeat(1, m, 1), n_cb, rows)
@@ -381,14 +469,17 @@ class ExecutionSession:
         xs = _grid(x.repeat_interleave(o, dim=1), n_cb, rows)
         ex.write_numbers(state, x_cols, xs)
         state = ex.execute(state, art.microcode_on(x.device))
-        self._states[key] = (w, state)
-        while len(self._states) > self.max_resident:
-            self._states.popitem(last=False)     # LRU eviction
-        if cold:
-            self.uploads += p
+        if not keep:
+            self.transient += p
+            self._count("transient", p)
         else:
-            self.hits += p                       # resident weights: x-only
-        self._count(cold, p)
+            _keep(self, key, w, state)
+            if entry is None:
+                self.uploads += p
+                self._count("upload", p)
+            else:
+                self.hits += p                   # resident weights: x-only
+                self._count("hit", p)
         acc = ex.read_numbers(state, acc_cols, rows)
         acc = acc.reshape(p, n_cb * rows)[:, :total].reshape(p, m, o)
         return acc[0] if single else acc

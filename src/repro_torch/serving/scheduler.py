@@ -1,4 +1,4 @@
-"""Continuous-batching decode scheduler (the plain path).
+"""Continuous-batching decode scheduler.
 
 The runtime keeps one fixed-size decode batch of ``max_batch`` *slots*
 stepping together under a single ``decode_step_slots`` — per-slot
@@ -6,13 +6,16 @@ positions, per-slot masks, and an active-slot mask mean the step's input
 shapes never change however requests churn (``decode_traces`` counts the
 distinct decode input shapes; tests pin it to 1).  Each scheduler step:
 
-1. *backfill* — every free slot is filled from the admission queue
-   (lowest-numbered slot first, FIFO requests): the prompt is right-padded
-   to a ``prompt_bucket`` multiple, prefilled in one shot (logits read at
-   the true last token via ``prefill(last_index=...)``), the resulting
-   cache written into the slot of the persistent pool, and the first
-   token emitted — that's the request's TTFT.
-2. *decode* — one batched step advances every active slot by one token;
+1. *resume* — every mid-prefill slot advances by one prompt chunk
+   (chunked prefill, below); a prompt whose last chunk lands emits its
+   first token and joins the decode batch.
+2. *backfill* — every free slot is filled from the admission queue
+   (lowest-numbered slot first, in queue-policy order): the prompt is
+   right-padded to a ``prompt_bucket`` multiple, prefilled in one shot
+   (logits read at the true last token via ``prefill(last_index=...)``),
+   the resulting cache written into the slot of the persistent pool, and
+   the first token emitted — that's the request's TTFT.
+3. *decode* — one batched step advances every decoding slot by one token;
    finished slots (budget exhausted or EOS) are evicted and become
    backfill targets on the next step.
 
@@ -21,13 +24,41 @@ With ``ServingConfig(paged=True)`` the KV pool is block-paged (see
 and *defer* when it runs short, evictions return blocks, and the decode
 step reads through a fixed-shape block table.
 
-Under ``pim_mode="pim_sim"`` the step's crossbar GEMMs run through the
-engine's persistent :class:`ExecutionSession` pool: crossbar state is
-uploaded once per (artifact, weight) and only activation columns are
-written per token.
+``ServingConfig(prefix_cache=True)`` attaches the pool's prefix index:
+admission walks a trie over the prompt tokens, maps every fully matched
+block into the slot by reference, and prefills only the divergent tail
+(``prefill(prefix=...)`` resumed at the block-aligned match length).
+Shared blocks are copy-on-write: before each decode step the scheduler
+upgrades any slot about to write into one (``ensure_writable``).
 
-Not ported yet (ROADMAP queue 1): prefix caching, chunked and packed
-prefill, speculative decoding, the autotuner and the router.
+**Chunked prefill** (``ServingConfig(prefill_chunk=, step_token_budget=)``)
+splits a long prompt across steps: the first chunk admits normally
+(reserving the request's *full* block need up front), the slot is marked
+mid-prefill — occupied but excluded from the decode batch's active mask —
+and each later step resumes one more chunk through the block-aligned
+``prefill(prefix=...)`` path, reading the slot's own already-written
+blocks back as the prefix.  The last chunk emits the first token.
+``step_token_budget`` caps the prefill tokens (resumed chunks + new
+admissions) any single step processes; the first work item of a step is
+always allowed.
+
+**Packed prefill** (``ServingConfig(packed_prefill=True)``) batches a
+burst of short queued prompts into *one* ``prefill_packed`` call:
+segments ride a single (1, L) token stream with per-segment positions and
+a block-diagonal segment mask.  Heads are popped in queue-policy order and
+packing stops at the first ineligible head — no skip-ahead.
+
+All three need the paged pool (and turn it on) and KV that depends only on
+the tokens before it: no recurrent blocks, no MoE.
+
+Under ``pim_mode="pim_sim"`` the decode step's crossbar GEMMs run through
+the engine's persistent :class:`ExecutionSession` pool: crossbar state is
+uploaded once per (artifact, weight) and only activation columns are
+written per token; prefill runs on transient state
+(``pim.engine.transient``).
+
+Not ported yet (ROADMAP queue 1): speculative decoding, the autotuner,
+``drain`` and the router.
 """
 from __future__ import annotations
 
@@ -46,6 +77,15 @@ from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.queue import AdmissionQueue, Request, make_request
 
 __all__ = ["ServingConfig", "Scheduler"]
+
+#: Packed-prefill stream cap: keeping the packed length inside one flash
+#: key block (block_k = 512) means every segment's online-softmax pass
+#: sees a single-block reduction, as its unpacked prefill does.  Longer
+#: prompts chunk instead.
+_PACK_MAX_TOKENS = 512
+
+# layer kinds whose state folds the whole prefix into one vector
+_RECURRENT_KINDS = ("md", "me", "xm", "xs")
 
 
 def _idle_sleep(clock, arrival: float, stalls: int,
@@ -79,6 +119,16 @@ class ServingConfig:
     ``num_blocks`` physical blocks, default full parity + trash block):
     admits reserve exactly the request's block need from a free list and
     defer when it runs short.
+
+    ``prefix_cache=True`` attaches the trie prefix index with
+    copy-on-write block sharing.  ``prefill_chunk=N`` splits every long
+    prompt's prefill into N-token chunks interleaved with decode steps (N
+    must be a ``block_size`` multiple — chunk resumes ride the
+    block-aligned prefix-resume path); ``step_token_budget=B`` caps the
+    prefill tokens one step may process; ``packed_prefill=True`` batches
+    short queued prompts into one segment-masked prefill call.  All of
+    them imply the paged pool.  ``queue_policy`` orders admission
+    (``"fifo"`` or ``"sjf"``, shortest prompt first).
     """
 
     max_batch: int = 4          # decode slots
@@ -88,6 +138,49 @@ class ServingConfig:
     paged: bool = False         # block-paged KV pool
     block_size: int = 16        # tokens per KV block (paged pool)
     num_blocks: Optional[int] = None   # physical blocks (None: full parity)
+    prefix_cache: bool = False  # trie prefix sharing + COW (implies paged)
+    queue_policy: str = "fifo"  # admission order: "fifo" | "sjf"
+    prefill_chunk: Optional[int] = None  # split prefill into chunks of this
+    #   many tokens (block_size multiple; implies paged)
+    step_token_budget: Optional[int] = None  # max prefill tokens per step
+    packed_prefill: bool = False  # pack short prompts into one prefill call
+    #   (implies paged)
+
+
+def _validate(cfg: ModelConfig, scfg: ServingConfig) -> None:
+    """The reference's configuration checks: prefix sharing, chunked and
+    packed prefill rebuild a slot's KV from per-token caches laid out by
+    absolute position, so a token's KV must depend only on the tokens
+    before it — recurrent state folds the whole prefix into one vector,
+    and MoE capacity dropping couples a token's KV to its batch-mates."""
+    chunked = scfg.prefill_chunk is not None
+    for what, on in (("prefix_cache", scfg.prefix_cache),
+                     ("prefill_chunk", chunked),
+                     ("packed_prefill", scfg.packed_prefill)):
+        if not on:
+            continue
+        if any(k in _RECURRENT_KINDS for k in cfg.pattern):
+            raise ValueError(
+                f"{cfg.name}: {what} is incompatible with SSM/xLSTM blocks "
+                "(recurrent state is not prefix-separable)")
+        if cfg.n_experts:
+            raise ValueError(
+                f"{cfg.name}: {what} is incompatible with MoE (capacity "
+                "dropping couples a token's KV to its batch-mates)")
+    if chunked and (scfg.prefill_chunk < 1
+                    or scfg.prefill_chunk % scfg.block_size):
+        raise ValueError(
+            f"prefill_chunk={scfg.prefill_chunk} must be a positive "
+            f"multiple of block_size={scfg.block_size} (chunk resumes are "
+            "block-aligned)")
+    if scfg.step_token_budget is not None:
+        if scfg.step_token_budget < 1:
+            raise ValueError("step_token_budget must be >= 1")
+        if chunked and scfg.step_token_budget < scfg.prefill_chunk:
+            raise ValueError(
+                f"step_token_budget={scfg.step_token_budget} below "
+                f"prefill_chunk={scfg.prefill_chunk}: no step could ever "
+                "schedule a chunk")
 
 
 class Scheduler:
@@ -99,21 +192,27 @@ class Scheduler:
                  clock=time.monotonic, device="cuda"):
         if scfg.max_batch < 1:
             raise ValueError("max_batch must be >= 1")
+        _validate(cfg, scfg)
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
         self.scfg = scfg
         self.clock = clock
-        self.queue = AdmissionQueue()
+        self.queue = AdmissionQueue(policy=scfg.queue_policy)
         self.metrics = ServingMetrics()
-        if scfg.paged:
+        # chunked/packed prefill scatter per-chunk/per-segment caches at
+        # block offsets, which only the paged layout supports
+        if (scfg.paged or scfg.prefix_cache or scfg.packed_prefill
+                or scfg.prefill_chunk is not None):
             self.pool = PagedCachePool(
                 cfg, scfg.max_batch, cfg.max_seq_len,
                 block_size=scfg.block_size, num_blocks=scfg.num_blocks,
-                device=self.device)
+                device=self.device, prefix_cache=scfg.prefix_cache)
         else:
             self.pool = CachePool(cfg, scfg.max_batch, cfg.max_seq_len,
                                   device=self.device)
+        self._prefix_on = (scfg.prefix_cache
+                           and getattr(self.pool, "prefix", None) is not None)
 
         B = scfg.max_batch
         self._slot_rid = np.full(B, -1, np.int64)
@@ -122,6 +221,10 @@ class Scheduler:
         self._remaining = np.zeros(B, np.int64)
         self._outputs: Dict[int, List[int]] = {}
         self._active_req: Dict[int, Request] = {}   # rid -> in-slot request
+        # chunked prefill: a slot can be occupied but still mid-prefill —
+        # excluded from the decode batch until its last chunk lands
+        self._prefilling = np.zeros(B, bool)
+        self._prefill_done = np.zeros(B, np.int64)  # prompt tokens cached
         # one deferral count per request per wait
         self._deferred_rids: set = set()
         # distinct decode input shapes (the reference counts jit retraces)
@@ -131,8 +234,13 @@ class Scheduler:
 
     @property
     def active_slots(self) -> np.ndarray:
-        """Occupied slots (the decode step's active mask)."""
+        """Occupied slots, mid-prefill ones included."""
         return self._slot_rid >= 0
+
+    @property
+    def decoding_slots(self) -> np.ndarray:
+        """Occupied slots past prefill: the decode step's active mask."""
+        return self.active_slots & ~self._prefilling
 
     @property
     def n_active(self) -> int:
@@ -183,6 +291,16 @@ class Scheduler:
         b = ((plen + bq - 1) // bq) * bq
         return min(b, self.pool.max_len)
 
+    def _bucket_tail(self, tlen: int, m: int) -> int:
+        """Bucket for the divergent tail of a trie-hit prompt (or a later
+        chunk): the tail prefill emits an unpadded cache and the pool masks
+        pad positions out at scatter time, so only the slot's logical
+        capacity beyond the prefix bounds it."""
+        bq = max(1, self.scfg.prompt_bucket)
+        b = ((tlen + bq - 1) // bq) * bq
+        cap = getattr(self.pool, "lcap", self.pool.max_len) - m
+        return max(tlen, min(b, cap))
+
     def _finish(self, slot: int, now: float) -> None:
         rid = int(self._slot_rid[slot])
         self.metrics.on_finish(rid, now)
@@ -190,17 +308,239 @@ class Scheduler:
         self._slot_rid[slot] = -1
         self.pool.evict(slot)
 
-    def _admit(self, emitted: List[Tuple[int, int]]) -> None:
-        """Backfill free slots from the queue; appends (rid, token) firsts
-        to ``emitted``.
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.int64)).to(self.device)
 
-        FIFO with back-pressure: when the paged pool's free list cannot
-        cover the head request's block reservation, admission *defers*
-        (the head stays queued — no skip-ahead, no crash) until evictions
-        return enough blocks.  A request that finishes at admit (budget 1,
-        or EOS as its first token) never occupies a slot, so the *same*
-        slot is retried with the next queued request.
+    def _prefill(self, toks: np.ndarray, last: int, prefix=None):
+        return M.prefill(self.params, {"tokens": self._tensor(toks)},
+                         self.cfg, last_index=self._tensor([last]),
+                         prefix=prefix)
+
+    def _packable(self, req: Request, m: int) -> bool:
+        """Whether ``req`` may join a packed prefill: trie misses only
+        (hits resume, they don't prefill the prompt), short enough to stay
+        inside one flash key block, and below the chunking threshold
+        (long prompts chunk instead)."""
+        if m:
+            return False
+        plen = req.prompt.shape[0]
+        chunk = self.scfg.prefill_chunk
+        if chunk is not None and plen > chunk:
+            return False
+        return self._bucket(plen) <= _PACK_MAX_TOKENS
+
+    def _collect_pack(self, now: float, n_free: int,
+                      spent: int) -> List[Request]:
+        """Pop the (pre-validated, packable) head plus every immediately
+        following packable head that fits the pack — stopping at the first
+        ineligible one (no skip-ahead), at ``n_free`` slots, at the flash
+        block cap, at the step budget, or when the free list can't cover
+        the *cumulative* reservation (``can_admit(extra_reserved=)``)."""
+        budget = self.scfg.step_token_budget
+        first = self.queue.pop(now)
+        self._deferred_rids.discard(first.rid)
+        pack = [first]
+        total = self._bucket(first.prompt.shape[0])
+        reserved = self.pool.blocks_needed(
+            first.prompt.shape[0] + first.max_new_tokens)
+        while len(pack) < n_free:
+            head = self.queue.peek(now)
+            if head is None or head.arrival_time > now:
+                break
+            m = (self.pool.prefix_match(head.prompt)[0] if self._prefix_on
+                 else 0)
+            if not self._packable(head, m):
+                break
+            b = self._bucket(head.prompt.shape[0])
+            if total + b > _PACK_MAX_TOKENS:
+                break
+            if budget is not None and spent + total + b > budget:
+                break
+            n_tok = head.prompt.shape[0] + head.max_new_tokens
+            if not self.pool.can_admit(n_tok, extra_reserved=reserved):
+                break
+            req = self.queue.pop(now)
+            assert req is head, "peek/pop selection must agree"
+            self._deferred_rids.discard(req.rid)
+            pack.append(req)
+            total += b
+            reserved += self.pool.blocks_needed(n_tok)
+        return pack
+
+    def _admit_packed(self, pack: List[Request], free: List[int],
+                      emitted: List[Tuple[int, int]]) -> int:
+        """One ``prefill_packed`` call for the whole pack; returns the
+        packed stream length (the step-budget cost).  Segment ``i``'s
+        prompt occupies ``starts[i]..starts[i]+plen-1`` of the stream
+        (bucket-aligned widths: the shapes unpacked bucketed prefill
+        runs), and its cache is unpacked by
+        ``PagedCachePool.admit(start=starts[i])``."""
+        widths = [self._bucket(r.prompt.shape[0]) for r in pack]
+        starts = np.concatenate([[0], np.cumsum(widths[:-1])]).astype(int)
+        L = int(sum(widths))
+        toks = np.full((1, L), self.scfg.pad_id, np.int64)
+        pos = np.zeros(L, np.int64)
+        seg = np.full(L, -1, np.int64)   # padding matches no real segment
+        last = np.zeros(len(pack), np.int64)
+        for i, (r, s0, w) in enumerate(zip(pack, starts, widths)):
+            plen = r.prompt.shape[0]
+            toks[0, s0:s0 + plen] = r.prompt
+            pos[s0:s0 + w] = np.arange(w)
+            seg[s0:s0 + plen] = i
+            last[i] = s0 + plen - 1
+        logits, cache = M.prefill_packed(
+            self.params, self._tensor(toks), self._tensor(pos),
+            self._tensor(seg), self._tensor(last), self.cfg)
+        self.metrics.on_packed_prefill()
+        firsts = torch.argmax(logits, dim=-1).cpu().numpy()
+        now = self.clock()
+        for i, r in enumerate(pack):
+            plen = r.prompt.shape[0]
+            first = int(firsts[i])
+            self.metrics.on_admit(r.rid, now)
+            self.metrics.on_token(r.rid, now)
+            self._outputs[r.rid] = [first]
+            emitted.append((r.rid, first))
+            if r.max_new_tokens <= 1 or first == self.scfg.eos_id:
+                # finished at admit: never touches a slot
+                self.metrics.on_finish(r.rid, now)
+                continue
+            slot = int(free.pop(0))
+            self.pool.admit(slot, cache, plen, plen + r.max_new_tokens,
+                            prompt=r.prompt if self._prefix_on else None,
+                            start=int(starts[i]))
+            self._occupy(slot, r, first, plen)
+        return L
+
+    def _occupy(self, slot: int, req: Request, first: int, plen: int
+                ) -> None:
+        """Put ``req`` into the decode batch at ``slot``: its first token is
+        out and ``plen`` positions are cached."""
+        self._slot_rid[slot] = req.rid
+        self._active_req[req.rid] = req
+        self._tokens[slot, 0] = first
+        self._pos[slot] = plen
+        self._remaining[slot] = req.max_new_tokens - 1
+
+    def _begin_chunked(self, slot: int, req: Request, m: int,
+                       pblocks: List[int]) -> None:
+        """Admit ``req``'s *first* prefill chunk into ``slot`` and mark it
+        mid-prefill.  The pool reserves the request's full block need up
+        front (later chunks extend in place, they never allocate), so a
+        mid-prefill slot can always finish without deferring."""
+        chunk = self.scfg.prefill_chunk
+        plen = req.prompt.shape[0]
+        n_tok = plen + req.max_new_tokens
+        if m:
+            toks = np.full((1, self._bucket_tail(chunk, m)),
+                           self.scfg.pad_id, np.int64)
+            toks[0, :chunk] = req.prompt[m:m + chunk]
+            _, cache = self._prefill(toks, chunk - 1,
+                                     self.pool.read_prefix(pblocks))
+            # prompt=None: a half-written prompt must not enter the trie —
+            # registration is deferred to the last chunk
+            self.pool.admit(slot, cache, m + chunk, n_tok,
+                            prefix_blocks=pblocks)
+        else:
+            toks = np.full((1, self._bucket(chunk)), self.scfg.pad_id,
+                           np.int64)
+            toks[0, :chunk] = req.prompt[:chunk]
+            _, cache = self._prefill(toks, chunk - 1)
+            self.pool.admit(slot, cache, chunk, n_tok)
+        self.metrics.on_admit(req.rid, self.clock(), prefix_tokens=m)
+        self.metrics.on_prefill_chunk()
+        self._slot_rid[slot] = req.rid
+        self._active_req[req.rid] = req
+        self._prefilling[slot] = True
+        self._prefill_done[slot] = m + chunk
+        # _pos tracks tokens written; the decode step's garbage write for
+        # this (inactive) slot lands at _pos — the exact position the next
+        # chunk's extend overwrites with real KV
+        self._pos[slot] = m + chunk
+        self._tokens[slot, 0] = 0
+        self._remaining[slot] = 0
+
+    def _chunk_step(self, slot: int, req: Request, done: int, tlen: int,
+                    emitted: List[Tuple[int, int]]) -> None:
+        """Resume one more chunk of a mid-prefill slot: the slot's own
+        written blocks are read back as the prefix, the chunk's tail cache
+        extends them in place, and the *last* chunk emits the first token
+        — exactly what whole prefill would have produced."""
+        plen = req.prompt.shape[0]
+        new_len = done + tlen
+        toks = np.full((1, self._bucket_tail(tlen, done)), self.scfg.pad_id,
+                       np.int64)
+        toks[0, :tlen] = req.prompt[done:new_len]
+        prefix = self.pool.read_prefix(
+            self.pool.slot_blocks(slot)[:done // self.pool.block_size])
+        logits, cache = self._prefill(toks, tlen - 1, prefix)
+        self.pool.extend(slot, cache, done, new_len)
+        self.metrics.on_prefill_chunk()
+        self._prefill_done[slot] = new_len
+        self._pos[slot] = new_len
+        if new_len < plen:
+            return
+        # prompt fully cached: first token (the request's TTFT) and into
+        # the decode batch
+        first = int(torch.argmax(logits, dim=-1)[0])
+        now = self.clock()
+        self.metrics.on_token(req.rid, now)
+        self._outputs[req.rid] = [first]
+        emitted.append((req.rid, first))
+        self._prefilling[slot] = False
+        self._prefill_done[slot] = 0
+        if req.max_new_tokens <= 1 or first == self.scfg.eos_id:
+            self._finish(slot, now)
+            return
+        if self._prefix_on:
+            # deferred trie registration (admit passed prompt=None)
+            self.pool.register_prefix(slot, req.prompt, plen)
+        self._tokens[slot, 0] = first
+        self._remaining[slot] = req.max_new_tokens - 1
+
+    def _continue_prefills(self, emitted: List[Tuple[int, int]]) -> int:
+        """Advance every mid-prefill slot by one chunk (slot order);
+        returns the prefill tokens spent.  The first chunk of a step is
+        always allowed — further ones only while they fit the step
+        budget."""
+        if not self._prefilling.any():
+            return 0
+        spent = 0
+        budget = self.scfg.step_token_budget
+        chunk = self.scfg.prefill_chunk
+        for slot in np.flatnonzero(self._prefilling):
+            req = self._active_req[int(self._slot_rid[slot])]
+            done = int(self._prefill_done[slot])
+            tlen = min(chunk, req.prompt.shape[0] - done)
+            if budget is not None and spent and spent + tlen > budget:
+                break
+            self._chunk_step(int(slot), req, done, tlen, emitted)
+            spent += tlen
+        return spent
+
+    def _admit(self, emitted: List[Tuple[int, int]], spent: int = 0) -> int:
+        """Backfill free slots from the queue; appends (rid, token) firsts
+        to ``emitted`` and returns the updated prefill-token spend.
+
+        Queue-policy order with back-pressure: when the paged pool's free
+        list cannot cover the head request's block reservation, admission
+        *defers* (the head stays queued — no skip-ahead, no crash) until
+        evictions return enough blocks.  With ``prefix_cache``, the head's
+        prompt is first walked through the pool's trie: matched blocks are
+        mapped by reference and only the divergent tail is prefilled.  A
+        request that finishes at admit (budget 1, or EOS as its first
+        token) never occupies a slot, so the *same* slot is retried with
+        the next queued request.
+
+        With ``prefill_chunk``, a prompt whose (post-trie-match) tail
+        exceeds the chunk admits its first chunk only and parks the slot
+        mid-prefill; with ``packed_prefill``, a run of packable heads is
+        popped into one ``prefill_packed`` call.  ``step_token_budget``
+        stops further admissions once this step's prefill spend would
+        exceed it — the first work item of a step is always allowed.
         """
+        budget = self.scfg.step_token_budget
+        chunk = self.scfg.prefill_chunk
         free = [int(s) for s in np.flatnonzero(~self.active_slots)]
         while free:
             now = self.clock()
@@ -209,24 +549,56 @@ class Scheduler:
                 break
             plen = head.prompt.shape[0]
             n_tok = plen + head.max_new_tokens
-            if not self.pool.can_admit(n_tok):
+            if self._prefix_on:
+                m, pblocks = self.pool.prefix_match(head.prompt)
+                ok = self.pool.can_admit(n_tok, prefix_tokens=m)
+            else:
+                m, pblocks = 0, []
+                ok = self.pool.can_admit(n_tok)
+            if not ok:
                 if head.rid not in self._deferred_rids:  # count requests,
                     self._deferred_rids.add(head.rid)    # not steps waiting
                     self.metrics.on_deferred_admit()
                 break
-            req = self.queue.pop(now)
-            assert req is head, "peek/pop selection must agree"
-            self._deferred_rids.discard(req.rid)
-            bucket = self._bucket(plen)
-            toks = np.full((1, bucket), self.scfg.pad_id, np.int64)
-            toks[0, :plen] = req.prompt
-            logits, cache = M.prefill(
-                self.params, {"tokens": torch.as_tensor(toks).to(self.device)},
-                self.cfg, last_index=torch.tensor([plen - 1],
-                                                  device=self.device))
+            chunked = chunk is not None and plen - m > chunk
+            if chunked:
+                cost = chunk
+            elif m:
+                cost = self._bucket_tail(plen - m, m)
+            else:
+                cost = self._bucket(plen)
+            if budget is not None and spent and spent + cost > budget:
+                break
+            if (self.scfg.packed_prefill and not chunked
+                    and self._packable(head, m)):
+                pack = self._collect_pack(now, len(free), spent)
+                if len(pack) > 1:
+                    spent += self._admit_packed(pack, free, emitted)
+                    continue
+                req = pack[0]   # a pack of one admits like any other
+            else:
+                req = self.queue.pop(now)
+                assert req is head, "peek/pop selection must agree"
+                self._deferred_rids.discard(req.rid)
+            spent += cost
+            if chunked:
+                self._begin_chunked(free.pop(0), req, m, pblocks)
+                continue
+            if m:
+                tlen = plen - m
+                toks = np.full((1, self._bucket_tail(tlen, m)),
+                               self.scfg.pad_id, np.int64)
+                toks[0, :tlen] = req.prompt[m:]
+                logits, cache = self._prefill(toks, tlen - 1,
+                                              self.pool.read_prefix(pblocks))
+            else:
+                toks = np.full((1, self._bucket(plen)), self.scfg.pad_id,
+                               np.int64)
+                toks[0, :plen] = req.prompt
+                logits, cache = self._prefill(toks, plen - 1)
             first = int(torch.argmax(logits, dim=-1)[0])
             now = self.clock()
-            self.metrics.on_admit(req.rid, now)
+            self.metrics.on_admit(req.rid, now, prefix_tokens=m)
             self.metrics.on_token(req.rid, now)
             self._outputs[req.rid] = [first]
             emitted.append((req.rid, first))
@@ -236,12 +608,13 @@ class Scheduler:
                 self.metrics.on_finish(req.rid, now)
                 continue
             slot = free.pop(0)
-            self.pool.admit(slot, cache, plen, n_tok)
-            self._slot_rid[slot] = req.rid
-            self._active_req[req.rid] = req
-            self._tokens[slot, 0] = first
-            self._pos[slot] = plen
-            self._remaining[slot] = req.max_new_tokens - 1
+            if self._prefix_on:
+                self.pool.admit(slot, cache, plen, n_tok, prompt=req.prompt,
+                                prefix_blocks=pblocks)
+            else:
+                self.pool.admit(slot, cache, plen, n_tok)
+            self._occupy(slot, req, first, plen)
+        return spent
 
     def _decode(self, active: np.ndarray):
         dev = self.device
@@ -260,12 +633,22 @@ class Scheduler:
 
     @torch.no_grad()
     def step(self) -> List[Tuple[int, int]]:
-        """One scheduler step: backfill, then one batched decode step over
-        the active slots.  Returns the (rid, token) pairs emitted."""
+        """One scheduler step: resume mid-prefill chunks, backfill, then
+        one batched decode step over the decoding slots.  Returns the
+        (rid, token) pairs emitted."""
         emitted: List[Tuple[int, int]] = []
-        self._admit(emitted)
-        active = self.active_slots
+        spent = self._continue_prefills(emitted)
+        self._admit(emitted, spent)
+        active = self.decoding_slots
         if active.any():
+            if self.pool.paged and self.pool.has_shared:
+                # copy-on-write: each decoding slot writes its KV at _pos
+                # this step — upgrade a shared target block to a private
+                # copy first so sibling slots / the prefix index keep
+                # their bits
+                for slot in np.flatnonzero(active):
+                    self.pool.ensure_writable(int(slot),
+                                              int(self._pos[slot]))
             toks = self._decode(active)
             now = self.clock()
             for slot in np.flatnonzero(active):

@@ -2,6 +2,8 @@
 ``matmul_int`` exact across K chunks, ``sim_linear`` bit-identical to the
 reference's host math, weight-stationary sessions exact, and the
 straight-through gradient."""
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -161,3 +163,78 @@ def test_mode_context():
     assert engine.MODES == r_engine.MODES
     with pytest.raises(ValueError):
         engine.resolve_mode("bogus")
+
+
+def test_prefill_keeps_no_resident_state():
+    """Prefills of several lengths run their pim_sim linears on transient
+    state: no resident entry is kept for a prefill M, only the decode
+    step's M stays resident, and the logits are the bits of a run that
+    keeps every state resident."""
+    import contextlib
+
+    import repro_torch.configs as TC
+    from repro_torch.models import model_lib as TM
+
+    cfg = TC.get("qwen1.5-0.5b").smoke().scaled(
+        d_model=32, d_ff=32, head_dim=8, n_heads=4, n_kv_heads=4,
+        pim_mode="pim_sim", max_seq_len=16)
+    params = TM.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [torch.from_numpy(rng.integers(0, 277, (1, n)))
+               for n in (3, 5, 7)]
+
+    def prefills():
+        return [TM.prefill(params, {"tokens": t}, cfg)[0] for t in prompts]
+
+    engine.clear_cache()
+    transient = prefills()
+    info = engine.cache_info()
+    assert info.resident_entries == 0 and info.resident_bytes == 0
+    assert info.exec_uploads == 0 and info.exec_hits == 0
+    assert info.exec_transient == 3 * 7          # 3 prefills x 7 linears
+    _, caches = TM.prefill(params, {"tokens": prompts[0]}, cfg)
+    tok = torch.zeros((1, 1), dtype=torch.long)
+    TM.decode_step(params, tok, 3, caches, cfg)
+    info = engine.cache_info()
+    assert info.resident_entries == 7            # the decode M only
+    assert info.exec_uploads == 7
+    # one 32-term program per linear: (O*M/256 -> 1 crossbar) x 1024 x 8
+    assert info.resident_bytes == 7 * 1024 * 8 * 4
+    TM.decode_step(params, tok, 4, caches, cfg)
+    assert engine.cache_info().exec_hits == 7
+    assert engine.cache_info().resident_entries == 7
+
+    engine.clear_cache()
+    with mock.patch.object(engine, "transient", contextlib.nullcontext):
+        kept = prefills()
+    info = engine.cache_info()
+    assert info.resident_entries == 3 * 7        # one per (prefill M, linear)
+    assert info.exec_transient == 0
+    for a, b in zip(transient, kept):
+        assert torch.equal(a, b)
+
+
+def test_resident_bytes_are_bounded():
+    """The byte bound evicts least recently used states across sessions;
+    an evicted weight is uploaded again and its results keep their
+    bits."""
+    rng = np.random.default_rng(8)
+    ws = [torch.from_numpy(rng.integers(0, 256, (3, 20))) for _ in range(5)]
+    x = torch.from_numpy(rng.integers(0, 256, (2, 20)))
+    engine.clear_cache()
+    one = 1024 * 8 * 4                           # one crossbar's state
+    with mock.patch.object(engine, "MAX_RESIDENT_BYTES", 2 * one):
+        first = [engine.matmul_int(x, w, 8) for w in ws]
+        info = engine.cache_info()
+        assert info.resident_entries == 2 and info.resident_bytes == 2 * one
+        assert info.exec_uploads == 5
+        again = [engine.matmul_int(x, w, 8) for w in ws]
+        info = engine.cache_info()
+        assert info.exec_uploads == 10 and info.exec_hits == 0
+        assert info.resident_bytes <= 2 * one
+    for w, a, b in zip(ws, first, again):
+        np.testing.assert_array_equal(a.numpy(), _exact(x.numpy(), w.numpy()))
+        assert torch.equal(a, b)
+    # the last two stay resident: a hit each
+    engine.matmul_int(x, ws[-1], 8)
+    assert engine.cache_info().exec_hits == 1

@@ -231,3 +231,43 @@ def test_pim_sim_narrow_model_matches_reference():
                                cfg_r)
     _, lt2, _ = TM.decode_step(pt, _t(nxt).long(), 6, cache_t, cfg_t)
     _assert_logits(lr2, lt2, LOGIT_TOL)
+
+
+@pytest.mark.parametrize("name", ["silu", "gelu", "relu"])
+def test_activation_matches_reference(name):
+    """``activation(name)`` against the reference's (jax.nn.gelu is the
+    tanh approximation) on [-4, 4] in float32."""
+    from repro.models.layers import activation as r_activation
+
+    from repro_torch.models.layers import activation
+
+    x = np.linspace(-4, 4, 4001, dtype=np.float32)
+    got = activation(name)(_t(x)).numpy()
+    want = np.asarray(r_activation(name)(jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+# bfloat16 logits: both stacks round every activation to bf16 (8 mantissa
+# bits), in different reduction orders, so the logits (|logit| <= ~1.5 on
+# the smoke model) may differ by a few bf16 ulps (2**-7 = 0.0078 at 1-2);
+# 0.05 is about 6 of them.  The argmax must agree.
+BF16_LOGIT_TOL = 0.05
+
+
+@pytest.mark.parametrize("mode", ["xla", "quant", "pim_sim"])
+def test_bf16_prefill_matches_reference(mode):
+    """The served dtype: the smoke model in bfloat16, prefill logits of
+    both stacks from the same weights, in every ported lowering."""
+    kw = dict(dtype="bfloat16", pim_mode=mode)
+    cfg_r = RC.get("qwen1.5-0.5b").smoke().scaled(**kw)
+    cfg_t = TC.get("qwen1.5-0.5b").smoke().scaled(**kw)
+    pr = RM.init_params(cfg_r, jax.random.PRNGKey(5))
+    pt = TM.from_reference(_np_tree(pr), cfg_t, device="cpu")
+    assert pt["embed"].dtype == torch.bfloat16
+    toks = np.random.default_rng(6).integers(0, 277, (2, 11)).astype(
+        np.int32)
+    lr, _ = RM.prefill(pr, {"tokens": jnp.asarray(toks)}, cfg_r)
+    lt, _ = TM.prefill(pt, {"tokens": _t(toks).long()}, cfg_t)
+    lr = np.asarray(lr)
+    np.testing.assert_allclose(lt.numpy(), lr, rtol=0, atol=BF16_LOGIT_TOL)
+    np.testing.assert_array_equal(lt.numpy().argmax(-1), lr.argmax(-1))
