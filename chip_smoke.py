@@ -36,10 +36,24 @@ boundary block on write and leave the index's blocks unchanged.
 ``pim_sim`` serves three requests sharing a 16-token prefix through the
 prefix cache and 16-token chunks, tokens held to the exact integer
 product, then one 64-token prompt whose memory high-water mark must stay
-below ``PIM_PEAK_BYTES``.  Last it profiles one decode step per mode
-(torch.profiler) and prints its wall and device-busy time and its
-costliest kernels; each step must make one launch of its mode's kernel
-per linear.  The last line of standard output is ``{"ok": true, "device":
+below ``PIM_PEAK_BYTES``.
+
+The paper's multipliers run on the crossbar kernel through the engine's
+backend registry (``check_multipliers``): serial, serial_fast,
+compressor42 (``engine.build_multiplier``) and MultPIM at n = 8, 16 and 32
+over ``MULT_CROSSBARS`` crossbars of 1024 x 1024, every product exact and
+the state of two crossbars equal to the per-gate plain version; each
+program is timed.  Then both kernels serve through self-speculative
+decoding: ``quant`` verifying ``xla`` drafts (draft_k 4) on the ``quant``
+phase's trace, tokens equal to that phase's, and ``pim_sim`` verifying
+``quant`` drafts (draft_k 3, max_batch 2) twice, tokens equal to a plain
+``pim_sim`` serve held to the exact integer product, the second serve's
+verify steps making no cold upload; each round must make one launch of
+the verify mode's kernel per linear and, for a ``quant`` draft, one per
+linear per draft step.  Last it profiles one decode step per mode and one
+``pim_sim`` speculative round (torch.profiler) and prints its wall and
+device-busy time and its costliest kernels; each step must make one
+launch of its mode's kernel per linear.  The last line of standard output is ``{"ok": true, "device":
 {...}}``; the line before it lists the card's name and power limit, and the
 one before that the per-kernel JSON.  Any failure raises and exits
 non-zero before those lines.  Without a CUDA device it exits non-zero at
@@ -185,8 +199,10 @@ def check_quant_kernel(dev):
                              generator=g)
 
     # M up to 512: prefix tails, chunks and packed streams (the packed
-    # stream's cap); 23 and 80 are ragged tails
-    path = [(m, k, n) for m in (1, 4, 16, 23, 32, 48, 64, 80, 128, 512)
+    # stream's cap); 23 and 80 are ragged tails; 2, 6, 8 and 12 are the
+    # speculative draft and verify steps (B = 2 and 4, k = 3 and 4)
+    path = [(m, k, n) for m in (1, 2, 4, 6, 8, 12, 16, 23, 32, 48, 64, 80,
+                                128, 512)
             for k, n in QUANT_SHAPES_KN]
     ragged = [(1, 1, 1), (3, 77, 5), (17, 200, 130), (5, 1000, 1001),
               (129, 33, 257), (2, 4097, 3)]
@@ -513,8 +529,105 @@ def check_crossbar_kernel(dev):
             f"{bound * 1e3:.2f} us ({rows[c]['bound_by']}) | "
             f"{bound / ms * 100:.2f}% of bound | "
             f"{g_rows / (ms * 1e-3) / 1e6:.1f} M gates/s per row-word")
-    row = dict(rows[594], max_abs_err=err, ms_616=rows[616]["ms"])
+    # the fixed cost of a launch: an empty kernel back to back, and this
+    # kernel on one crossbar with one gate
+    floor = cuda_ms(lambda i: torch.cuda._sleep(0), 50)
+    st1 = rand_state(1)
+    mc1 = microcode(*(torch.zeros(1, device=dev) for _ in range(4)))
+    one_gate = cuda_ms(lambda i: crossbar_exec(st1, mc1), 50)
+    check(st1, mc1, "one INIT gate over one crossbar")
+    say(f"[crossbar_exec] launch floor (an empty kernel, back to back): "
+        f"{floor * 1e3:.2f} us | one gate over one crossbar (n={n}, "
+        f"W={w_words}): {one_gate * 1e3:.2f} us")
+    row = dict(rows[594], max_abs_err=err, ms_616=rows[616]["ms"],
+               launch_floor_ms=floor, one_gate_ms=one_gate)
     return row
+
+
+# --------------------------------------------------------------------------
+# phase 3b: the paper's multipliers on the crossbar kernel
+# --------------------------------------------------------------------------
+
+MULT_CROSSBARS = 132          # one per SM: the paper's 1024 x 1024 array
+MULT_ROWS = 1024
+
+
+def check_multipliers(dev):
+    """The serial, serial_fast and compressor42 multipliers (the engine's
+    mult backends) and MultPIM (minimal model) at n = 8, 16 and 32 on
+    ``MULT_CROSSBARS`` crossbars of 1024 x 1024 through
+    ``engine.execute_state(backend="cuda")``: every product exact (through
+    a uint64 view), the whole state of two crossbars equal to the per-gate
+    plain version, then each program timed.  Returns (the launches of the
+    checked runs, the table rows)."""
+    from repro_torch.kernels.crossbar_exec import crossbar_exec_ref, plan
+    from repro_torch.pim import engine
+    from repro_torch.pim import executor as ex
+    from repro_torch.pim.multpim import build_multpim
+
+    c, rows, n_cols = MULT_CROSSBARS, MULT_ROWS, 1024
+    w_words = rows // 32
+    rng = np.random.default_rng(13)
+    progs = []
+    for n in (8, 16, 32):
+        for name in ("serial", "serial_fast", "compressor42", "multpim"):
+            m = (build_multpim(n, model="minimal") if name == "multpim"
+                 else engine.build_multiplier(name, n, n_cols=n_cols))
+            progs.append((name, n, m))
+    reset_counters()
+    runs = []
+    for name, n, m in progs:
+        a = rng.integers(0, 1 << n, (c, rows), dtype=np.uint64)
+        b = rng.integers(0, 1 << n, (c, rows), dtype=np.uint64)
+        # the reference's edge pairs (tests/test_multipliers.py::_check)
+        a[0, :4] = [0, (1 << n) - 1, 1, (1 << n) - 1]
+        b[0, :4] = [0, (1 << n) - 1, (1 << n) - 1, 1]
+        state = ex.blank_state(c, n_cols, rows, device=dev)
+        for cols, v in ((m.a_cols, a), (m.b_cols, b)):
+            ex.write_numbers(state, cols,
+                             torch.from_numpy(v.view(np.int64)).to(dev))
+        mc = torch.from_numpy(m.program.to_microcode()).to(dev)
+        out = engine.execute_state(state, mc, backend="cuda")
+        runs.append((name, n, m, a, b, state, mc, out))
+    launches = counters()[1]
+    torch.cuda.synchronize()
+    if launches != len(progs):
+        raise AssertionError(f"{len(progs)} multiplier runs made {launches} "
+                             "crossbar_exec launches")
+    table = []
+    for name, n, m, a, b, state, mc, out in runs:
+        got = ex.read_numbers(out, m.result_cols, rows).cpu().numpy()
+        if not np.array_equal(got.view(np.uint64), a * b):
+            bad = np.argwhere(got.view(np.uint64) != a * b)[0]
+            raise AssertionError(f"{name} {n}-bit product wrong at "
+                                 f"(crossbar, row) {tuple(bad)}")
+        e = max_abs_err(out[:2], crossbar_exec_ref(state[:2], mc))
+        if e:
+            raise AssertionError(f"{name} {n}-bit: crossbar_exec state != "
+                                 f"plain on 2 crossbars: max abs error {e}")
+        st = m.program.stats()
+        g_rows = mc.shape[0]
+        groups = plan(mc, n_cols).n_groups
+        ms = cuda_ms(lambda i: engine.execute_state(state, mc,
+                                                    backend="cuda"), 10)
+        nbytes = 2 * state.numel() * 4 + mc.numel() * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = g_rows * c * w_words / INT32_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        row = dict(program=name, n=n, gates=g_rows, cycles=st.cycles,
+                   groups=groups, gates_per_group=g_rows / groups, ms=ms,
+                   bound_ms=bound,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   mults_per_s=c * rows / (ms * 1e-3), max_abs_err=e)
+        table.append(row)
+        say(f"[multipliers] {name:12s} n={n:2d}: {g_rows:6d} gates, "
+            f"{st.cycles:6d} cycles, {groups:5d} groups "
+            f"({g_rows / groups:5.2f} gates/group) | {ms:8.4f} ms per launch"
+            f" of {c} x {rows} rows | bound {bound * 1e3:7.2f} us "
+            f"({row['bound_by']}, {bound / ms * 100:5.2f}%) | "
+            f"{row['mults_per_s'] / 1e6:8.2f} M mults/s | products exact, "
+            "state == plain on 2 crossbars")
+    return launches, table
 
 
 # --------------------------------------------------------------------------
@@ -564,9 +677,10 @@ def serve_requests(params, cfg, dev, trace, **kw):
 
 
 def serve(params, cfg, dev, *, n_requests, prompt_lens, max_new, max_batch,
-          seed):
-    """A synthetic trace through the paged scheduler; returns the tokens in
-    submission order, the summary and the wall time (``serve_requests``)."""
+          seed, **kw):
+    """A synthetic trace through the paged scheduler with
+    ``ServingConfig(**kw)`` besides; returns the tokens in submission
+    order, the summary and the wall time (``serve_requests``)."""
     from repro_torch.serving import synthetic_requests
 
     reqs = synthetic_requests(n_requests, vocab_size=cfg.vocab_size,
@@ -575,7 +689,7 @@ def serve(params, cfg, dev, *, n_requests, prompt_lens, max_new, max_batch,
     return serve_requests(params, cfg, dev,
                           [(r.prompt, r.max_new_tokens) for r in reqs],
                           max_batch=max_batch, paged=True,
-                          prompt_bucket=max(8, max(prompt_lens) // 4))
+                          prompt_bucket=max(8, max(prompt_lens) // 4), **kw)
 
 
 def prefill_logits(params, cfg, tokens):
@@ -623,7 +737,7 @@ def serve_quant(params, base_cfg, dev):
         f"{summary['decode_traces']} | quant_matmul_int launches "
         f"{q_launches} | crossbar_exec launches {x_launches}")
     say(f"[quant] sample generation: {results[0]}")
-    return q_launches, cfg
+    return q_launches, cfg, results
 
 
 def serve_pim(params, base_cfg, dev):
@@ -706,6 +820,114 @@ def serve_pim(params, base_cfg, dev):
     say(f"[pim_sim] tokens (both serves == exact 7-bit integer product): "
         f"{results}")
     return x_launches, cfg
+
+
+def spec_line(tag, summary, wall):
+    say(f"{tag} {summary['n_finished']} requests in {wall:.2f} s: "
+        f"{summary['tokens_per_s']:.3f} tok/s | mean TTFT "
+        f"{summary['mean_ttft_s'] * 1e3:.1f} ms | mean TPOT "
+        f"{summary['mean_tpot_s'] * 1e3:.2f} ms | verify steps "
+        f"{summary['verify_steps']} | accept length histogram (per slot and "
+        f"round) {summary['accept_len_hist']} | mean accept length "
+        f"{summary['mean_accept_len']:.3f} | accepted "
+        f"{summary['accepted_tokens']} of {summary['verified_tokens']} "
+        f"verified ({summary['drafted_tokens']} drafted), "
+        f"{summary['accepted_per_step']:.3f} tokens per slot and round")
+
+
+def check_spec_counts(label, summary, launches, want):
+    for key in ("draft_traces", "verify_traces"):
+        if summary[key] != 1:
+            raise AssertionError(f"{label}: {key} is {summary[key]}, "
+                                 "expected 1")
+    if launches != want:
+        raise AssertionError(f"{label}: (quant_matmul_int, crossbar_exec) "
+                             f"launches {launches}, expected {want}")
+
+
+def serve_quant_spec(params, qcfg, dev, plain):
+    """The quant phase's trace with speculation: verify quant, draft xla,
+    draft_k 4.  Tokens equal the plain quant serve's; each round is one
+    verify step of 168 GEMM launches at M = 16 (the xla draft launches
+    none).  Returns the serve's quant_matmul_int launches."""
+    n_layers = qcfg.n_layers
+    reset_counters()
+    got, summary, wall = serve(params, qcfg, dev, n_requests=8,
+                               prompt_lens=(16, 32, 48, 64), max_new=16,
+                               max_batch=4, seed=4, speculative=True,
+                               draft_mode="xla", draft_k=4)
+    launches = counters()
+    spec_line("[quant spec]", summary, wall)
+    rounds = summary["verify_steps"]
+    check_spec_counts("quant spec", summary, launches,
+                      (7 * n_layers * (rounds + 8), 0))
+    if got != plain:
+        bad = [i for i, (a, b) in enumerate(zip(plain, got)) if a != b]
+        raise AssertionError(f"quant speculative tokens differ from plain "
+                             f"quant at requests {bad}: "
+                             f"{[got[i] for i in bad]} vs "
+                             f"{[plain[i] for i in bad]}")
+    say(f"[quant spec] tokens == plain quant serve for all 8 requests; "
+        f"quant_matmul_int launches {launches[0]} = {7 * n_layers} x "
+        f"({rounds} verify steps + 8 prefills)")
+    return launches[0]
+
+
+def serve_pim_spec(params, base_cfg, dev):
+    """pim_sim verify, quant draft, draft_k 3, max_batch 2: served once
+    without speculation (tokens held to the exact integer product), then
+    twice with it (tokens equal; the second serve's verify steps make no
+    cold upload).  Returns the first speculative serve's launches."""
+    from repro_torch.pim import engine
+
+    def exact(x, w, n_bits=8, **kw):
+        return (x.double() @ w.double().T).long()
+
+    plen, max_new, k = 16, 8, 3
+    n_layers = base_cfg.n_layers
+    cfg = base_cfg.scaled(pim_mode="pim_sim", max_seq_len=plen + max_new)
+    kw = dict(n_requests=2, prompt_lens=(plen,), max_new=max_new,
+              max_batch=2, seed=12)
+    plain, s0, w0 = serve(params, cfg, dev, **kw)
+    with mock.patch.object(engine, "matmul_int", exact):
+        want, _, _ = serve(params, cfg, dev, **kw)
+    say(f"[pim_sim spec] plain serve (2 requests, {plen}-token prompts, "
+        f"{max_new} new tokens, max_batch 2) in {w0:.2f} s, mean TPOT "
+        f"{s0['mean_tpot_s'] * 1e3:.1f} ms: tokens {plain} (exact product "
+        f"{want})")
+    if plain != want:
+        raise AssertionError("plain pim_sim tokens differ from the exact "
+                             "integer product")
+    out = []
+    for label in ("first speculative serve", "second speculative serve"):
+        info0 = engine.cache_info()
+        reset_counters()
+        got, summary, wall = serve(params, cfg, dev, speculative=True,
+                                   draft_mode="quant", draft_k=k, **kw)
+        launches = counters()
+        info = engine.cache_info()
+        uploads = info.exec_uploads - info0.exec_uploads
+        spec_line(f"[pim_sim spec] [{label}]", summary, wall)
+        rounds = summary["verify_steps"]
+        say(f"[pim_sim spec] [{label}] launches (quant_matmul_int, "
+            f"crossbar_exec) {launches} | verify uploads {uploads}, hits "
+            f"{info.exec_hits - info0.exec_hits} | prefill (transient) "
+            f"{info.exec_transient - info0.exec_transient} | resident "
+            f"{info.resident_entries} states, "
+            f"{info.resident_bytes / 2 ** 30:.2f} GiB")
+        check_spec_counts(f"pim_sim {label}", summary, launches,
+                          (7 * n_layers * (k - 1) * rounds,
+                           7 * n_layers * (rounds + 2)))
+        if got != plain:
+            raise AssertionError(f"pim_sim speculative tokens {got} != plain "
+                                 f"{plain} ({label})")
+        out.append((launches, uploads))
+    if out[1][1]:
+        raise AssertionError(f"the second speculative serve's verify steps "
+                             f"made {out[1][1]} cold uploads, expected 0")
+    say(f"[pim_sim spec] tokens of both speculative serves == plain == exact "
+        f"product; the second made 0 cold uploads")
+    return out[0][0]
 
 
 def prefix_logit_diffs(params, cfg, dev, prompt, other, bucket, chunk):
@@ -979,19 +1201,22 @@ def serve_pim_prefix(params, base_cfg, dev):
     return x_launches
 
 
-def profile_decode(params, cfg, dev, max_batch, top=6):
-    """Profile one decode step of a warm scheduler: wall and device-busy
-    time, kernel launches, memset nodes, the ``top`` kernels by device time
-    and the port's own kernels."""
+def profile_decode(params, cfg, dev, max_batch, top=6, max_new=4, **kw):
+    """Profile one decode step of a warm scheduler (``ServingConfig(**kw)``
+    besides; a speculative scheduler's step is one round): wall and
+    device-busy time, kernel launches, memset nodes, the ``top`` kernels by
+    device time and the port's own kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import (Scheduler, ServingConfig,
                                      synthetic_requests)
 
     sched = Scheduler(params, cfg, ServingConfig(
-        max_batch=max_batch, prompt_bucket=16, paged=True), device=dev)
+        max_batch=max_batch, prompt_bucket=16, paged=True, **kw),
+        device=dev)
     for r in synthetic_requests(max_batch, vocab_size=cfg.vocab_size,
-                                prompt_lens=(16,), max_new_tokens=4, seed=7,
+                                prompt_lens=(16,), max_new_tokens=max_new,
+                                seed=7,
                                 start_time=time.monotonic()):
         sched.submit_request(r)
     sched.step()                      # admit + one decode step (warm)
@@ -1020,6 +1245,9 @@ def profile_decode(params, cfg, dev, max_batch, top=6):
     host_us = sum(e.self_cpu_time_total for e in events)
     memsets = sum(e.count for e in kernels if "memset" in e.key.lower())
     name = f"{cfg.pim_mode} decode step, batch {max_batch}"
+    if kw.get("speculative"):
+        name = (f"{cfg.pim_mode} speculative round (draft "
+                f"{kw['draft_mode']}, k {kw['draft_k']}), batch {max_batch}")
     say(f"[profile] {name}: wall {wall * 1e3:.2f} ms, device busy "
         f"{dev_us / 1e3:.2f} ms ({dev_us / 1e3 / (wall * 1e3) * 100:.1f}%), "
         f"host ops {host_us / 1e3:.2f} ms, launches (quant_matmul_int, "
@@ -1065,6 +1293,7 @@ def main() -> int:
 
     quant_rows = check_quant_kernel(dev)
     xbar_row = check_crossbar_kernel(dev)
+    mult_launches, mult_table = check_multipliers(dev)
 
     base = configs.get("qwen1.5-0.5b")
     t0 = time.perf_counter()
@@ -1076,12 +1305,16 @@ def main() -> int:
         f"{base.padded_vocab}, {base.dtype}) from seed 0 in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    q_launches, qcfg = serve_quant(params, base, dev)
+    q_launches, qcfg, q_tokens = serve_quant(params, base, dev)
     x_launches, pcfg = serve_pim(params, base, dev)
     qp_launches = serve_quant_prefix(params, base, dev)
     xp_launches = serve_pim_prefix(params, base, dev)
+    qs_launches = serve_quant_spec(params, qcfg, dev, q_tokens)
+    ps_launches = serve_pim_spec(params, base, dev)
     profile_decode(params, qcfg, dev, 4)
     profile_decode(params, pcfg, dev, 2)
+    profile_decode(params, pcfg.scaled(max_seq_len=24), dev, 2, max_new=8,
+                   speculative=True, draft_mode="quant", draft_k=3)
 
     qrow = quant_rows[(4, 1024, 2816)]
     kernels = [
@@ -1089,6 +1322,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/quant_matmul.cu",
              replaces="src/repro/kernels/quant_matmul/quant_matmul.py:53",
              launches=q_launches, launches_prefix_path=qp_launches,
+             launches_spec_path=qs_launches + ps_launches[0],
              max_abs_err=qrow["max_abs_err"],
              exact=qrow["max_abs_err"] == 0,
              shape=[4, 1024, 2816], ms=qrow["ms"], plain_ms=qrow["plain_ms"],
@@ -1101,12 +1335,17 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/crossbar_exec.cu",
              replaces="src/repro/kernels/crossbar_exec/crossbar_exec.py:66",
              launches=x_launches, launches_prefix_path=xp_launches,
+             launches_spec_path=ps_launches[1],
+             launches_mult_path=mult_launches,
              max_abs_err=xbar_row["max_abs_err"],
              exact=xbar_row["max_abs_err"] == 0,
              shape=xbar_row["shape"], ms=xbar_row["ms"],
              ms_616=xbar_row["ms_616"],
              plain_ms=xbar_row["plain_ms"], bound_ms=xbar_row["bound_ms"],
-             bound_by=xbar_row["bound_by"], library_ms=None),
+             bound_by=xbar_row["bound_by"], library_ms=None,
+             launch_floor_ms=xbar_row["launch_floor_ms"],
+             one_gate_ms=xbar_row["one_gate_ms"],
+             multipliers=mult_table),
     ]
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s;"
         f" launch counters now {quant_matmul_int.launches}, "

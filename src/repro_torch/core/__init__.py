@@ -13,7 +13,7 @@ from repro_torch.core.operation import (
 from repro_torch.core.models import MODELS, is_legal, validate
 from repro_torch.core.control import decode, encode, message_bits
 from repro_torch.core.program import Program, ProgramBuilder, ProgramStats
-from repro_torch.core import periphery
+from repro_torch.core import bounds, periphery
 
 __all__ = [
     "GATE_CODES",
@@ -36,5 +36,6 @@ __all__ = [
     "Program",
     "ProgramBuilder",
     "ProgramStats",
+    "bounds",
     "periphery",
 ]

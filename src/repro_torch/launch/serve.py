@@ -15,6 +15,11 @@ every synthetic prompt one N-token system prompt; ``--prefill-chunk N`` +
 steps, and ``--packed-prefill`` batches short queued prompts into one
 segment-masked prefill call; generations stay the tokens of whole
 prefill.  ``--queue-policy sjf`` admits the shortest prompt first.
+``--speculative`` turns on self-speculative decoding: ``--draft-mode``
+(default ``quant``) drafts ``--draft-k - 1`` tokens per round and the
+serving mode verifies the whole run in one step; greedy acceptance keeps
+the tokens of plain decode, and the ``[spec]`` line echoes the measured
+acceptance.
 Weights are random, drawn from ``--seed``.  Runs on ``--device cuda``
 (the default; it raises without a card) or ``--device cpu`` with the
 kernels' plain versions, where ``--smoke`` keeps the model small.
@@ -22,6 +27,10 @@ kernels' plain versions, where ``--smoke`` keeps the model small.
     PYTHONPATH=src python -m repro_torch.launch.serve --pim-mode quant \\
         --batch 4 --requests 8 --prompt-lens 16,32,48,64 \\
         --max-new-tokens 16 --paged
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --pim-mode pim_sim \\
+        --batch 2 --requests 2 --prompt-lens 16 --max-new-tokens 8 \\
+        --paged --speculative --draft-mode quant --draft-k 3
 """
 from __future__ import annotations
 
@@ -40,21 +49,30 @@ def serve_trace(params, cfg, requests, *, max_batch: int, prompt_bucket: int,
                 num_blocks=None, prefix_cache: bool = False,
                 queue_policy: str = "fifo", prefill_chunk=None,
                 step_token_budget=None, packed_prefill: bool = False,
-                device="cuda"):
-    """Run a request trace through the scheduler; returns (results, summary)."""
+                speculative: bool = False, draft_mode: str = "quant",
+                draft_k: int = 4, device="cuda"):
+    """Run a request trace through the scheduler; returns (results,
+    summary).  The summary adds the step counters ``decode_traces``,
+    ``draft_traces``, ``verify_traces`` and ``verify_steps`` (speculative
+    rounds; 0 without speculation)."""
     scfg = ServingConfig(max_batch=max_batch, prompt_bucket=prompt_bucket,
                          paged=paged, block_size=block_size,
                          num_blocks=num_blocks, prefix_cache=prefix_cache,
                          queue_policy=queue_policy,
                          prefill_chunk=prefill_chunk,
                          step_token_budget=step_token_budget,
-                         packed_prefill=packed_prefill)
+                         packed_prefill=packed_prefill,
+                         speculative=speculative, draft_mode=draft_mode,
+                         draft_k=draft_k)
     sched = Scheduler(params, cfg, scfg, device=device)
     for req in requests:
         sched.submit_request(req)
     results = sched.run()
     summary = sched.metrics.summary()
     summary["decode_traces"] = sched.decode_traces
+    summary["draft_traces"] = sched.draft_traces
+    summary["verify_traces"] = sched.verify_traces
+    summary["verify_steps"] = sched.verify_steps
     return results, summary
 
 
@@ -97,6 +115,20 @@ def main(argv=None):
     ap.add_argument("--packed-prefill", action="store_true",
                     help="pack bursts of short queued prompts into one "
                          "segment-masked prefill call (implies --paged)")
+    ap.add_argument("--speculative", action="store_true",
+                    help="self-speculative decode: --draft-mode drafts "
+                         "draft_k-1 tokens per round, the serving mode "
+                         "verifies the run in one step; greedy acceptance "
+                         "keeps the tokens of plain decode")
+    ap.add_argument("--draft-mode", choices=list(engine.MODES),
+                    default="quant",
+                    help="cheap lowering for the draft pass; how many "
+                         "drafts the serving mode accepts depends on the "
+                         "pair (quant rounds to 8 bits, pim_sim to 7, xla "
+                         "not at all) and is reported on the [spec] line")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="verify width: tokens checked per verify step "
+                         "(draft_k-1 drafted; 1 is plain decode)")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend one fixed N-token system prompt to every "
                          "synthetic request (the prefix-cache workload)")
@@ -130,7 +162,8 @@ def main(argv=None):
         num_blocks=args.num_blocks, prefix_cache=args.prefix_cache,
         queue_policy=args.queue_policy, prefill_chunk=args.prefill_chunk,
         step_token_budget=args.step_token_budget,
-        packed_prefill=args.packed_prefill, device=device)
+        packed_prefill=args.packed_prefill, speculative=args.speculative,
+        draft_mode=args.draft_mode, draft_k=args.draft_k, device=device)
     print(f"served {summary['n_finished']}/{summary['n_requests']} "
           f"requests, {summary['total_tokens']} tokens @ "
           f"{summary['tokens_per_s']:.1f} tok/s "
@@ -162,6 +195,15 @@ def main(argv=None):
               f"{summary['prefill_chunks']} prefill chunks, "
               f"{summary['packed_prefills']} packed prefills (chunk "
               f"{args.prefill_chunk}, budget {args.step_token_budget})")
+    if args.speculative and summary.get("spec_rounds", 0):
+        print(f"[spec] draft {args.draft_mode} k={args.draft_k}: "
+              f"{summary['accepted_tokens']}/{summary['verified_tokens']} "
+              f"verified tokens accepted ({summary['drafted_tokens']} "
+              f"drafted) | mean accept len "
+              f"{summary['mean_accept_len']:.2f} | accept len histogram "
+              f"{summary['accept_len_hist']} | "
+              f"{summary['accepted_per_step']:.2f} tok/verify step | "
+              f"{summary['verify_steps']} verify steps")
     if args.pim_mode == "pim_sim":
         info = engine.cache_info()
         print(f"[pim] crossbar uploads {info.exec_uploads}, "

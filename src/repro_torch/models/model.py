@@ -15,9 +15,15 @@ Prefill runs its ``pim_sim`` linears on transient crossbar state
 (``pim.engine.transient``): a prompt's length is a one-off GEMM shape, so
 only the decode step keeps crossbar state resident.
 
+A multi-position decode step (:func:`decode_run_slots`, the speculative
+verify) runs every linear once over all ``B * S`` rows, and its other
+float ops — the norms, attention and the unembed — one position at a
+time, at the shapes of the single-position step: a reduction over more
+rows may take another order on the card, and the verify must give the
+bits of plain decode.
+
 Not ported yet (ROADMAP queue 1): MoE, Mamba, xLSTM, cross-attention and
-encoders, sliding windows and ``decode_run_slots``; they raise
-``NotImplementedError``.
+encoders, and sliding windows; they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -195,71 +201,98 @@ def _read_kv(c, cfg: ModelConfig, quant: bool):
     return c["k"], c["v"]
 
 
+def _per_position(fn, x, *rest):
+    """``fn`` applied to each position ``x[:, i:i+1]`` (and the matching
+    slice of each of ``rest``) on its own, the results concatenated on dim
+    1: every call has the shapes of a single-position decode step."""
+    return torch.cat([fn(x[:, i:i + 1].contiguous(),
+                         *(r[:, i:i + 1] for r in rest))
+                      for i in range(x.shape[1])], dim=1)
+
+
+def _norm(x, weight, cfg: ModelConfig, run: bool):
+    if run:
+        return _per_position(lambda xi: rms_norm(xi, weight, cfg.norm_eps), x)
+    return rms_norm(x, weight, cfg.norm_eps)
+
+
 def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
                     block_tables=None, segment_ids=None):
     b, s, d = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     quant = cfg.kv_cache_dtype == "int8"
-    hh = rms_norm(x, p["norm1"], cfg.norm_eps)
+    # a multi-position decode step: the speculative verify run
+    run = mode == "decode" and s > 1
+    hh = _norm(x, p["norm1"], cfg, run)
     q = linear(hh, p["wq"], p.get("bq")).reshape(b, s, h, hd)
     k = linear(hh, p["wk"], p.get("bk")).reshape(b, s, hkv, hd)
     v = linear(hh, p["wv"], p.get("bv")).reshape(b, s, hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     new_cache = None
-    if mode == "decode" and s > 1:
-        raise NotImplementedError(
-            "multi-position decode (speculative verify) is not ported yet "
-            "(ROADMAP.md queue 1)")
     if mode == "decode" and block_tables is not None:
         # Block-paged cache: leaves are (num_blocks, block, ...) physical
         # stores shared by every slot; ``block_tables`` (B, blocks_per_slot)
         # maps each slot's logical blocks to physical ones (sentinel
         # entries point at the reserved trash block 0, which no reader
-        # unmasks).  A write at or past the slot's logical capacity lcap is
-        # routed to the trash block: the clamped table gather would
-        # otherwise resolve to the slot's *last real block* and overwrite a
-        # committed row.
+        # unmasks).  Token i of the step is written at logical row
+        # pos + i, and query i sees the rows up to its own.  A write at or
+        # past the slot's logical capacity lcap is routed to the trash
+        # block: the clamped table gather would otherwise resolve to the
+        # slot's *last real block* and overwrite a committed row.
         bs_blk = cache["k"].shape[1]
         lcap = block_tables.shape[1] * bs_blk
         r = torch.arange(lcap, device=x.device)
-        bidx = torch.arange(b, device=x.device)
-        valid = r[None, :] <= pos[:, None]
-        blk = block_tables[bidx, torch.clamp(pos, max=lcap - 1) // bs_blk]
-        blk = torch.where(pos < lcap, blk, torch.zeros_like(blk))
-        off = pos % bs_blk
+        widx = pos[:, None] + torch.arange(s, device=x.device)   # (B, s)
+        valid = r[None, None, :] <= widx[:, :, None]            # (B, s, lcap)
+        bidx = torch.arange(b, device=x.device)[:, None]
+        blk = block_tables[bidx, torch.clamp(widx, max=lcap - 1) // bs_blk]
+        blk = torch.where(widx < lcap, blk, torch.zeros_like(blk))
+        off = widx % bs_blk
         for key, new in _kv_leaves(k, v, quant).items():
-            cache[key][blk, off] = new[:, 0].to(cache[key].dtype)
+            cache[key][blk, off] = new.to(cache[key].dtype)
         gathered = {key: c[block_tables].reshape((b, lcap) + c.shape[2:])
                     for key, c in cache.items()}
         k_full, v_full = _read_kv(gathered, cfg, quant)
-        out = attn.decode_attention(q, k_full, v_full, valid=valid)
+        out = _decode_attention(q, k_full, v_full, valid)
         new_cache = cache
     elif mode == "decode":
         cap = cache["k"].shape[1]
         leaves = _kv_leaves(k, v, quant)
         if isinstance(pos, torch.Tensor) and pos.dim() == 1:
-            # continuous batching: each slot writes its token at its own
-            # absolute position; a write at or past the capacity is
-            # dropped (it keeps the row's old value) rather than wrapped
-            # onto live row 0
+            # continuous batching: each slot writes token i at its own
+            # absolute position pos + i; a write at or past the capacity
+            # is dropped (it keeps the row's old value) rather than
+            # wrapped onto live row 0.  One position at a time, so that
+            # no two writes of one call land on the same row.
             bidx = torch.arange(b, device=x.device)
-            keep = (pos < cap)
-            idx = torch.clamp(pos, max=cap - 1)
-            for key, new in leaves.items():
-                c = cache[key]
-                new = new[:, 0].to(c.dtype)
-                kshape = (b,) + (1,) * (new.dim() - 1)
-                c[bidx, idx] = torch.where(keep.reshape(kshape), new,
-                                           c[bidx, idx])
-            cache_len = torch.clamp(pos + 1, max=cap)[:, None]
+            for i in range(s):
+                at = pos + i
+                keep = at < cap
+                idx = torch.clamp(at, max=cap - 1)
+                for key, new in leaves.items():
+                    c = cache[key]
+                    new = new[:, i].to(c.dtype)
+                    kshape = (b,) + (1,) * (new.dim() - 1)
+                    c[bidx, idx] = torch.where(keep.reshape(kshape), new,
+                                               c[bidx, idx])
+            widx = pos[:, None] + torch.arange(s, device=x.device)
+            valid = (torch.arange(cap, device=x.device)[None, None, :]
+                     <= widx[:, :, None])                        # (B, s, cap)
+        elif s > 1:
+            raise ValueError("multi-position decode needs per-slot (B,) "
+                             "positions")
         else:
             idx = int(pos) % cap
             for key, new in leaves.items():
                 cache[key][:, idx:idx + s] = new.to(cache[key].dtype)
+            valid = None
             cache_len = min(int(pos) + 1, cap)
         k_full, v_full = _read_kv(cache, cfg, quant)
-        out = attn.decode_attention(q, k_full, v_full, cache_len)
+        if valid is None:
+            out = attn.decode_attention(q, k_full, v_full, cache_len)
+        else:
+            out = _decode_attention(q, k_full, v_full, valid)
         new_cache = cache
     else:
         attn_fn = attn.flash_attention if cfg.flash_attention \
@@ -303,6 +336,14 @@ def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
     return x + y, new_cache
 
 
+def _decode_attention(q, k_full, v_full, valid):
+    """Decode attention of queries (B, s) under a per-query mask
+    (B, s, S), one query position at a time (see the module docstring)."""
+    return _per_position(
+        lambda qi, vi: attn.decode_attention(qi, k_full, v_full,
+                                             valid=vi[:, 0]), q, valid)
+
+
 def _tail_kv(k, v, cfg: ModelConfig, quant: bool):
     """The unpadded cache of a resumed or packed prefill."""
     if quant:
@@ -319,8 +360,8 @@ def _dense_ffn(hh, p, cfg: ModelConfig):
     return linear(h, p["w_out"])
 
 
-def _mlp(x, p, cfg: ModelConfig):
-    hh = rms_norm(x, p["norm2"], cfg.norm_eps)
+def _mlp(x, p, cfg: ModelConfig, run: bool = False):
+    hh = _norm(x, p["norm2"], cfg, run)
     return x + _dense_ffn(hh, p, cfg)
 
 
@@ -332,7 +373,7 @@ def apply_block(kind: str, x, p, cfg: ModelConfig, *, positions, mode,
     x, c = _self_attention(x, p, cfg, positions, mode, cache, pos,
                            block_tables=block_tables,
                            segment_ids=segment_ids)
-    x = _mlp(x, p, cfg)
+    x = _mlp(x, p, cfg, run=mode == "decode" and x.shape[1] > 1)
     return x, c
 
 
@@ -520,6 +561,53 @@ def decode_step_slots(params, tokens, pos, active, caches, cfg: ModelConfig,
         return next_tok, logits, new_caches
 
 
+def decode_run_slots(params, tokens, pos, active, caches, cfg: ModelConfig,
+                     block_tables=None):
+    """Verify a run of ``S`` candidate tokens per slot in one decode step.
+
+    The speculative-decoding verify pass: ``tokens`` (B, S) int holds, per
+    slot, the current token followed by ``S - 1`` drafted tokens; ``pos``
+    (B,) int is the absolute position of ``tokens[:, 0]``.  Token ``i`` is
+    fed at position ``pos + i``, its KV row written at that logical index
+    (overwriting whatever the drafting pass left there), and its greedy
+    continuation read out — the returned ``verify_tok`` (B, S) int32 is
+    ``argmax(logits[:, i])`` for every ``i``.  The caller accepts the
+    longest prefix where ``verify_tok[:, i] == tokens[:, i + 1]`` and
+    rewinds past the rejected tail: the rejected rows hold garbage KV, but
+    every mask here is position-gated (``row <= query pos``), so the next
+    run overwrites a garbage row before any query can see it.
+
+    Row ``i`` gives the bits of the single-position step at the same
+    position with the same fed prefix: every linear lowering quantizes
+    per activation row, and the norms, attention and the unembed (one
+    (B, d) matmul per position) run one position at a time.  Writes at or
+    past a slot's capacity go to the trash block (paged) or are dropped
+    (contiguous).  Updates ``caches`` in place.
+    """
+    _check_supported(cfg)
+    with _pim_ctx(cfg):
+        pos = pos.long()
+        run = torch.arange(tokens.shape[1], device=tokens.device)
+        x = _embed_in(params, tokens, cfg)
+        x, new_caches = _decoder_stack(
+            params, x, cfg, positions=pos[:, None] + run[None, :],
+            mode="decode", caches=caches, pos=pos,
+            block_tables=None if block_tables is None
+            else block_tables.long())
+        table = _unembed_table(params, cfg)
+        # one (B, d) unembed per run position: the row the single-position
+        # step runs (a (B * S, d) matmul may reduce in another order)
+        logits = torch.stack(
+            [unembed(rms_norm(x[:, i:i + 1].contiguous(),
+                              params["final_norm"], cfg.norm_eps)[:, -1],
+                     table) for i in range(tokens.shape[1])],
+            dim=1).to(torch.float32)
+        verify_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        verify_tok = torch.where(active[:, None], verify_tok,
+                                 torch.zeros_like(verify_tok))
+        return verify_tok, logits, new_caches
+
+
 # ==========================================================================
 # cache specs
 # ==========================================================================
@@ -567,5 +655,5 @@ def param_count(cfg: ModelConfig) -> int:
 
 __all__ = ["PAGED_KV_KEYS", "param_specs", "init_params", "from_reference",
            "apply_block", "prefill", "prefill_packed", "decode_step",
-           "decode_step_slots", "cache_specs", "paged_cache_specs",
+           "decode_step_slots", "decode_run_slots", "cache_specs", "paged_cache_specs",
            "zeros_like_specs", "param_count"]

@@ -1,19 +1,28 @@
 """PIM algorithms on the PartitionPIM core: executor, arithmetic, engine.
 
 ``repro_torch.pim.engine`` is the execution surface: compile-once /
-execute-many artifacts, persistent sessions, and the ``mode(...)``
-selection that ``models.layers.linear`` honours.  The other modules are
-the synthesis (program construction) and simulation layers underneath.
+execute-many artifacts, persistent sessions, the backend registry, and the
+``mode(...)`` selection that ``models.layers.linear`` honours.  The other
+modules are the synthesis (program construction) and simulation layers
+underneath.
 """
 from repro_torch.pim import engine, executor
+from repro_torch.pim.mult_serial import SerialMultiplier, build_serial_multiplier
+from repro_torch.pim.mult_serial_fast import build_fast_serial_multiplier
+from repro_torch.pim.compressor42 import build_compressor42_multiplier
 from repro_torch.pim.multpim import PartitionedMultiplier, build_multpim
-from repro_torch.pim.matmul import PimDot, build_dot
+from repro_torch.pim.matmul import PimDot, build_dot, pim_matmul_int
 
 __all__ = [
     "engine",
     "executor",
+    "SerialMultiplier",
+    "build_serial_multiplier",
+    "build_fast_serial_multiplier",
+    "build_compressor42_multiplier",
     "PartitionedMultiplier",
     "build_multpim",
     "PimDot",
     "build_dot",
+    "pim_matmul_int",
 ]

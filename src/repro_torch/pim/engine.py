@@ -8,6 +8,29 @@ The driving side of the partitioned crossbar, as one API:
   ``(n_terms, n_bits, model, accumulate, n_cols)``.  Repeated calls with
   the same key return the *same* artifact without rebuilding (program
   construction is the expensive Python part — thousands of gate appends).
+* :func:`execute` / :func:`execute_state` / :func:`build_multiplier` — one
+  registry of backends, each tagged with its kind.  A ``"state"`` backend
+  maps ``(crossbar_state, microcode) -> state``; a ``"mult"`` backend maps
+  ``(n_bits, n_cols) -> multiplier build``; ``"linear"`` is the kind of a
+  linear lowering (``quant_tp``, not registered yet).  Picking a name of
+  the wrong kind at a dispatch point is a clear error:
+
+  ============  ======  ===================================================
+  backend       kind    what it runs
+  ============  ======  ===================================================
+  cuda          state   the CUDA crossbar kernel; raises on a non-CUDA
+                        state (the counterpart of the reference's
+                        ``pallas``, which the port does not register)
+  scan / jnp    state   ``crossbar_exec_ref``, the per-gate oracle
+  unrolled      state   ``executor.execute_unrolled``, static indices
+  numpy         state   a numpy interpreter over uint32 words
+  serial        mult    the paper's optimized serial NOR multiplier
+  serial_fast   mult    the 7-gate NAND/OR/AND full-adder variant
+  compressor42  mult    the 4:2 two-rows-per-pass variant
+  ============  ======  ===================================================
+
+  :func:`register_backend` adds more; a custom backend never hides the
+  defaults.
 * :class:`ExecutionSession` / :func:`session_for` — persistent execution:
   crossbar state stays resident on the operands' device across calls,
   keyed per (geometry, weight) — a crossbar array in real PIM *is* a
@@ -16,8 +39,14 @@ The driving side of the partitioned crossbar, as one API:
   program's microcode re-INITs every working column it reads and never
   writes operand columns, so reuse is bit-exact).  The state runs on the
   CUDA crossbar kernel for a CUDA tensor and on its plain version for a
-  CPU tensor (``kernels.crossbar_exec``).  Resident state is bounded in
-  bytes, process-wide (:data:`MAX_RESIDENT_BYTES`, LRU).
+  CPU tensor (``kernels.crossbar_exec``), unless the session names a
+  registered state backend.  Resident state is bounded in bytes per
+  session namespace (:data:`MAX_RESIDENT_BYTES`, LRU).
+* :func:`draft_ctx` / :func:`current_session_ns` — the ``"draft"``
+  session namespace of a speculative drafting pass
+  (``serving.speculative``): its sessions share the compiled artifacts
+  but keep their own resident state under their own byte bound, so a
+  drafting pass can never evict the verify path's resident crossbars.
 * :func:`transient` — a context in which every GEMM runs on a fresh
   state that is dropped after the call.  The model's prefill entry points
   enter it: a prompt's row count M is a one-off shape, and one M's
@@ -39,7 +68,12 @@ The driving side of the partitioned crossbar, as one API:
   the tensor's device.
 
 Every non-"xla" lowering quantizes activations **per row**, so a batched
-step is bit-identical per row to a single-row one.
+step is bit-identical per row to a single-row one.  The lowerings do not
+all quantize alike: ``"quant"`` rounds to 8 bits and ``"pim_sim"`` to 7
+(:func:`sim_linear`), so a ``"quant"`` draft for a ``"pim_sim"`` verify is
+not bit-equal to it, and how many of its drafts are accepted has to be
+measured.  Every pairing stays exact, because a rejected draft is decoded
+again by the verify mode.
 """
 from __future__ import annotations
 
@@ -47,7 +81,7 @@ import collections
 import contextlib
 import dataclasses
 import threading
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +94,14 @@ __all__ = [
     "compile_matmul",
     "cache_info",
     "clear_cache",
+    "BACKEND_KINDS",
+    "register_backend",
+    "get_backend",
+    "backend_kind",
+    "backends",
+    "build_multiplier",
+    "execute",
+    "execute_state",
     "ExecutionSession",
     "MAX_RESIDENT_BYTES",
     "session_for",
@@ -69,6 +111,8 @@ __all__ = [
     "mode",
     "current_mode",
     "resolve_mode",
+    "draft_ctx",
+    "current_session_ns",
 ]
 
 
@@ -118,6 +162,46 @@ def resolve_mode(override: Optional[str] = None) -> str:
     if override is not None:
         return _check_mode(override)
     return current_mode()
+
+
+class _NsStack(threading.local):
+    def __init__(self):
+        self.frames = []
+
+
+_ns_stack = _NsStack()
+
+
+@contextlib.contextmanager
+def draft_ctx(name: Optional[str] = None) -> Iterator[Optional[str]]:
+    """Context for a speculative *drafting* pass.
+
+    Drafting runs a second, cheaper lowering next to the verify path's in
+    the same process.  Both share the compiled-artifact cache, but not
+    resident :class:`ExecutionSession` state: inside this context
+    :func:`sim_linear` (and any caller that passes
+    :func:`current_session_ns` to :func:`session_for` / :func:`matmul_int`)
+    uses the ``"draft"``-namespaced session pool, whose states are bounded
+    apart from the verify path's, so a drafting pass can never evict a
+    verify crossbar.  ``name`` optionally selects the draft's lowering mode
+    as well (``draft_ctx("quant")`` is ``mode("quant")`` plus the
+    namespace).  Re-entrant, exception-safe and thread local.
+    """
+    _ns_stack.frames.append("draft")
+    try:
+        if name is None:
+            yield None
+        else:
+            with mode(name):
+                yield name
+    finally:
+        _ns_stack.frames.pop()
+
+
+def current_session_ns() -> str:
+    """``"draft"`` inside :func:`draft_ctx`, else ``""`` (the verify and
+    default session namespace)."""
+    return _ns_stack.frames[-1] if _ns_stack.frames else ""
 
 
 # ==========================================================================
@@ -262,25 +346,202 @@ def cache_info() -> CacheInfo:
         return dataclasses.replace(info, exec_hits=_exec_hits,
                                    exec_uploads=_exec_uploads,
                                    exec_transient=_exec_transient,
-                                   resident_entries=len(_resident),
-                                   resident_bytes=_resident_bytes)
+                                   resident_entries=sum(
+                                       len(lru) for lru in _resident.values()),
+                                   resident_bytes=sum(
+                                       _resident_bytes.values()))
 
 
 def clear_cache() -> None:
     global _hits, _misses, _builds, _exec_hits, _exec_uploads, \
-        _exec_transient, _resident_bytes
+        _exec_transient
     with _cache_lock:
         _cache.clear()
         _hits = _misses = _builds = 0
     with _session_lock:
-        for sess, key in list(_resident):
-            sess._states.pop(key, None)
+        for lru in _resident.values():
+            for sess, key in lru:
+                sess._states.pop(key, None)
         _resident.clear()
-        _resident_bytes = 0
+        _resident_bytes.clear()
         _sessions.clear()
         _exec_hits = _exec_uploads = _exec_transient = 0
     _derived.clear()
     _chunked.clear()
+
+
+# ==========================================================================
+# backend registry
+# ==========================================================================
+
+# A "state" backend maps (state, microcode, **kw) -> new state, where state
+# is the bit-packed (C, n, W) int32 crossbar tensor and microcode the (G, 4)
+# rows (a tensor or an array); a "mult" backend maps (n_bits, n_cols, **kw)
+# -> a built multiplier (program + I/O columns); "linear" is the kind of a
+# linear lowering (x, w) -> y.  One registry, tagged kinds: picking a name
+# of the wrong kind at a dispatch point is a clear error, not a shape
+# explosion deep in a kernel.
+Backend = Callable[..., "object"]
+
+BACKEND_KINDS = ("state", "linear", "mult")
+
+_backends: Dict[str, Backend] = {}
+_backend_kinds: Dict[str, str] = {}
+_backends_lock = threading.Lock()
+
+
+def register_backend(name: str, fn: Backend, *, kind: str = "state") -> None:
+    if kind not in BACKEND_KINDS:
+        raise ValueError(f"backend kind must be one of {BACKEND_KINDS}, "
+                         f"got {kind!r}")
+    with _backends_lock:
+        _backends[name] = fn
+        _backend_kinds[name] = kind
+
+
+_defaults_registered = False
+
+
+def _microcode_tensor(microcode, device) -> torch.Tensor:
+    if isinstance(microcode, torch.Tensor):
+        return microcode.to(device=device, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(microcode), dtype=torch.int32,
+                           device=device)
+
+
+def _microcode_array(microcode) -> np.ndarray:
+    if isinstance(microcode, torch.Tensor):
+        microcode = microcode.cpu()
+    return np.asarray(microcode)
+
+
+def _cuda(state, microcode, **kw):
+    """The CUDA crossbar kernel; a state off the card is an error, not a
+    reason to run something else."""
+    from repro_torch.kernels.crossbar_exec import crossbar_exec
+
+    if state.device.type != "cuda":
+        raise ValueError(f"backend 'cuda' runs the CUDA crossbar kernel and "
+                         f"needs a CUDA state; got a state on {state.device}")
+    return crossbar_exec(state.contiguous(),
+                         _microcode_tensor(microcode, state.device))
+
+
+def _scan(state, microcode, **kw):
+    from repro_torch.kernels.crossbar_exec import crossbar_exec_ref
+
+    return crossbar_exec_ref(state, _microcode_tensor(microcode, "cpu"))
+
+
+def _unrolled(state, microcode, **kw):
+    from repro_torch.pim import executor as ex
+
+    return ex.execute_unrolled(state, _microcode_array(microcode))
+
+
+def _numpy_interpret(state, microcode, **kw):
+    """Numpy microcode interpreter over the reference's uint32 words.
+
+    Takes and returns the port's int32 state tensor (on its device); the
+    loop itself runs on the host, gate codes as ``GATE_CODES``."""
+    st = state.detach().cpu().numpy().view(np.uint32).copy()
+    ones = np.uint32(0xFFFFFFFF)
+    for code, ia, ib, out in _microcode_array(microcode).tolist():
+        a = st[:, ia, :]
+        b = st[:, ib, :]
+        if code == 0:                       # INIT
+            res = np.full_like(a, ones)
+        elif code == 1:                     # NOT
+            res = ~a
+        elif code == 2:                     # NOR
+            res = ~(a | b)
+        elif code == 3:                     # OR
+            res = a | b
+        elif code == 4:                     # NAND
+            res = ~(a & b)
+        else:                               # AND
+            res = a & b
+        st[:, out, :] = res
+    return torch.from_numpy(st.view(np.int32)).to(state.device)
+
+
+def _ensure_default_backends() -> None:
+    global _defaults_registered
+    if _defaults_registered:
+        return
+    from repro_torch.pim.compressor42 import build_compressor42_multiplier
+    from repro_torch.pim.mult_serial import build_serial_multiplier
+    from repro_torch.pim.mult_serial_fast import build_fast_serial_multiplier
+
+    with _backends_lock:
+        for nm, fn, kind in (("cuda", _cuda, "state"),
+                             ("scan", _scan, "state"),
+                             ("jnp", _scan, "state"),  # the reference's alias
+                             ("unrolled", _unrolled, "state"),
+                             ("numpy", _numpy_interpret, "state"),
+                             ("serial", build_serial_multiplier, "mult"),
+                             ("serial_fast", build_fast_serial_multiplier,
+                              "mult"),
+                             ("compressor42", build_compressor42_multiplier,
+                              "mult")):
+            _backends.setdefault(nm, fn)
+            _backend_kinds.setdefault(nm, kind)
+        # only after everything registered: a failed import above leaves the
+        # flag unset so the next call retries
+        _defaults_registered = True
+
+
+def get_backend(name: str) -> Backend:
+    _ensure_default_backends()
+    with _backends_lock:
+        fn = _backends.get(name)
+    if fn is None:
+        raise ValueError(f"unknown backend {name!r}; "
+                         f"registered: {sorted(_backends)}")
+    return fn
+
+
+def backends() -> Tuple[str, ...]:
+    _ensure_default_backends()
+    with _backends_lock:
+        return tuple(sorted(_backends))
+
+
+def backend_kind(name: str) -> str:
+    """``"state"``, ``"linear"`` or ``"mult"`` (see the registry comment
+    above)."""
+    _ensure_default_backends()
+    with _backends_lock:
+        if name not in _backends:
+            raise ValueError(f"unknown backend {name!r}; "
+                             f"registered: {sorted(_backends)}")
+        return _backend_kinds.get(name, "state")
+
+
+def execute_state(state, microcode, *, backend: str = "scan", **kw):
+    """Run flat microcode over raw crossbar state on the chosen backend."""
+    kind = backend_kind(backend)
+    if kind != "state":
+        what = ("a linear lowering" if kind == "linear"
+                else "a multiplier algorithm")
+        raise ValueError(
+            f"backend {backend!r} is {what}, not a crossbar-state "
+            f"executor; it cannot run microcode")
+    return get_backend(backend)(state, microcode, **kw)
+
+
+def build_multiplier(name: str, n_bits: int, *, n_cols: int = 1024, **kw):
+    """Build (uncached) a registered multiplier algorithm by name.
+
+    Dispatches ``kind="mult"`` registry entries.  Guarded like
+    :func:`execute_state`: a state or linear backend name is a clear error.
+    """
+    kind = backend_kind(name)
+    if kind != "mult":
+        raise ValueError(
+            f"backend {name!r} is a {kind!r} backend, not a multiplier "
+            f"algorithm; it cannot build a gate program")
+    return get_backend(name)(n_bits, n_cols, **kw)
 
 
 # ==========================================================================
@@ -311,14 +572,15 @@ _exec_hits = 0
 _exec_uploads = 0
 _exec_transient = 0
 
-#: Bound on the bytes of resident crossbar state over all sessions
-#: (``state.numel() * 4`` per entry), least recently used evicted first.
-#: 8 GiB holds the decode-step states of every linear of full-width
-#: qwen1.5-0.5b (about 1 GiB per decode row) up to batch 8.
+#: Bound on the bytes of resident crossbar state over the sessions of one
+#: namespace (``state.numel() * 4`` per entry), least recently used
+#: evicted first.  8 GiB holds the decode-step states of every linear of
+#: full-width qwen1.5-0.5b (about 1 GiB per decode row) up to batch 8.
 MAX_RESIDENT_BYTES = 8 << 30
-# every resident state, LRU order: (session, key) -> bytes
-_resident: "collections.OrderedDict" = collections.OrderedDict()
-_resident_bytes = 0
+# every resident state per session namespace, in LRU order:
+# namespace -> {(session, key): bytes}, and the bytes of each namespace
+_resident: Dict[str, "collections.OrderedDict"] = {}
+_resident_bytes: Dict[str, int] = {}
 
 
 class _Transient(threading.local):
@@ -345,23 +607,27 @@ def transient() -> Iterator[None]:
 def _keep(sess: "ExecutionSession", key: Tuple, w: torch.Tensor,
           state: torch.Tensor) -> None:
     """Make ``state`` resident under ``key`` and evict least recently used
-    states (of any session) past the entry and byte bounds."""
-    global _resident_bytes
+    states past the session's entry bound and its namespace's byte bound.
+    Only states of the session's own namespace are evicted, so a drafting
+    pass (namespace ``"draft"``) never drops a verify state."""
+    ns = sess.namespace
     with _session_lock:
         nbytes = state.numel() * 4
+        lru = _resident.setdefault(ns, collections.OrderedDict())
         sess._states[key] = (w, state)
-        _resident[(sess, key)] = nbytes
-        _resident_bytes += nbytes
+        lru[(sess, key)] = nbytes
+        _resident_bytes[ns] = _resident_bytes.get(ns, 0) + nbytes
         while len(sess._states) > sess.max_resident:
             _drop(sess, next(iter(sess._states)))
-        while _resident_bytes > MAX_RESIDENT_BYTES and _resident:
-            _drop(*next(iter(_resident)))
+        while _resident_bytes[ns] > MAX_RESIDENT_BYTES and lru:
+            _drop(*next(iter(lru)))
 
 
 def _drop(sess: "ExecutionSession", key: Tuple) -> None:
-    global _resident_bytes
+    ns = sess.namespace
     sess._states.pop(key, None)
-    _resident_bytes -= _resident.pop((sess, key), 0)
+    nbytes = _resident.get(ns, {}).pop((sess, key), 0)
+    _resident_bytes[ns] = _resident_bytes.get(ns, 0) - nbytes
 
 
 class ExecutionSession:
@@ -390,16 +656,27 @@ class ExecutionSession:
     Inside :func:`transient` a call neither reads nor keeps resident
     state: it writes both operands into a blank state and drops it.
 
+    ``backend`` names a registered state backend to run the microcode on;
+    ``None`` (the default) runs the device's own: the CUDA kernel for a
+    CUDA state, its grouped plain version for a CPU state.
+
     Resident states are bounded per session by ``max_resident`` entries
-    and over all sessions by :data:`MAX_RESIDENT_BYTES`, least recently
-    used first.  Counts go to the process-wide ``cache_info`` counters
-    (``exec_hits`` / ``exec_uploads`` / ``exec_transient``), one per chunk
-    GEMM.  Not thread-safe.
+    and over the sessions of one ``namespace`` by
+    :data:`MAX_RESIDENT_BYTES`, least recently used first.  Counts go to
+    the process-wide ``cache_info`` counters (``exec_hits`` /
+    ``exec_uploads`` / ``exec_transient``), one per chunk GEMM.  Not
+    thread-safe.
     """
 
-    def __init__(self, artifact: CompiledPim, *, rows_per_crossbar: int = 256,
-                 max_resident: int = 1024):
+    def __init__(self, artifact: CompiledPim, *,
+                 backend: Optional[str] = None, rows_per_crossbar: int = 256,
+                 max_resident: int = 1024, namespace: str = ""):
+        if backend is not None and backend_kind(backend) != "state":
+            raise ValueError(f"backend {backend!r} is not a crossbar-state "
+                             "executor")
         self.artifact = artifact
+        self.backend = backend
+        self.namespace = namespace
         self.rows_per_crossbar = rows_per_crossbar
         self.max_resident = max_resident
         # key -> (weight tensor, resident state)
@@ -468,7 +745,11 @@ class ExecutionSession:
             state = entry[1]
         xs = _grid(x.repeat_interleave(o, dim=1), n_cb, rows)
         ex.write_numbers(state, x_cols, xs)
-        state = ex.execute(state, art.microcode_on(x.device))
+        if self.backend is None:
+            state = ex.execute(state, art.microcode_on(x.device))
+        else:
+            state = execute_state(state, art.microcode_on(x.device),
+                                  backend=self.backend)
         if not keep:
             self.transient += p
             self._count("transient", p)
@@ -485,25 +766,51 @@ class ExecutionSession:
         return acc[0] if single else acc
 
 
-def session_for(artifact: CompiledPim, *, rows_per_crossbar: int = 256
-                ) -> ExecutionSession:
-    """The process-wide persistent session for ``(artifact,
-    rows_per_crossbar)`` — created on first use, then reused so repeated
-    GEMMs with the same artifact keep their crossbar state resident.
-    ``clear_cache()`` drops all pooled sessions."""
-    key = (artifact.key, rows_per_crossbar)
+def session_for(artifact: CompiledPim, *, backend: Optional[str] = None,
+                rows_per_crossbar: int = 256,
+                max_resident: Optional[int] = None,
+                namespace: str = "") -> ExecutionSession:
+    """The process-wide persistent session for ``(artifact, backend,
+    rows_per_crossbar, namespace)`` — created on first use, then reused so
+    repeated GEMMs with the same artifact keep their crossbar state
+    resident.  ``max_resident`` applies on creation (and raises the cap of
+    an existing session).  ``namespace`` partitions the pool and its byte
+    bound: a speculative drafting pass runs under ``"draft"`` (see
+    :func:`draft_ctx`) so its uploads can never evict the verify path's
+    resident state.  ``clear_cache()`` drops all pooled sessions."""
+    key = (artifact.key, backend, rows_per_crossbar, namespace)
     with _session_lock:
         sess = _sessions.get(key)
         if sess is None:
-            sess = ExecutionSession(artifact,
-                                    rows_per_crossbar=rows_per_crossbar)
+            sess = ExecutionSession(
+                artifact, backend=backend,
+                rows_per_crossbar=rows_per_crossbar, namespace=namespace,
+                **({} if max_resident is None
+                   else {"max_resident": max_resident}))
             _sessions[key] = sess
+        elif max_resident is not None:
+            sess.max_resident = max(sess.max_resident, max_resident)
         return sess
+
+
+def execute(artifact: CompiledPim, x: torch.Tensor, w: torch.Tensor, *,
+            backend: Optional[str] = None, rows_per_crossbar: int = 256
+            ) -> torch.Tensor:
+    """One-shot integer GEMM ``(M, K) x (O, K) -> (M, O)`` int64 on a fresh
+    crossbar state that is dropped after the call (counted as transient).
+    Callers that run one artifact repeatedly should hold an
+    :class:`ExecutionSession` (or go through :func:`session_for` /
+    :func:`matmul_int`, which pool sessions) instead."""
+    sess = ExecutionSession(artifact, backend=backend,
+                            rows_per_crossbar=rows_per_crossbar)
+    with transient():
+        return sess.execute(x, w)
 
 
 def matmul_int(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8, *,
                model: str = "minimal", rows_per_crossbar: int = 256,
-               accumulate: str = "carry_save") -> torch.Tensor:
+               backend: Optional[str] = None, accumulate: str = "carry_save",
+               session_ns: str = "") -> torch.Tensor:
     """Compile-and-execute convenience: bit-exact integer GEMM.
 
     ``x`` (M, K) and ``w`` (O, K) hold unsigned ints below ``2**n_bits``;
@@ -516,6 +823,10 @@ def matmul_int(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8, *,
     :class:`ExecutionSession` of the artifact, so repeated calls with the
     same ``w`` tensor keep crossbar state resident (the padded weight is
     made once per weight tensor, see :func:`_chunked_weight`).
+
+    ``backend`` names a registered state backend (``None``: the device's
+    own, see :class:`ExecutionSession`); ``session_ns`` routes execution to
+    a namespaced session pool (see :func:`draft_ctx`).
     """
     from repro_torch.pim.matmul import max_dot_terms
 
@@ -534,8 +845,9 @@ def matmul_int(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8, *,
         w = _chunked_weight(w, p, chunk)
     artifact = compile_matmul(min(k, chunk), n_bits, model=model,
                               accumulate=accumulate, n_cols=n_cols)
-    acc = session_for(artifact, rows_per_crossbar=rows_per_crossbar
-                      ).execute(x, w)
+    acc = session_for(artifact, backend=backend,
+                      rows_per_crossbar=rows_per_crossbar,
+                      namespace=session_ns).execute(x, w)
     return acc.sum(dim=0) if k > chunk else acc
 
 
@@ -592,8 +904,8 @@ def _quantized_weight(w: torch.Tensor, bits: int):
     return hit[1]
 
 
-def _sim_forward(x: torch.Tensor, w: torch.Tensor, bits: int, model: str
-                 ) -> torch.Tensor:
+def _sim_forward(x: torch.Tensor, w: torch.Tensor, bits: int, model: str,
+                 ns: str) -> torch.Tensor:
     """The host math of the reference's ``_sim_mm`` (``engine.py:806``),
     bit for bit: quantization in float32, the integer GEMM exact, and the
     rescale in float64 (numpy promotes int64 x float32 to float64; torch
@@ -610,7 +922,7 @@ def _sim_forward(x: torch.Tensor, w: torch.Tensor, bits: int, model: str
     # 2's-complement offset: shift into unsigned, multiply, correct
     # ((a+off)(b+off))
     acc = matmul_int((xq + off).to(torch.uint8), w_off, n_bits=bits + 1,
-                     model=model)
+                     model=model, session_ns=ns)
     corr = off * (wq_sum + off * k) + off * xq.sum(dim=1, keepdim=True)
     y = (acc - corr).to(torch.float64) * (xs * wsc).to(torch.float64)
     return y.reshape(*lead, w.shape[1]).to(x.dtype)
@@ -618,9 +930,9 @@ def _sim_forward(x: torch.Tensor, w: torch.Tensor, bits: int, model: str
 
 class _SimLinear(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, bits, model):
+    def forward(ctx, x, w, bits, model, ns):
         ctx.save_for_backward(x, w)
-        return _sim_forward(x, w, bits, model)
+        return _sim_forward(x, w, bits, model, ns)
 
     @staticmethod
     def backward(ctx, g):
@@ -630,7 +942,7 @@ class _SimLinear(torch.autograd.Function):
         gx = (g @ w.to(g.dtype).T).to(x.dtype)
         gw = (x.reshape(-1, x.shape[-1]).to(g.dtype).T
               @ g.reshape(-1, g.shape[-1])).to(w.dtype)
-        return gx, gw, None, None
+        return gx, gw, None, None, None
 
 
 def sim_linear(x: torch.Tensor, w: torch.Tensor, bits: int = 7, *,
@@ -642,8 +954,10 @@ def sim_linear(x: torch.Tensor, w: torch.Tensor, bits: int = 7, *,
     GEMM runs on the crossbar simulator on the operands' device — the CUDA
     crossbar kernel for CUDA tensors, its plain version on the CPU — with
     the weight's crossbar state resident across calls (see
-    :class:`ExecutionSession` for how the weight is keyed).
+    :class:`ExecutionSession` for how the weight is keyed), in the session
+    namespace of the call (:func:`current_session_ns`).  7 bits, where the
+    ``"quant"`` lowering rounds to 8: the two modes' results differ.
     Differentiable through a straight-through backward (the gradient of
     the ideal matmul), so a ``pim_sim`` model trains.
     """
-    return _SimLinear.apply(x, w, bits, model)
+    return _SimLinear.apply(x, w, bits, model, current_session_ns())

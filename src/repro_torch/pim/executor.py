@@ -18,21 +18,27 @@ The microcode ABI is produced by
 :meth:`repro_torch.core.program.Program.to_microcode`: int32 rows
 ``(gate_code, in_a, in_b, out)``; gate codes from
 ``repro_torch.core.gates.GATE_CODES`` (INIT=0 sets the output column to
-all-ones).
+all-ones).  :func:`execute_unrolled` is a per-gate loop with static column
+indices, the plain state backend ``"unrolled"`` of
+``repro_torch.pim.engine``.
 """
 from __future__ import annotations
 
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 
 __all__ = [
     "blank_state",
     "pack_rows",
     "unpack_rows",
+    "write_bits",
+    "read_bits",
     "write_numbers",
     "read_numbers",
     "execute",
+    "execute_unrolled",
 ]
 
 
@@ -68,6 +74,19 @@ def unpack_rows(words: torch.Tensor, rows: int) -> torch.Tensor:
     bits = (words.to(torch.int32)[..., None] >> shifts) & 1
     bits = bits.reshape(words.shape[:-1] + (-1,))
     return bits[..., :rows].to(torch.bool)
+
+
+def write_bits(state: torch.Tensor, col: int, bits) -> torch.Tensor:
+    """Write per-row bits (C, rows) into one column, in place; returns
+    ``state``."""
+    bits = torch.as_tensor(bits, device=state.device)
+    state[:, col, :] = pack_rows(bits.to(torch.int64) & 1)
+    return state
+
+
+def read_bits(state: torch.Tensor, col: int, rows: int) -> torch.Tensor:
+    """One column's per-row bits -> (C, rows) bool."""
+    return unpack_rows(state[:, col, :], rows)
 
 
 def _pack_bit(values: torch.Tensor, bit: int) -> torch.Tensor:
@@ -116,12 +135,23 @@ def write_numbers(state: torch.Tensor,
 def read_numbers(state: torch.Tensor,
                  cols: Union[Sequence[int], torch.Tensor], rows: int
                  ) -> torch.Tensor:
-    """Read integers from bit-sliced columns (LSB first) -> (C, rows) int64."""
+    """Read integers from bit-sliced columns (LSB first) -> (C, rows).
+
+    The reference returns uint64; the port returns int64 as a container
+    of the same 64 bits (PyTorch has no uint64 arithmetic on the CPU), so
+    a product with bit 63 set reads back negative here.  Compare with the
+    reference through ``.numpy().view(np.uint64)``."""
     idx = _index(cols, state.device)
     bits = unpack_rows(state[:, idx, :], rows).to(torch.int64)  # (C, nb, rows)
-    weights = torch.ones(len(idx), dtype=torch.int64, device=state.device
-                         ) << torch.arange(len(idx), device=state.device)
-    return (bits * weights[None, :, None]).sum(dim=1)
+    low = min(len(idx), 63)
+    weights = torch.ones(low, dtype=torch.int64, device=state.device
+                         ) << torch.arange(low, device=state.device)
+    out = (bits[:, :low] * weights[None, :, None]).sum(dim=1)
+    if len(idx) > 63:
+        # bit 63 is the int64 sign bit: set it with an OR, never a sum
+        top = torch.tensor(torch.iinfo(torch.int64).min, device=state.device)
+        out = torch.where(bits[:, 63].bool(), out | top, out)
+    return out
 
 
 def execute(state: torch.Tensor, microcode: torch.Tensor) -> torch.Tensor:
@@ -132,3 +162,27 @@ def execute(state: torch.Tensor, microcode: torch.Tensor) -> torch.Tensor:
     microcode = torch.as_tensor(microcode, dtype=torch.int32,
                                 device=state.device)
     return crossbar_exec(state, microcode)
+
+
+def execute_unrolled(state: torch.Tensor, microcode) -> torch.Tensor:
+    """Plain per-gate loop over a host microcode, with static column
+    indices; returns a new state on ``state``'s device.  The reference's
+    version unrolls the program into one traced function; here each row is
+    one or two bitwise ops on a ``(C, W)`` column."""
+    words = state.clone()
+    for code, ia, ib, out in np.asarray(microcode).tolist():
+        a, b = words[:, ia, :], words[:, ib, :]
+        if code == 0:                       # INIT
+            res = torch.full_like(a, -1)
+        elif code == 1:                     # NOT
+            res = torch.bitwise_not(a)
+        elif code == 2:                     # NOR
+            res = torch.bitwise_not(a | b)
+        elif code == 3:                     # OR
+            res = a | b
+        elif code == 4:                     # NAND
+            res = torch.bitwise_not(a & b)
+        else:                               # AND
+            res = a & b
+        words[:, out, :] = res
+    return words

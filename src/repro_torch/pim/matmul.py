@@ -24,11 +24,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import torch
+
 from repro_torch.core.operation import GateOp, PartitionConfig
 from repro_torch.core.program import Program, ProgramBuilder
 from repro_torch.pim.multpim import Layout, build_multpim
 
-__all__ = ["PimDot", "build_dot", "max_dot_terms"]
+__all__ = ["PimDot", "build_dot", "max_dot_terms", "pim_matmul_int"]
 
 
 def _dot_layout(n_terms: int, n_bits: int, k: int):
@@ -341,3 +343,24 @@ def build_dot(n_terms: int, n_bits: int = 8, n_cols: int = 1024,
         acc_cols=out_cols,
     )
 
+
+
+def pim_matmul_int(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8,
+                   model: str = "minimal", rows_per_crossbar: int = 256,
+                   backend: Optional[str] = None) -> torch.Tensor:
+    """Bit-exact integer GEMM on the simulated crossbars.
+
+    x: (M, K) uint, w: (O, K) uint -> (M, O) int64 on their device.  Each
+    (m, o) output is one simulator row; rows are packed 32 per word and
+    split across crossbars.
+
+    Compatibility wrapper over ``repro_torch.pim.engine.matmul_int``: the
+    gate program is compiled through the engine cache (once per
+    ``(K, n_bits, model)``) and executed on the selected state backend
+    (``None``: the device's own).
+    """
+    from repro_torch.pim import engine
+
+    return engine.matmul_int(x, w, n_bits, model=model,
+                             rows_per_crossbar=rows_per_crossbar,
+                             backend=backend)

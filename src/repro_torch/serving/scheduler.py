@@ -57,8 +57,17 @@ uploaded once per (artifact, weight) and only activation columns are
 written per token; prefill runs on transient state
 (``pim.engine.transient``).
 
-Not ported yet (ROADMAP queue 1): speculative decoding, the autotuner,
-``drain`` and the router.
+**Speculative decoding** (``ServingConfig(speculative=True,
+draft_mode=, draft_k=)``): each decode step becomes one round of
+:class:`~repro_torch.serving.speculative.SpeculativeDecoder` — ``draft_k
+- 1`` single-token steps in the cheap ``draft_mode``, one ``(B, draft_k)``
+verify step in the serving mode, and the longest exactly matching prefix
+committed per slot.  Tokens stay those of plain decode.  It is active
+only when ``draft_k > 1`` and the draft mode differs from the serving
+mode; otherwise the scheduler decodes plainly.
+
+Not ported yet (ROADMAP queue 1): the autotuner, ``drain`` and the
+router.
 """
 from __future__ import annotations
 
@@ -72,9 +81,11 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import model_lib as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.pim import engine
 from repro_torch.serving.cache import CachePool, PagedCachePool
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.queue import AdmissionQueue, Request, make_request
+from repro_torch.serving.speculative import SpeculativeDecoder, accept_length
 
 __all__ = ["ServingConfig", "Scheduler"]
 
@@ -128,7 +139,9 @@ class ServingConfig:
     prefill tokens one step may process; ``packed_prefill=True`` batches
     short queued prompts into one segment-masked prefill call.  All of
     them imply the paged pool.  ``queue_policy`` orders admission
-    (``"fifo"`` or ``"sjf"``, shortest prompt first).
+    (``"fifo"`` or ``"sjf"``, shortest prompt first).  ``speculative=True``
+    decodes in rounds of ``draft_k - 1`` ``draft_mode`` drafts and one
+    verify step (see :mod:`repro_torch.serving.speculative`).
     """
 
     max_batch: int = 4          # decode slots
@@ -145,6 +158,14 @@ class ServingConfig:
     step_token_budget: Optional[int] = None  # max prefill tokens per step
     packed_prefill: bool = False  # pack short prompts into one prefill call
     #   (implies paged)
+    speculative: bool = False   # self-speculative decode: a cheap draft
+    #   mode proposes, the serving mode verifies, greedy acceptance is
+    #   exact (see serving.speculative) — tokens stay those of plain decode
+    draft_mode: str = "quant"   # the drafting lowering; how often its
+    #   drafts are accepted depends on the pair and is measured, not
+    #   assumed (quant rounds to 8 bits, pim_sim to 7)
+    draft_k: int = 4            # verify width: tokens fed per verify step
+    #   (the draft pass proposes draft_k - 1; draft_k=1 is plain decode)
 
 
 def _validate(cfg: ModelConfig, scfg: ServingConfig) -> None:
@@ -181,6 +202,29 @@ def _validate(cfg: ModelConfig, scfg: ServingConfig) -> None:
                 f"step_token_budget={scfg.step_token_budget} below "
                 f"prefill_chunk={scfg.prefill_chunk}: no step could ever "
                 "schedule a chunk")
+    if scfg.speculative:
+        if scfg.draft_k < 1:
+            raise ValueError(f"draft_k={scfg.draft_k} must be >= 1")
+        if scfg.draft_mode not in engine.MODES:
+            raise ValueError(
+                f"unknown draft_mode {scfg.draft_mode!r}; expected one of "
+                f"{engine.MODES}")
+        if cfg.sliding_window:
+            # a windowed slot is a ring: the verify run's writes destroy
+            # rows a rejected draft must roll back to
+            raise ValueError(
+                f"{cfg.name}: speculative decode is incompatible with "
+                "sliding_window (ring writes destroy rows a rejected draft "
+                "must roll back to)")
+        if any(k in _RECURRENT_KINDS for k in cfg.pattern):
+            raise ValueError(
+                f"{cfg.name}: speculative decode is incompatible with "
+                "SSM/xLSTM blocks (recurrent state cannot roll back a "
+                "rejected draft)")
+        if cfg.n_experts:
+            raise ValueError(
+                f"{cfg.name}: speculative decode is incompatible with MoE "
+                "(capacity dropping couples the verify run's positions)")
 
 
 class Scheduler:
@@ -229,6 +273,15 @@ class Scheduler:
         self._deferred_rids: set = set()
         # distinct decode input shapes (the reference counts jit retraces)
         self._decode_shapes: set = set()
+        # speculative decode: active only when a round can beat plain
+        # decode — draft_k=1 drafts nothing and a draft mode equal to the
+        # verify mode would run the full-price model twice per token; both
+        # decode plainly, with the same tokens
+        self._spec: Optional[SpeculativeDecoder] = None
+        if (scfg.speculative and scfg.draft_k > 1
+                and scfg.draft_mode != (cfg.pim_mode or "xla")):
+            self._spec = SpeculativeDecoder(cfg, scfg.draft_mode,
+                                            scfg.draft_k)
 
     # ------------------------------------------------------------------
 
@@ -248,11 +301,30 @@ class Scheduler:
 
     @property
     def decode_traces(self) -> int:
-        """Distinct input shapes the batched decode step has seen.  The
-        reference counts retraces of its jitted step; eager PyTorch does
-        not retrace, so the port counts what a trace would key on.  Tests
-        pin this to 1."""
-        return len(self._decode_shapes)
+        """Distinct input shapes the batched decode step has seen — the
+        plain (B, 1) step's plus, under speculation, the (B, k) verify
+        step's (it *is* the decode step there).  The reference counts
+        retraces of its jitted steps; eager PyTorch does not retrace, so
+        the port counts what a trace would key on.  Tests pin this to 1."""
+        return len(self._decode_shapes) + self.verify_traces
+
+    @property
+    def draft_traces(self) -> int:
+        """Distinct input shapes of the speculative draft step (0 when
+        speculation is off or short-circuited)."""
+        return self._spec.draft_traces if self._spec is not None else 0
+
+    @property
+    def verify_traces(self) -> int:
+        """Distinct input shapes of the speculative verify step (0 when
+        speculation is off or short-circuited)."""
+        return self._spec.verify_traces if self._spec is not None else 0
+
+    @property
+    def verify_steps(self) -> int:
+        """Speculative rounds run: one verify step each (0 when speculation
+        is off or short-circuited)."""
+        return self._spec.rounds if self._spec is not None else 0
 
     def submit(self, prompt, max_new_tokens: int, *,
                arrival_time: Optional[float] = None) -> int:
@@ -642,30 +714,76 @@ class Scheduler:
         active = self.decoding_slots
         if active.any():
             if self.pool.paged and self.pool.has_shared:
-                # copy-on-write: each decoding slot writes its KV at _pos
-                # this step — upgrade a shared target block to a private
-                # copy first so sibling slots / the prefix index keep
-                # their bits
+                # copy-on-write: each decoding slot writes its KV at
+                # _pos.._pos+width-1 this step (width > 1 under
+                # speculation: draft and verify both write the whole run)
+                # — upgrade a shared target block to a private copy first
+                # so sibling slots / the prefix index keep their bits
+                width = self._spec.k if self._spec is not None else 1
                 for slot in np.flatnonzero(active):
-                    self.pool.ensure_writable(int(slot),
-                                              int(self._pos[slot]))
-            toks = self._decode(active)
-            now = self.clock()
-            for slot in np.flatnonzero(active):
-                rid = int(self._slot_rid[slot])
-                tok = int(toks[slot, 0])
-                self._outputs[rid].append(tok)
-                self.metrics.on_token(rid, now)
-                emitted.append((rid, tok))
-                self._tokens[slot, 0] = tok
-                self._pos[slot] += 1
-                self._remaining[slot] -= 1
-                if (self._remaining[slot] <= 0
-                        or tok == self.scfg.eos_id):
-                    self._finish(int(slot), now)
+                    for i in range(width):
+                        self.pool.ensure_writable(int(slot),
+                                                  int(self._pos[slot]) + i)
+            if self._spec is not None:
+                self._spec_step(active, emitted)
+            else:
+                self._plain_step(active, emitted)
         self.metrics.sample_queue(len(self.queue), self.n_active)
         self.metrics.sample_pool(self.pool.stats(), self._tokens_live())
         return emitted
+
+    def _plain_step(self, active: np.ndarray,
+                    emitted: List[Tuple[int, int]]) -> None:
+        """One batched decode step: every decoding slot advances one
+        token."""
+        toks = self._decode(active)
+        now = self.clock()
+        for slot in np.flatnonzero(active):
+            rid = int(self._slot_rid[slot])
+            tok = int(toks[slot, 0])
+            self._outputs[rid].append(tok)
+            self.metrics.on_token(rid, now)
+            emitted.append((rid, tok))
+            self._tokens[slot, 0] = tok
+            self._pos[slot] += 1
+            self._remaining[slot] -= 1
+            if self._remaining[slot] <= 0 or tok == self.scfg.eos_id:
+                self._finish(int(slot), now)
+
+    def _spec_step(self, active: np.ndarray,
+                   emitted: List[Tuple[int, int]]) -> None:
+        """One speculative round over the decoding slots: draft ``k - 1``
+        tokens cheaply, verify the whole run in one step, commit the
+        longest exactly matching prefix per slot (clipped at the request's
+        budget and EOS), and roll the rest back by not advancing ``_pos``
+        past the accepted rows."""
+        spec = self._spec
+        toks_run, vt, new_caches = spec.run_round(
+            self.params, self._tokens, self._pos, active, self.pool.caches,
+            self.pool.block_tables, self.device)
+        self.pool.caches = new_caches
+        now = self.clock()
+        for slot in np.flatnonzero(active):
+            rid = int(self._slot_rid[slot])
+            n_acc = accept_length(toks_run[slot], vt[slot])
+            emit = 0
+            for i in range(n_acc):
+                tok = int(vt[slot, i])
+                self._outputs[rid].append(tok)
+                self.metrics.on_token(rid, now)
+                emitted.append((rid, tok))
+                emit = i + 1
+                if (self._remaining[slot] - emit <= 0
+                        or tok == self.scfg.eos_id):
+                    break
+            last = int(vt[slot, emit - 1])
+            self._tokens[slot, 0] = last
+            self._pos[slot] += emit
+            self._remaining[slot] -= emit
+            self.metrics.on_spec_round(drafted=spec.k - 1, verified=spec.k,
+                                       accepted=emit, accept_len=n_acc)
+            if self._remaining[slot] <= 0 or last == self.scfg.eos_id:
+                self._finish(int(slot), now)
 
     def output(self, rid: int) -> np.ndarray:
         """Generated tokens recorded so far for ``rid``."""
