@@ -53,9 +53,24 @@ the verify mode's kernel per linear and, for a ``quant`` draft, one per
 linear per draft step.  Last it profiles one decode step per mode and one
 ``pim_sim`` speculative round (torch.profiler) and prints its wall and
 device-busy time and its costliest kernels; each step must make one
-launch of its mode's kernel per linear.  The last line of standard output is ``{"ok": true, "device":
-{...}}``; the line before it lists the card's name and power limit, and the
-one before that the per-kernel JSON.  Any failure raises and exits
+launch of its mode's kernel per linear.
+
+Then the partition autotuner (``serve_pim_autotune``): a
+``Scheduler(autotune=True)`` races the cost model's top partition models
+and crossbar geometries (1024, 2048 and 4096 columns) and the default on
+the crossbar kernel for each of the 5 weight shapes of the parameter tree,
+printing each candidate's predicted and trial time; every raced program's
+kernel state must equal its grouped plain version; the ``pim_sim`` trace
+served on the picks must give the exact integer product's tokens with one
+launch per linear per decode step, each a table hit, and after an
+untuned serve of the same trace only the non-default picks may upload
+decode state; one w_in decode launch is timed at every raced geometry,
+its state held to the plain version on its first and last crossbars; and
+a saved, reloaded table must make a fresh warmup run no trial.
+
+The last line of standard output is ``{"ok": true, "device": {...}}``;
+the line before it lists the card's name and power limit, and the one
+before that the per-kernel JSON.  Any failure raises and exits
 non-zero before those lines.  Without a CUDA device it exits non-zero at
 once.
 """
@@ -134,6 +149,17 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     if got.numel() == 0:
         return 0
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def crossbar_bound_ms(c, n_cols, w_words, mc):
+    """The crossbar kernel's bound for one launch over (c, n_cols,
+    w_words) state, in ms, and what bounds it: the state read and written
+    once and the microcode read once over HBM, or one 32-bit logic op per
+    gate per row-word over the INT32 lanes, whichever is longer."""
+    nbytes = 2 * c * n_cols * w_words * 4 + mc.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = mc.shape[0] * c * w_words / INT32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 # CUgraphNodeType (CUDA driver API)
@@ -516,13 +542,9 @@ def check_crossbar_kernel(dev):
             raise AssertionError(f"crossbar_exec != plain at the w_in decode "
                                  f"shape C={c}: max abs error {e}")
         err = max(err, e)
-        nbytes = 2 * st.numel() * 4 + mc37.numel() * 4
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = g_rows * c * w_words / INT32_OPS_PER_S * 1e3
-        bound = max(t_bytes, t_ops)
+        bound, by = crossbar_bound_ms(c, n, w_words, mc37)
         rows[c] = dict(ms=ms, plain_ms=plain, library_ms=None,
-                       bound_ms=bound,
-                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bound_ms=bound, bound_by=by,
                        shape=[c, n, w_words, g_rows])
         say(f"[crossbar_exec] w_in decode shape C={c} n={n} W={w_words} "
             f"G={g_rows}: kernel {ms:.4f} ms | plain {plain:.1f} ms | bound "
@@ -610,14 +632,10 @@ def check_multipliers(dev):
         groups = plan(mc, n_cols).n_groups
         ms = cuda_ms(lambda i: engine.execute_state(state, mc,
                                                     backend="cuda"), 10)
-        nbytes = 2 * state.numel() * 4 + mc.numel() * 4
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = g_rows * c * w_words / INT32_OPS_PER_S * 1e3
-        bound = max(t_bytes, t_ops)
+        bound, by = crossbar_bound_ms(c, n_cols, w_words, mc)
         row = dict(program=name, n=n, gates=g_rows, cycles=st.cycles,
                    groups=groups, gates_per_group=g_rows / groups, ms=ms,
-                   bound_ms=bound,
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bound_ms=bound, bound_by=by,
                    mults_per_s=c * rows / (ms * 1e-3), max_abs_err=e)
         table.append(row)
         say(f"[multipliers] {name:12s} n={n:2d}: {g_rows:6d} gates, "
@@ -819,7 +837,7 @@ def serve_pim(params, base_cfg, dev):
                              f"integer product ({want})")
     say(f"[pim_sim] tokens (both serves == exact 7-bit integer product): "
         f"{results}")
-    return x_launches, cfg
+    return x_launches, cfg, results
 
 
 def spec_line(tag, summary, wall):
@@ -1260,6 +1278,284 @@ def profile_decode(params, cfg, dev, max_batch, top=6, max_new=4, **kw):
             f"{e.key[:70]}")
 
 
+
+# --------------------------------------------------------------------------
+# phase 6: the partition autotuner on the crossbar kernel
+# --------------------------------------------------------------------------
+
+def serve_pim_autotune(params, base_cfg, dev, untuned):
+    """``pim_sim`` on the autotuner's picks: warm a
+    ``Scheduler(autotune=True, autotune_trials=1)`` (every raced candidate
+    printed with its predicted and trial time), hold every raced program's
+    kernel state to its grouped plain version, serve the ``pim_sim``
+    phase's trace on the picks (tokens equal to ``untuned``, the exact
+    integer product's; one launch per linear per decode step, each a table
+    hit; after an untuned serve of the same trace, only the non-default
+    picks upload decode state), time one decode-shape launch of w_in at
+    every raced geometry (its state held to the plain version on its first
+    and last crossbars), then save the table, clear the engine, reload
+    it, and serve again with no trial.  Returns the tuned serve's crossbar_exec launches, the
+    race and the geometry rows."""
+    import tempfile
+
+    from repro_torch.kernels.crossbar_exec import (crossbar_exec,
+                                                   crossbar_exec_grouped_ref,
+                                                   plan)
+    from repro_torch.pim import autotune, engine
+    from repro_torch.pim.matmul import max_dot_terms
+    from repro_torch.serving import (Scheduler, ServingConfig,
+                                     synthetic_requests)
+
+    plen, max_new, batch, n_bits = 16, 4, 2, 8
+    per_step = 7 * base_cfg.n_layers
+    cfg = base_cfg.scaled(pim_mode="pim_sim", max_seq_len=plen + max_new)
+    scfg = ServingConfig(max_batch=batch, prompt_bucket=max(8, plen // 4),
+                         paged=True, autotune=True, autotune_trials=1)
+
+    def trace():
+        return synthetic_requests(2, vocab_size=cfg.vocab_size,
+                                  prompt_lens=(plen,), max_new_tokens=max_new,
+                                  seed=6)
+
+    def groups(p):
+        art = engine.compile_matmul(p.chunk, n_bits, model=p.model,
+                                    n_cols=p.n_cols)
+        mc = art.microcode_on(dev)
+        return mc, plan(mc, p.n_cols).n_groups
+
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched = Scheduler(params, cfg, scfg, device=dev)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_launches = counters()[1]
+    info = engine.cache_info()
+    say(f"[autotune] warmup (plan_for_params over the parameter tree at "
+        f"batch {batch}, 1 trial per candidate) in {warm_s:.2f} s: "
+        f"{sched.autotuned_shapes} keys, {info.tune_trials} trials, "
+        f"{warm_launches} crossbar_exec launches")
+    # the picks, read as serving reads them: (K, O) of every 2-D and
+    # layer-stacked 3-D leaf, as plan_for_params walks the tree
+    shapes = set()
+    stack = [params]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            stack.extend(t)
+        elif getattr(t, "dim", lambda: 0)() in (2, 3):
+            shapes.add((int(t.shape[-2]), int(t.shape[-1])))
+
+    def pick_of(k, o):
+        return autotune.lookup(k, n_bits, shape=(batch, o),
+                               pim_mode="pim_sim")
+
+    picks = {pick_of(k, o).key: pick_of(k, o) for k, o in sorted(shapes)}
+    raced = sum(bool(p.race) for p in picks.values())
+    if sched.autotuned_shapes != 5 or len(picks) != 5 or raced != 5:
+        raise AssertionError(f"warmup planned {sched.autotuned_shapes} keys, "
+                             f"{len(picks)} picks, {raced} raced; expected 5")
+    race_rows, configs = [], {}
+    for key, pick in sorted(picks.items()):
+        if pick.vs_default < 1.0 or not any(
+                (p.model, p.n_cols) == ("minimal", 1024) for p in pick.race):
+            raise AssertionError(f"{key}: the default did not race, or the "
+                                 f"pick {pick} is slower than it")
+        for p in pick.race:
+            mc, n_groups = groups(p)
+            configs[(p.model, p.n_cols, p.chunk)] = mc
+            chosen = (p.model, p.n_cols, p.chunk) == \
+                (pick.model, pick.n_cols, pick.chunk)
+            row = dict(key=key, model=p.model, n_cols=p.n_cols,
+                       chunk=p.chunk, rows=int(mc.shape[0]), groups=n_groups,
+                       predicted_us=p.predicted_us, trial_us=p.trial_us,
+                       default_us=p.default_us,
+                       vs_default=p.default_us / p.trial_us, pick=chosen)
+            race_rows.append(row)
+            say(f"[autotune] {key}: {p.model:9s} n_cols={p.n_cols} "
+                f"chunk={p.chunk:3d} groups={n_groups:5d} | predicted "
+                f"{p.predicted_us:12.1f} us | trial {p.trial_us:10.1f} us | "
+                f"default {p.default_us:10.1f} us | vs_default "
+                f"{row['vs_default']:.3f}" + (" | PICK" if chosen else ""))
+
+    # every raced program, and every partition model at every geometry of
+    # w_in's candidates (raced or not): one launch over 3 crossbars of
+    # random state == its grouped plain version on the host, bit for bit
+    for p in autotune.candidates(base_cfg.d_model, n_bits,
+                                 (batch, base_cfg.d_ff), "pim_sim",
+                                 device=dev):
+        if p.chunk > 0:
+            configs.setdefault((p.model, p.n_cols, p.chunk), groups(p)[0])
+    g = torch.Generator(device=dev).manual_seed(17)
+    for (model, n_cols, chunk), mc in sorted(configs.items()):
+        st = torch.randint(-2 ** 31, 2 ** 31 - 1, (3, n_cols, 8),
+                           dtype=torch.int32, device=dev, generator=g)
+        p = plan(mc, n_cols)
+        got = crossbar_exec(st, mc).cpu()
+        want = crossbar_exec_grouped_ref(st.cpu(), p.rows, p.offsets)
+        if not torch.equal(got, want):
+            raise AssertionError(f"crossbar_exec != grouped plain version on "
+                                 f"the {model} {chunk}-term program at "
+                                 f"{n_cols} columns")
+        say(f"[autotune] {model:9s} n_cols={n_cols} chunk={chunk:3d}: "
+            f"{mc.shape[0]} rows in {p.n_groups} groups, kernel state == "
+            "grouped plain version")
+    say(f"[autotune] crossbar_exec == grouped plain version (identical "
+        f"state, 3 crossbars of random state) on {len(configs)} programs, "
+        f"every raced one and every w_in candidate: {sorted(configs)}")
+
+    # the decode step's launches per picked (model, geometry, chunk), and
+    # the crossbar states its non-default picks upload: each layer-stacked
+    # weight of a block is one linear per layer, of ceil(K / chunk) chunks
+    default = ("minimal", 1024, max_dot_terms(n_bits, 1024))
+    per_geometry, want_uploads = {}, 0
+    for name, wt in params["blocks"]["0"].items():
+        if name.startswith("w") and wt.dim() == 3:
+            q = pick_of(wt.shape[1], wt.shape[2])
+            cfg_key = (q.model, q.n_cols, q.chunk)
+            n = wt.shape[0] * len(params["blocks"])
+            per_geometry[cfg_key] = per_geometry.get(cfg_key, 0) + n
+            if cfg_key != default:
+                want_uploads += n * -(-wt.shape[1] // q.chunk)
+    if sum(per_geometry.values()) != per_step:
+        raise AssertionError(f"picks cover {per_geometry}, expected "
+                             f"{per_step} linears")
+    say(f"[autotune] decode-step launches per picked (model, n_cols, chunk): "
+        f"{per_geometry}")
+
+    # an untuned serve leaves the default's decode states resident; a tuned
+    # linear whose pick is the default shares them, so only the other
+    # picks upload
+    autotune.enable(False)
+    plain = Scheduler(params, cfg, dataclasses.replace(scfg, autotune=False),
+                      device=dev)
+    rids = [plain.submit_request(r) for r in trace()]
+    out = plain.run()
+    if [out[r].tolist() for r in rids] != untuned:
+        raise AssertionError("untuned serve after the warmup: tokens differ "
+                             f"from the exact integer product {untuned}")
+    autotune.enable(True)
+
+    # the tuned serve, counted from its first submission to its end
+    reqs = trace()
+    info0 = engine.cache_info()
+    reset_counters()
+    t0 = time.perf_counter()
+    rids = [sched.submit_request(r) for r in reqs]
+    steps = []
+    while len(sched.queue) or sched.active_slots.any():
+        n0, h0 = counters()[1], autotune.table_info().hits
+        sched.step()
+        steps.append((counters()[1] - n0, autotune.table_info().hits - h0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters()[1]
+    info = engine.cache_info()
+    got = [sched.output(r).tolist() for r in rids]
+    say(f"[autotune] tuned serve (2 requests, {plen}-token prompts, "
+        f"{max_new} new tokens, max_batch {batch}, paged) in {wall:.2f} s: "
+        f"(crossbar_exec launches, table hits) per step {steps} | "
+        f"launches {launches} | decode uploads "
+        f"{info.exec_uploads - info0.exec_uploads}, hits "
+        f"{info.exec_hits - info0.exec_hits}, prefill (transient) "
+        f"{info.exec_transient - info0.exec_transient}")
+    if got != untuned:
+        raise AssertionError(f"tuned pim_sim tokens {got} != untuned (exact "
+                             f"integer product) {untuned}")
+    uploads = info.exec_uploads - info0.exec_uploads
+    if uploads != want_uploads:
+        raise AssertionError(f"tuned serve after the untuned one made "
+                             f"{uploads} decode uploads, expected "
+                             f"{want_uploads} (the non-default picks' "
+                             "chunks only)")
+    # the first step admits both prompts (one launch per linear each) and
+    # decodes; every later step only decodes
+    if steps[0][0] != 3 * per_step or any(
+            n != per_step or h < per_step for n, h in steps[1:]):
+        raise AssertionError(f"tuned decode steps made (launches, hits) "
+                             f"{steps}, expected {per_step} launches and "
+                             f">= {per_step} table hits per decode step")
+    say(f"[autotune] tuned tokens == untuned == exact 7-bit integer product: "
+        f"{got}; {per_step} crossbar_exec launches per decode step, each a "
+        f"table hit; {uploads} decode uploads, all of non-default picks")
+
+    # one decode-shape launch of w_in (K=1024, O=2816, M=2 at full width)
+    # per raced geometry, the default's included
+    pick = pick_of(base_cfg.d_model, base_cfg.d_ff)
+    geo_rows = []
+    for p in pick.race:
+        mc = configs[(p.model, p.n_cols, p.chunk)]
+        c = (-(-base_cfg.d_model // p.chunk)
+             * -(-batch * base_cfg.d_ff // 256))
+        st = torch.randint(-2 ** 31, 2 ** 31 - 1, (c, p.n_cols, 8),
+                           dtype=torch.int32, device=dev, generator=g)
+        ms = cuda_ms(lambda i: crossbar_exec(st, mc), 10, warmup=1)
+        bound, by = crossbar_bound_ms(c, p.n_cols, 8, mc)
+        # the timed launch's state on crossbars of its first and last
+        # block == the grouped plain version on the host, bit for bit
+        sched_plan = plan(mc, p.n_cols)
+        n_groups = sched_plan.n_groups
+        idx = torch.tensor(sorted({i % c for i in (0, 1, -2, -1)}),
+                           device=dev)
+        got = crossbar_exec(st, mc)[idx].cpu()
+        want = crossbar_exec_grouped_ref(st[idx].cpu(), sched_plan.rows,
+                                         sched_plan.offsets)
+        if not torch.equal(got, want):
+            raise AssertionError(f"w_in decode launch ({p.model}, {p.n_cols} "
+                                 f"columns, C={c}): kernel state != grouped "
+                                 "plain version on crossbars 0, 1, C-2, C-1")
+        row = dict(model=p.model, n_cols=p.n_cols, chunk=p.chunk, crossbars=c,
+                   rows=int(mc.shape[0]), groups=n_groups, ms=ms,
+                   bound_ms=bound, bound_by=by,
+                   ns_per_group=ms * 1e6 / n_groups,
+                   launches_per_decode_step=per_geometry.get(
+                       (p.model, p.n_cols, p.chunk), 0),
+                   pick=(p.model, p.n_cols, p.chunk) ==
+                   (pick.model, pick.n_cols, pick.chunk),
+                   default=(p.model, p.n_cols) == ("minimal", 1024))
+        geo_rows.append(row)
+        say(f"[autotune] w_in decode launch ({p.model}, {p.n_cols} columns, "
+            f"{p.chunk} terms): C={c} G={mc.shape[0]} in {n_groups} groups | "
+            f"kernel {ms:.4f} ms ({row['ns_per_group']:.1f} ns per group) | "
+            f"bound {bound * 1e3:.2f} us ({by}) | "
+            f"{bound / ms * 100:.2f}% of bound | state == plain on "
+            f"crossbars 0, 1, C-2, C-1 | launches per decode step "
+            f"{row['launches_per_decode_step']}"
+            + (" | PICK" if row["pick"] else "")
+            + (" | DEFAULT" if row["default"] else ""))
+    torch.cuda.synchronize()
+
+    # persistence: a reloaded table makes a fresh warmup free
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "autotune.json")
+        saved = autotune.save_table(path)
+        engine.clear_cache()
+        loaded = autotune.load_table(path, device=dev)
+    t0 = time.perf_counter()
+    again = Scheduler(params, cfg, scfg, device=dev)
+    warm2 = time.perf_counter() - t0
+    info = engine.cache_info()
+    if saved != 5 or loaded != 5 or info.tune_trials != 0 or \
+            info.tune_hits < 5:
+        raise AssertionError(f"reloaded table: saved {saved}, loaded "
+                             f"{loaded}, then {info.tune_trials} trials and "
+                             f"{info.tune_hits} hits (want 5, 5, 0, >= 5)")
+    rids = [again.submit_request(r) for r in trace()]
+    out = again.run()
+    got2 = [out[r].tolist() for r in rids]
+    if got2 != untuned:
+        raise AssertionError(f"reloaded-table tokens {got2} != exact integer "
+                             f"product {untuned}")
+    say(f"[autotune] table saved ({saved} plans), engine cleared, reloaded "
+        f"({loaded}): fresh warmup in {warm2:.2f} s with "
+        f"{engine.cache_info().tune_trials} trials; tokens == exact product; "
+        f"{autotune.summary()}")
+    autotune.enable(False)
+    return launches, warm_s, race_rows, geo_rows
+
+
 # --------------------------------------------------------------------------
 
 def main() -> int:
@@ -1306,7 +1602,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     q_launches, qcfg, q_tokens = serve_quant(params, base, dev)
-    x_launches, pcfg = serve_pim(params, base, dev)
+    x_launches, pcfg, pim_tokens = serve_pim(params, base, dev)
     qp_launches = serve_quant_prefix(params, base, dev)
     xp_launches = serve_pim_prefix(params, base, dev)
     qs_launches = serve_quant_spec(params, qcfg, dev, q_tokens)
@@ -1315,6 +1611,8 @@ def main() -> int:
     profile_decode(params, pcfg, dev, 2)
     profile_decode(params, pcfg.scaled(max_seq_len=24), dev, 2, max_new=8,
                    speculative=True, draft_mode="quant", draft_k=3)
+    at_launches, at_warm_s, race_rows, geo_rows = serve_pim_autotune(
+        params, base, dev, pim_tokens)
 
     qrow = quant_rows[(4, 1024, 2816)]
     kernels = [
@@ -1337,6 +1635,7 @@ def main() -> int:
              launches=x_launches, launches_prefix_path=xp_launches,
              launches_spec_path=ps_launches[1],
              launches_mult_path=mult_launches,
+             launches_autotune_path=at_launches,
              max_abs_err=xbar_row["max_abs_err"],
              exact=xbar_row["max_abs_err"] == 0,
              shape=xbar_row["shape"], ms=xbar_row["ms"],
@@ -1345,7 +1644,8 @@ def main() -> int:
              bound_by=xbar_row["bound_by"], library_ms=None,
              launch_floor_ms=xbar_row["launch_floor_ms"],
              one_gate_ms=xbar_row["one_gate_ms"],
-             multipliers=mult_table),
+             multipliers=mult_table, autotune_warmup_s=at_warm_s,
+             autotune_race=race_rows, geometries=geo_rows),
     ]
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s;"
         f" launch counters now {quant_matmul_int.launches}, "

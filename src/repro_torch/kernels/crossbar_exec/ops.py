@@ -15,7 +15,8 @@ def run_program(state: torch.Tensor, microcode, backend: str = "scan"
 
     Thin shim over the ``repro_torch.pim.engine`` backend registry —
     ``"scan"`` (alias ``"jnp"``, the per-gate oracle), ``"unrolled"``,
-    ``"numpy"``, or ``"cuda"`` (the CUDA kernel; a CUDA state only);
+    ``"numpy"`` (these host oracles take a CPU state only), or ``"cuda"``
+    (the CUDA kernel; a CUDA state only);
     ``engine.register_backend`` extends the set without touching call
     sites.
     """

@@ -20,6 +20,17 @@ prefill.  ``--queue-policy sjf`` admits the shortest prompt first.
 serving mode verifies the whole run in one step; greedy acceptance keeps
 the tokens of plain decode, and the ``[spec]`` line echoes the measured
 acceptance.
+``--autotune`` switches the ``repro_torch.pim.autotune`` planner on: under
+``pim_sim`` the scheduler's warmup plans every linear shape at the decode
+batch bucket (partition model x crossbar geometry x chunking, scored by
+the cost model, ``--autotune-trials`` timed trials of the top candidates
+and the default on the device) and decode runs the picks;
+``--autotune-table PATH`` is loaded before the scheduler warms up (if it
+exists) and written back after the run, so the next run reloads the picks
+instead of re-searching.  The ``[autotune]`` line echoes table size,
+hit/miss/trial counters, and an example pick.  The reference's
+``quant``/``quant_tp`` lowering race waits for ``quant_tp``, so
+``--autotune`` with ``--pim-mode quant`` is an error.
 Weights are random, drawn from ``--seed``.  Runs on ``--device cuda``
 (the default; it raises without a card) or ``--device cpu`` with the
 kernels' plain versions, where ``--smoke`` keeps the model small.
@@ -31,16 +42,21 @@ kernels' plain versions, where ``--smoke`` keeps the model small.
     PYTHONPATH=src python -m repro_torch.launch.serve --pim-mode pim_sim \\
         --batch 2 --requests 2 --prompt-lens 16 --max-new-tokens 8 \\
         --paged --speculative --draft-mode quant --draft-k 3
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --pim-mode pim_sim \\
+        --batch 2 --requests 2 --prompt-lens 16 --max-new-tokens 4 \\
+        --paged --autotune --autotune-table picks.json
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.models import model_lib as M
-from repro_torch.pim import engine
+from repro_torch.pim import autotune, engine
 from repro_torch.serving import Scheduler, ServingConfig, synthetic_requests
 
 
@@ -50,7 +66,8 @@ def serve_trace(params, cfg, requests, *, max_batch: int, prompt_bucket: int,
                 queue_policy: str = "fifo", prefill_chunk=None,
                 step_token_budget=None, packed_prefill: bool = False,
                 speculative: bool = False, draft_mode: str = "quant",
-                draft_k: int = 4, device="cuda"):
+                draft_k: int = 4, autotune: bool = False,
+                autotune_trials: int = 1, device="cuda"):
     """Run a request trace through the scheduler; returns (results,
     summary).  The summary adds the step counters ``decode_traces``,
     ``draft_traces``, ``verify_traces`` and ``verify_steps`` (speculative
@@ -63,7 +80,8 @@ def serve_trace(params, cfg, requests, *, max_batch: int, prompt_bucket: int,
                          step_token_budget=step_token_budget,
                          packed_prefill=packed_prefill,
                          speculative=speculative, draft_mode=draft_mode,
-                         draft_k=draft_k)
+                         draft_k=draft_k, autotune=autotune,
+                         autotune_trials=autotune_trials)
     sched = Scheduler(params, cfg, scfg, device=device)
     for req in requests:
         sched.submit_request(req)
@@ -129,6 +147,16 @@ def main(argv=None):
     ap.add_argument("--draft-k", type=int, default=4,
                     help="verify width: tokens checked per verify step "
                          "(draft_k-1 drafted; 1 is plain decode)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="plan crossbar GEMM configurations at warmup "
+                         "(pim_sim: every linear shape at the decode batch "
+                         "bucket) and decode with the tuned picks")
+    ap.add_argument("--autotune-table", default=None, metavar="PATH",
+                    help="tuning-table JSON: loaded before warmup if it "
+                         "exists (warmup then hits instead of "
+                         "re-searching) and written back after the run")
+    ap.add_argument("--autotune-trials", type=int, default=1,
+                    help="timed trials per raced candidate during warmup")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend one fixed N-token system prompt to every "
                          "synthetic request (the prefix-cache workload)")
@@ -141,6 +169,18 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.autotune and args.pim_mode in ("quant", "quant_tp"):
+        ap.error(
+            f"--autotune with --pim-mode {args.pim_mode}: the quant vs "
+            "quant_tp lowering race (the reference's autotune_linear) is not "
+            "ported; it waits for quant_tp (ROADMAP section 1, item 3)")
+    # reload persisted tuner picks before any scheduler warms up: warmup
+    # then *hits* the table (counted in [autotune]) instead of re-searching
+    if args.autotune_table and os.path.exists(args.autotune_table):
+        n = autotune.load_table(args.autotune_table, device=device)
+        print(f"[autotune] loaded {n} plan(s) from {args.autotune_table}")
+    if args.autotune:
+        autotune.enable(True)
     cfg = configs.get(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
@@ -163,7 +203,9 @@ def main(argv=None):
         queue_policy=args.queue_policy, prefill_chunk=args.prefill_chunk,
         step_token_budget=args.step_token_budget,
         packed_prefill=args.packed_prefill, speculative=args.speculative,
-        draft_mode=args.draft_mode, draft_k=args.draft_k, device=device)
+        draft_mode=args.draft_mode, draft_k=args.draft_k,
+        autotune=args.autotune, autotune_trials=args.autotune_trials,
+        device=device)
     print(f"served {summary['n_finished']}/{summary['n_requests']} "
           f"requests, {summary['total_tokens']} tokens @ "
           f"{summary['tokens_per_s']:.1f} tok/s "
@@ -211,6 +253,11 @@ def main(argv=None):
               f"transient (prefill) states {info.exec_transient}, "
               f"resident {info.resident_entries} states "
               f"({info.resident_bytes / 2 ** 20:.1f} MiB)")
+    if args.autotune or args.autotune_table:
+        print(f"[autotune] {autotune.summary()}")
+    if args.autotune_table:
+        n = autotune.save_table(args.autotune_table)
+        print(f"[autotune] saved {n} plan(s) to {args.autotune_table}")
     rid0 = min(results)
     print("sample generation:", results[rid0][:16].tolist())
     return results

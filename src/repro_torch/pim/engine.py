@@ -24,6 +24,7 @@ The driving side of the partitioned crossbar, as one API:
   scan / jnp    state   ``crossbar_exec_ref``, the per-gate oracle
   unrolled      state   ``executor.execute_unrolled``, static indices
   numpy         state   a numpy interpreter over uint32 words
+                        (these host oracles raise on a CUDA state)
   serial        mult    the paper's optimized serial NOR multiplier
   serial_fast   mult    the 7-gate NAND/OR/AND full-adder variant
   compressor42  mult    the 4:2 two-rows-per-pass variant
@@ -55,7 +56,11 @@ The driving side of the partitioned crossbar, as one API:
 * :func:`matmul_int` — the exact integer GEMM over the session pool, with
   inner dimensions longer than one row's column budget split into chunks
   and the last chunk zero-padded to a whole one; all chunks run as one
-  batch of crossbars, so a linear costs one kernel launch.
+  batch of crossbars, so a linear costs one kernel launch.  ``plan=`` (a
+  ``pim.autotune.TunedPlan``) or ``tune_ctx=`` (a table lookup) picks the
+  partition model, crossbar geometry, chunk and backend; the bits are the
+  same under every plan.  ``cache_info()`` carries the tuner's counters,
+  and ``clear_cache()`` clears its table.
 * :func:`mode` / :func:`current_mode` / :func:`resolve_mode` — an
   explicit, exception-safe context manager selecting how
   ``models.layers.linear`` lowers a matmul (``"xla"`` | ``"quant"`` |
@@ -227,6 +232,10 @@ class CompiledPim:
     acc_cols: Tuple[int, ...]
     _device_copies: Dict = dataclasses.field(default_factory=dict,
                                              repr=False)
+    # winning autotune.TunedPlan, attached (object.__setattr__) by the tuner
+    # when this artifact is the picked configuration for its compile key;
+    # None until tuned.  Not part of the cache key.
+    plan: Optional["object"] = None
 
     @property
     def n_cols(self) -> int:
@@ -273,6 +282,12 @@ class CacheInfo:
     # resident crossbar states across all sessions, and their bytes
     resident_entries: int = 0
     resident_bytes: int = 0
+    # autotuner counters (pim.autotune): table lookups served from a cached
+    # pick vs searches run, and how many timed candidate trials those
+    # searches spent.
+    tune_hits: int = 0
+    tune_misses: int = 0
+    tune_trials: int = 0
 
 
 _cache: Dict[Tuple, CompiledPim] = {}
@@ -339,22 +354,29 @@ def compile_matmul(n_terms: int, n_bits: int = 8, *, model: str = "minimal",
 
 
 def cache_info() -> CacheInfo:
+    from repro_torch.pim import autotune
+
     with _cache_lock:
         info = CacheInfo(hits=_hits, misses=_misses, builds=_builds,
                          size=len(_cache))
     with _session_lock:
-        return dataclasses.replace(info, exec_hits=_exec_hits,
+        info = dataclasses.replace(info, exec_hits=_exec_hits,
                                    exec_uploads=_exec_uploads,
                                    exec_transient=_exec_transient,
                                    resident_entries=sum(
                                        len(lru) for lru in _resident.values()),
                                    resident_bytes=sum(
                                        _resident_bytes.values()))
+    t = autotune.table_info()
+    return dataclasses.replace(info, tune_hits=t.hits, tune_misses=t.misses,
+                               tune_trials=t.trials)
 
 
 def clear_cache() -> None:
     global _hits, _misses, _builds, _exec_hits, _exec_uploads, \
         _exec_transient
+    from repro_torch.pim import autotune
+
     with _cache_lock:
         _cache.clear()
         _hits = _misses = _builds = 0
@@ -368,6 +390,9 @@ def clear_cache() -> None:
         _exec_hits = _exec_uploads = _exec_transient = 0
     _derived.clear()
     _chunked.clear()
+    # picks must not leak across runs: the tuner table (and its counters)
+    # clears with the compile cache it indexes into
+    autotune.clear()
 
 
 # ==========================================================================
@@ -415,6 +440,14 @@ def _microcode_array(microcode) -> np.ndarray:
     return np.asarray(microcode)
 
 
+def _host_only(name: str, state) -> None:
+    """The oracles run on the host: a CUDA state is an error, as a CPU
+    state is for ``cuda``, never a reason to copy the card's work there."""
+    if state.device.type == "cuda":
+        raise ValueError(f"backend {name!r} is a host oracle and needs a CPU "
+                         f"state; a CUDA state runs on 'cuda'")
+
+
 def _cuda(state, microcode, **kw):
     """The CUDA crossbar kernel; a state off the card is an error, not a
     reason to run something else."""
@@ -430,12 +463,14 @@ def _cuda(state, microcode, **kw):
 def _scan(state, microcode, **kw):
     from repro_torch.kernels.crossbar_exec import crossbar_exec_ref
 
+    _host_only("scan", state)
     return crossbar_exec_ref(state, _microcode_tensor(microcode, "cpu"))
 
 
 def _unrolled(state, microcode, **kw):
     from repro_torch.pim import executor as ex
 
+    _host_only("unrolled", state)
     return ex.execute_unrolled(state, _microcode_array(microcode))
 
 
@@ -444,6 +479,7 @@ def _numpy_interpret(state, microcode, **kw):
 
     Takes and returns the port's int32 state tensor (on its device); the
     loop itself runs on the host, gate codes as ``GATE_CODES``."""
+    _host_only("numpy", state)
     st = state.detach().cpu().numpy().view(np.uint32).copy()
     ones = np.uint32(0xFFFFFFFF)
     for code, ia, ib, out in _microcode_array(microcode).tolist():
@@ -810,6 +846,8 @@ def execute(artifact: CompiledPim, x: torch.Tensor, w: torch.Tensor, *,
 def matmul_int(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8, *,
                model: str = "minimal", rows_per_crossbar: int = 256,
                backend: Optional[str] = None, accumulate: str = "carry_save",
+               plan: Optional["object"] = None,
+               tune_ctx: Optional[str] = None,
                session_ns: str = "") -> torch.Tensor:
     """Compile-and-execute convenience: bit-exact integer GEMM.
 
@@ -822,7 +860,15 @@ def matmul_int(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8, *,
     int64, are exact.  Execution goes through the pooled
     :class:`ExecutionSession` of the artifact, so repeated calls with the
     same ``w`` tensor keep crossbar state resident (the padded weight is
-    made once per weight tensor, see :func:`_chunked_weight`).
+    made once per weight tensor and chunk, see :func:`_chunked_weight`).
+
+    ``plan`` (an ``autotune.TunedPlan``) overrides model / crossbar
+    geometry / chunking / execution backend with a tuned pick; passing
+    ``tune_ctx`` (a pim-mode string, e.g. ``"pim_sim"``) instead looks the
+    plan up in the autotuner table when tuning is enabled — a miss keeps
+    the defaults, it never triggers a search.  Every configuration
+    computes the same exact integer GEMM, and still in one launch, so
+    plans change speed, never results.
 
     ``backend`` names a registered state backend (``None``: the device's
     own, see :class:`ExecutionSession`); ``session_ns`` routes execution to
@@ -830,14 +876,23 @@ def matmul_int(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8, *,
     """
     from repro_torch.pim.matmul import max_dot_terms
 
-    n_cols = 1024
-    chunk = max_dot_terms(n_bits, n_cols)
-    if chunk <= 0:
-        raise ValueError(f"n_bits={n_bits} does not fit the crossbar layout")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1]:
         raise ValueError(f"expected (M, K) x (O, K), got {tuple(x.shape)} x "
                          f"{tuple(w.shape)}")
     k = x.shape[1]
+    if plan is None and tune_ctx is not None:
+        from repro_torch.pim import autotune
+
+        plan = autotune.lookup(k, n_bits, shape=(x.shape[0], w.shape[0]),
+                               pim_mode=tune_ctx, model=model)
+    n_cols = 1024
+    if plan is not None:
+        model, n_cols, backend = plan.model, plan.n_cols, plan.backend
+    chunk = max_dot_terms(n_bits, n_cols)
+    if chunk <= 0:
+        raise ValueError(f"n_bits={n_bits} does not fit the crossbar layout")
+    if plan is not None and 0 < plan.chunk <= chunk:
+        chunk = plan.chunk
     if k > chunk:
         p = -(-k // chunk)
         x = torch.nn.functional.pad(x, (0, p * chunk - k))
@@ -845,6 +900,10 @@ def matmul_int(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8, *,
         w = _chunked_weight(w, p, chunk)
     artifact = compile_matmul(min(k, chunk), n_bits, model=model,
                               accumulate=accumulate, n_cols=n_cols)
+    if backend == "cuda" and x.device.type == "cuda":
+        # the device's own kernel: share the session (and its resident
+        # state) of the untuned calls that name no backend
+        backend = None
     acc = session_for(artifact, backend=backend,
                       rows_per_crossbar=rows_per_crossbar,
                       namespace=session_ns).execute(x, w)
@@ -921,8 +980,10 @@ def _sim_forward(x: torch.Tensor, w: torch.Tensor, bits: int, model: str,
     w_off, wsc, wq_sum = _quantized_weight(w, bits)
     # 2's-complement offset: shift into unsigned, multiply, correct
     # ((a+off)(b+off))
+    # tune_ctx="pim_sim": pick up any tuned plan for this (K, n_bits) — a
+    # no-op unless autotune is enabled and the table has a pick
     acc = matmul_int((xq + off).to(torch.uint8), w_off, n_bits=bits + 1,
-                     model=model, session_ns=ns)
+                     model=model, tune_ctx="pim_sim", session_ns=ns)
     corr = off * (wq_sum + off * k) + off * xq.sum(dim=1, keepdim=True)
     y = (acc - corr).to(torch.float64) * (xs * wsc).to(torch.float64)
     return y.reshape(*lead, w.shape[1]).to(x.dtype)

@@ -66,8 +66,14 @@ committed per slot.  Tokens stay those of plain decode.  It is active
 only when ``draft_k > 1`` and the draft mode differs from the serving
 mode; otherwise the scheduler decodes plainly.
 
-Not ported yet (ROADMAP queue 1): the autotuner, ``drain`` and the
-router.
+**Autotuning** (``ServingConfig(autotune=True, autotune_trials=)``):
+under ``pim_sim`` the scheduler's construction plans every distinct
+linear shape of the parameter tree at the decode batch bucket
+(``pim.autotune.plan_for_params``, on the scheduler's device) and turns
+ambient plan lookup on, so the decode loop's GEMMs run the tuned
+configuration from the first token; tokens are those of an untuned serve.
+
+Not ported yet (ROADMAP queue 1): ``drain`` and the router.
 """
 from __future__ import annotations
 
@@ -142,6 +148,15 @@ class ServingConfig:
     (``"fifo"`` or ``"sjf"``, shortest prompt first).  ``speculative=True``
     decodes in rounds of ``draft_k - 1`` ``draft_mode`` drafts and one
     verify step (see :mod:`repro_torch.serving.speculative`).
+
+    ``autotune=True`` runs the partition autotuner at construction when the
+    model decodes on the crossbar simulator (``cfg.pim_mode == "pim_sim"``):
+    every distinct linear shape in the parameter tree is planned at the
+    decode batch bucket (``pim.autotune.plan_for_params``, with
+    ``autotune_trials`` timed trials per raced candidate) and ambient plan
+    lookup is switched on, so the decode loop's GEMMs run the tuned
+    configuration.  Shapes already in the tuner table (e.g. reloaded via
+    ``serve.py --autotune-table``) are warmup hits — no re-search.
     """
 
     max_batch: int = 4          # decode slots
@@ -153,6 +168,8 @@ class ServingConfig:
     num_blocks: Optional[int] = None   # physical blocks (None: full parity)
     prefix_cache: bool = False  # trie prefix sharing + COW (implies paged)
     queue_policy: str = "fifo"  # admission order: "fifo" | "sjf"
+    autotune: bool = False      # plan crossbar GEMMs at warmup (pim_sim)
+    autotune_trials: int = 1    # timed trials per candidate during warmup
     prefill_chunk: Optional[int] = None  # split prefill into chunks of this
     #   many tokens (block_size multiple; implies paged)
     step_token_budget: Optional[int] = None  # max prefill tokens per step
@@ -244,6 +261,18 @@ class Scheduler:
         self.clock = clock
         self.queue = AdmissionQueue(policy=scfg.queue_policy)
         self.metrics = ServingMetrics()
+        # autotune warmup: plan every linear shape at the decode batch
+        # bucket before the first prefill, so steady-state decode runs the
+        # tuned configuration from token one.  Table hits (a reloaded
+        # tuning table) make this free.
+        self.autotuned_shapes = 0
+        if scfg.autotune and cfg.pim_mode == "pim_sim":
+            from repro_torch.pim import autotune
+
+            autotune.enable(True)
+            self.autotuned_shapes = autotune.plan_for_params(
+                params, scfg.max_batch, trials=scfg.autotune_trials,
+                device=self.device)
         # chunked/packed prefill scatter per-chunk/per-segment caches at
         # block offsets, which only the paged layout supports
         if (scfg.paged or scfg.prefix_cache or scfg.packed_prefill
