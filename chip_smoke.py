@@ -68,6 +68,23 @@ decode state; one w_in decode launch is timed at every raced geometry,
 its state held to the plain version on its first and last crossbars; and
 a saved, reloaded table must make a fresh warmup run no trial.
 
+Last it trains full-width qwen1.5-0.5b on fresh weights from the same seed
+(the serve phases' weights stay as they are).  ``train_quant``: 4 steps of
+``launch.train.train_step`` at batch 4, seq 128 (every linear on the GEMM
+kernel at M = 512); ``train_pim``: 2 steps at batch 2, seq 32 (every linear
+on the crossbar kernel at M = 64, on transient state).  In both, every loss
+and gradient norm must be finite, step 0's must equal those through the
+plain GEMM or the exact integer product, and each step must make one launch
+per linear in the forward and one more in remat's recompute; ``pim_sim``
+training must leave the resident crossbar state as it found it and stay
+below ``PIM_TRAIN_EXTRA_BYTES`` above its start.  The GEMM is timed at the
+train shapes beside ``torch._int_mm`` and its bound, one w_in crossbar
+launch at M = 64 beside its bound.  ``train_restart`` runs the crash and
+resume drill through the training CLI in subprocesses (2 layers at full
+width): the resumed steps' losses and the last checkpoint must equal an
+uninterrupted run's, held bit for bit when two uninterrupted runs agree bit
+for bit, else within their difference.
+
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it lists the card's name and power limit, and the one
 before that the per-kernel JSON.  Any failure raises and exits
@@ -76,6 +93,7 @@ once.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -106,6 +124,13 @@ PREFIX_LOGIT_TOL = 0.02
 # the pim_sim phase that serves a 64-token prompt (prefill states are
 # transient; kept resident they would take about 64 GiB)
 PIM_PEAK_BYTES = 16 << 30
+# the train phases: (batch, seq, steps) of train_quant and train_pim
+TRAIN_QUANT = (4, 128, 4)
+TRAIN_PIM = (2, 32, 2)
+# the pim_sim train phase's peak allocation above its start (PERF.md
+# predicts 10-12 GiB: grads, AdamW state and its temporaries, and one
+# M = 64 linear's transient crossbar state)
+PIM_TRAIN_EXTRA_BYTES = 16 << 30
 # ~25 ms at the H100's clock: longer than the host takes to queue any timed
 # run of launches below
 SLEEP_CYCLES = 50_000_000
@@ -354,7 +379,7 @@ def check_quant_kernel(dev):
         f"{floor * 1e3:.2f} us")
     rows = {}
     for m, k, n in path:
-        if m not in (1, 4, 16, 64):
+        if m not in (1, 4, 16, 64, 512):
             continue
         x = rand(m, k)
         ws = rotating(lambda: rand(k, n), k * n)
@@ -1557,6 +1582,392 @@ def serve_pim_autotune(params, base_cfg, dev, untuned):
 
 
 # --------------------------------------------------------------------------
+# phase 7: training full-width qwen1.5-0.5b on both kernels
+# --------------------------------------------------------------------------
+
+def _train_batches(cfg, dev, batch, seq, steps):
+    from repro_torch.data.pipeline import SyntheticLM
+
+    data = SyntheticLM(cfg.vocab_size, seq, batch, seed=0)
+    return [{k: torch.as_tensor(v, device=dev).long()
+             for k, v in data.batch_at(step).items()} for step in range(steps)]
+
+
+def _loss_and_norm(params, batch, cfg):
+    """Step 0's loss and gradient norm, with no update (the gradient tree
+    summed in ``apply_updates``'s order)."""
+    from repro_torch.models import model_lib as M
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.tree import leaves, rebuild
+
+    ps = [p.requires_grad_(True) for _, p in leaves(params)]
+    loss = M.loss_fn(params, batch, cfg)
+    norm = global_norm(rebuild(params, torch.autograd.grad(loss, ps)))
+    torch.cuda.synchronize()
+    return loss.detach(), norm
+
+
+def _expected_launches(cfg):
+    """One launch per linear in the forward, and with remat one more per
+    linear in the recompute: the checkpoint recomputes a block until the
+    last tensor the block saved, which w_out's linear saves after its
+    kernel (quant: the float rescale's operands; pim_sim: the autograd
+    Function's inputs, packed when its forward returns)."""
+    fwd = 7 * cfg.n_layers
+    return fwd, fwd if cfg.remat else 0
+
+
+def _train_steps(params, batches, cfg, ocfg, which):
+    """``launch.train.train_step`` over ``batches`` with the launch counters
+    zeroed just before and read just after each step, and the forward's
+    launches read where ``loss_fn`` returns; the last step under
+    torch.profiler.  Returns per-step rows and the profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train
+    from repro_torch.models import model_lib as M
+    from repro_torch.optim.adamw import init_state
+
+    fwd_counts = []
+    loss_fn = M.loss_fn
+
+    def counted(*a, **kw):
+        out = loss_fn(*a, **kw)
+        fwd_counts.append(counters()[which])
+        return out
+
+    opt_state = init_state(ocfg, params)
+    rows, prof = [], None
+    with mock.patch.object(M, "loss_fn", counted):
+        for step, batch in enumerate(batches):
+            last = step == len(batches) - 1
+            ctx = (profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+                   if last else contextlib.nullcontext())
+            torch.cuda.synchronize()
+            reset_counters()
+            with ctx as p:
+                t0 = time.perf_counter()
+                params, opt_state, loss, metrics = train.train_step(
+                    params, opt_state, batch, cfg, ocfg)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = counters()[which]
+            if last:
+                prof = p
+            rows.append(dict(step=step, loss=float(loss),
+                             grad_norm=float(metrics["grad_norm"]),
+                             lr=float(metrics["lr"]), wall_s=wall,
+                             fwd_launches=fwd_counts[-1],
+                             launches=launches))
+    return params, opt_state, rows, prof
+
+
+def _busy(prof, top=6):
+    """Device-busy ms of a profiled step and its ``top`` kernels."""
+    events = prof.key_averages()
+    kernels = sorted((e for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    ours = [e for e in kernels[top:] if "quant_matmul_kernel" in e.key
+            or "crossbar_exec_kernel" in e.key]
+    lines = [f"{e.self_device_time_total / 1e3:9.3f} ms {e.count:5d} x "
+             f"{e.self_device_time_total / max(e.count, 1):9.2f} us  "
+             f"{e.key[:70]}" for e in kernels[:top] + ours]
+    return busy, lines
+
+
+def _check_train_rows(tag, rows, cfg, want_loss, want_norm):
+    fwd, rec = _expected_launches(cfg)
+    for r in rows:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+            raise AssertionError(f"{tag} step {r['step']}: loss {r['loss']}, "
+                                 f"grad norm {r['grad_norm']}")
+        if (r["fwd_launches"], r["launches"]) != (fwd, fwd + rec):
+            raise AssertionError(
+                f"{tag} step {r['step']}: {r['fwd_launches']} launches in "
+                f"the forward and {r['launches']} in the step, expected "
+                f"{fwd} and {fwd + rec} ({fwd} + {rec} in remat's "
+                "recompute)")
+    if rows[0]["loss"] != float(want_loss) or \
+            rows[0]["grad_norm"] != float(want_norm):
+        raise AssertionError(
+            f"{tag} step 0: loss {rows[0]['loss']!r}, grad norm "
+            f"{rows[0]['grad_norm']!r}; the oracle gives {float(want_loss)!r},"
+            f" {float(want_norm)!r}")
+
+
+def _train_report(tag, rows, prof, cfg, peak, base):
+    fwd, rec = _expected_launches(cfg)
+    for r in rows:
+        say(f"[{tag}] step {r['step']}: loss {r['loss']:.6f} | grad norm "
+            f"{r['grad_norm']:.4f} | lr {r['lr']:.3e} | wall "
+            f"{r['wall_s'] * 1e3:.1f} ms"
+            + (" (under torch.profiler)" if r is rows[-1] else "")
+            + f" | launches {r['launches']} = {r['fwd_launches']} forward + "
+            f"{r['launches'] - r['fwd_launches']} recompute")
+    busy, lines = _busy(prof)
+    wall = rows[-1]["wall_s"] * 1e3
+    say(f"[{tag}] profiled step {rows[-1]['step']}: wall {wall:.2f} ms, "
+        f"device busy {busy:.2f} ms ({busy / wall * 100:.1f}%)")
+    for ln in lines:
+        say(f"[{tag}] profiled step: {ln}")
+    say(f"[{tag}] launches per step derived: {fwd} forward (one per linear)"
+        f" + {rec} in remat's recompute (each checkpointed block runs again "
+        "up to w_out's linear, whose saved tensors come after its kernel); "
+        f"peak allocated {peak / 2 ** 30:.2f} GiB ({base / 2 ** 30:.2f} GiB "
+        f"before the phase, {(peak - base) / 2 ** 30:.2f} GiB above it)")
+    return busy
+
+
+def train_quant(base_cfg, dev, quant_rows):
+    """Full-width qwen1.5-0.5b in ``quant``, 4 steps of
+    ``launch.train.train_step`` at batch 4, seq 128 (the reference's AdamW
+    defaults), every linear on ``quant_matmul_int`` at M = 512."""
+    from repro_torch.kernels.quant_matmul import ops, quant_matmul_int_ref
+    from repro_torch.models import model_lib as M
+    from repro_torch.optim.adamw import AdamWConfig
+
+    batch, seq, steps = TRAIN_QUANT
+    cfg = base_cfg.scaled(pim_mode="quant")
+    ocfg = AdamWConfig()
+    batches = _train_batches(cfg, dev, batch, seq, steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = M.init_params(cfg, seed=0, device=dev)
+    with mock.patch.object(ops, "quant_matmul_int", quant_matmul_int_ref):
+        want_loss, want_norm = _loss_and_norm(params, batches[0], cfg)
+    params, opt_state, rows, prof = _train_steps(params, batches, cfg, ocfg,
+                                                 which=0)
+    peak = torch.cuda.max_memory_allocated()
+    _check_train_rows("train_quant", rows, cfg, want_loss, want_norm)
+    say(f"[train_quant] full-width {cfg.name} ({cfg.n_layers} layers, "
+        f"remat {cfg.remat}), batch {batch}, seq {seq}, {steps} steps of "
+        f"launch.train.train_step, AdamW defaults: step 0's loss "
+        f"{rows[0]['loss']!r} and grad norm {rows[0]['grad_norm']!r} == "
+        "the plain GEMM's (identical)")
+    busy = _train_report("train_quant", rows, prof, cfg, peak, base)
+    for k, n in QUANT_SHAPES_KN:
+        r = quant_rows[(batch * seq, k, n)]
+        say(f"[train_quant] quant_matmul_int at the train shape M={batch * seq}"
+            f" K={k} N={n}: kernel {r['ms'] * 1e3:.2f} us | torch._int_mm "
+            f"{r['library_ms'] * 1e3:.2f} us | bound {r['bound_ms'] * 1e3:.2f}"
+            f" us ({r['bound_by']}) | {r['bound_ms'] / r['ms'] * 100:.1f}% of "
+            f"bound | kernel / _int_mm {r['ms'] / r['library_ms']:.2f}")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return sum(r["launches"] for r in rows), dict(
+        batch=batch, seq=seq, steps=steps, losses=[r["loss"] for r in rows],
+        wall_ms=[r["wall_s"] * 1e3 for r in rows], busy_ms_last=busy,
+        peak_bytes=peak, launches_per_step=rows[0]["launches"])
+
+
+def time_crossbar_at(dev, m, k, o):
+    """One ``pim_sim`` linear's crossbar launch at (M, K, O): the packed
+    state ``engine.matmul_int`` hands the kernel, held against the per-gate
+    plain version and timed."""
+    from repro_torch.kernels import crossbar_exec as xb
+    from repro_torch.kernels.crossbar_exec import crossbar_exec_ref
+    from repro_torch.pim import engine
+
+    gi = np.random.default_rng(12)
+    x = torch.as_tensor(gi.integers(0, 256, (m, k)), device=dev)
+    wt = torch.as_tensor(gi.integers(0, 256, (o, k)), device=dev)
+    seen = []
+    real = xb.crossbar_exec
+
+    def capture(state, mc):
+        seen.append((state.clone(), mc))
+        return real(state, mc)
+
+    with mock.patch.object(xb, "crossbar_exec", capture), engine.transient():
+        got = engine.matmul_int(x, wt, 8)
+    if not torch.equal(got, (x.double() @ wt.double().T).long()):
+        raise AssertionError(f"matmul_int != exact product at M={m} K={k} "
+                             f"O={o}")
+    st, mc = seen[0]
+    ms = cuda_ms(lambda i: xb.crossbar_exec(st, mc), 5, warmup=1)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    plain_out = crossbar_exec_ref(st, mc)
+    end.record()
+    end.synchronize()
+    e = max_abs_err(xb.crossbar_exec(st, mc), plain_out)
+    if e:
+        raise AssertionError(f"crossbar_exec != plain on the packed state of "
+                             f"M={m} K={k} O={o}: max abs error {e}")
+    c, n, w_words = st.shape
+    bound, by = crossbar_bound_ms(c, n, w_words, mc)
+    return dict(shape=[c, n, w_words, mc.shape[0]], m=m, k=k, o=o, ms=ms,
+                plain_ms=start.elapsed_time(end), bound_ms=bound,
+                bound_by=by, library_ms=None, max_abs_err=e)
+
+
+def train_pim(base_cfg, dev):
+    """Full-width qwen1.5-0.5b in ``pim_sim``, 2 steps at batch 2, seq 32:
+    every linear on ``crossbar_exec`` at M = 64, on transient state."""
+    from repro_torch.models import model_lib as M
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.pim import engine
+
+    def exact(x, w, n_bits=8, **kw):
+        return (x.double() @ w.double().T).long()
+
+    batch, seq, steps = TRAIN_PIM
+    cfg = base_cfg.scaled(pim_mode="pim_sim")
+    ocfg = AdamWConfig()
+    batches = _train_batches(cfg, dev, batch, seq, steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    info0 = engine.cache_info()
+    params = M.init_params(cfg, seed=0, device=dev)
+    with mock.patch.object(engine, "matmul_int", exact):
+        want_loss, want_norm = _loss_and_norm(params, batches[0], cfg)
+    params, opt_state, rows, prof = _train_steps(params, batches, cfg, ocfg,
+                                                 which=1)
+    peak = torch.cuda.max_memory_allocated()
+    info = engine.cache_info()
+    _check_train_rows("train_pim", rows, cfg, want_loss, want_norm)
+    if (info.resident_entries, info.resident_bytes, info.exec_uploads) != \
+            (info0.resident_entries, info0.resident_bytes,
+             info0.exec_uploads):
+        raise AssertionError(
+            f"the pim_sim train steps changed the resident crossbar state: "
+            f"entries {info0.resident_entries} -> {info.resident_entries}, "
+            f"bytes {info0.resident_bytes} -> {info.resident_bytes}, uploads "
+            f"{info0.exec_uploads} -> {info.exec_uploads}")
+    if peak - base >= PIM_TRAIN_EXTRA_BYTES:
+        raise AssertionError(f"the pim_sim train phase peaked {peak - base} "
+                             f"bytes above its start, limit "
+                             f"{PIM_TRAIN_EXTRA_BYTES}")
+    say(f"[train_pim] full-width {cfg.name} ({cfg.n_layers} layers, remat "
+        f"{cfg.remat}), batch {batch}, seq {seq}, {steps} steps: step 0's "
+        f"loss {rows[0]['loss']!r} and grad norm {rows[0]['grad_norm']!r} "
+        "== the exact 7-bit integer product's (identical); resident "
+        f"crossbar state unchanged ({info.resident_entries} states, "
+        f"{info.resident_bytes / 2 ** 30:.2f} GiB; "
+        f"{info.exec_transient - info0.exec_transient} transient chunk "
+        "GEMMs); peak limit "
+        f"{PIM_TRAIN_EXTRA_BYTES / 2 ** 30:.0f} GiB above the start")
+    busy = _train_report("train_pim", rows, prof, cfg, peak, base)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    xrow = time_crossbar_at(dev, batch * seq, cfg.d_model, cfg.d_ff)
+    c, n, w_words, g = xrow["shape"]
+    say(f"[train_pim] crossbar_exec, one w_in launch at the train shape "
+        f"M={batch * seq} (K={cfg.d_model}, O={cfg.d_ff}): C={c} n={n} "
+        f"W={w_words} G={g} | kernel {xrow['ms']:.4f} ms | plain "
+        f"{xrow['plain_ms']:.1f} ms | bound {xrow['bound_ms'] * 1e3:.2f} us "
+        f"({xrow['bound_by']}) | {xrow['bound_ms'] / xrow['ms'] * 100:.2f}% "
+        "of bound | state == plain")
+    return sum(r["launches"] for r in rows), dict(
+        batch=batch, seq=seq, steps=steps, losses=[r["loss"] for r in rows],
+        wall_ms=[r["wall_s"] * 1e3 for r in rows], busy_ms_last=busy,
+        peak_bytes=peak, peak_above_start_bytes=peak - base,
+        launches_per_step=rows[0]["launches"], w_in=xrow)
+
+
+def train_restart():
+    """The reference's crash-and-resume drill through the port's CLI, in
+    subprocesses: full width at 2 layers, ``quant``, batch 2, seq 64, 6
+    steps, a checkpoint every 3 steps.  Two uninterrupted runs, then one
+    that fails at step 4 and one that resumes it; the resumed steps' losses
+    and the last checkpoint must equal the uninterrupted run's."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="train_restart_")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (SRC, os.environ.get("PYTHONPATH")) if p))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--pim-mode",
+           "quant", "--layers", "2", "--batch", "2", "--seq", "64",
+           "--steps", "6", "--ckpt-every", "3", "--log-every", "1"]
+    saves = []
+
+    def run(name, *extra, fail=False):
+        d, m = os.path.join(tmp, name), os.path.join(tmp, name + ".jsonl")
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd + ["--ckpt-dir", d, "--metrics-out", m]
+                             + list(extra), env=env, capture_output=True,
+                             text=True, timeout=600,
+                             cwd=os.path.dirname(SRC))
+        wall = time.perf_counter() - t0
+        if (out.returncode != 0) != fail:
+            raise AssertionError(
+                f"train CLI {name} {extra} exited {out.returncode}:\n"
+                f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+        if fail and "injected failure at step 4" not in out.stderr:
+            raise AssertionError(f"train CLI {name} failed otherwise:\n"
+                                 f"{out.stderr[-4000:]}")
+        for ln in out.stdout.splitlines():
+            if ln.startswith("[ckpt]"):
+                saves.append(f"{name}: {ln[7:]}")
+        say(f"[train_restart] run {name} {' '.join(extra)}: exit "
+            f"{out.returncode} in {wall:.1f} s")
+        return [json.loads(ln) for ln in open(m)]
+
+    def leaves(name):
+        with np.load(os.path.join(tmp, name, "step_00000006",
+                                  "shard_0.npz")) as z:
+            return {k: z[k] for k in z.files}
+
+    def diff(a, b):
+        """Largest |a - b| per leaf (bfloat16 leaves are stored as their
+        uint16 bits: compared as float32)."""
+        out = {}
+        for k in a:
+            x, y = a[k], b[k]
+            if x.dtype == np.uint16:
+                x, y = (np.asarray(v, np.uint32) << 16 for v in (x, y))
+                x, y = x.view(np.float32), y.view(np.float32)
+            out[k] = float(np.max(np.abs(x.astype(np.float64)
+                                         - y.astype(np.float64))))
+        return out
+
+    try:
+        m_a = run("a")
+        m_b = run("b")
+        run("c", "--fail-at-step", "4", fail=True)
+        m_c = run("c", "--resume")
+        la, lb, lc = ([m["loss"] for m in ms] for ms in (m_a, m_b, m_c))
+        if [m["step"] for m in m_c] != [0, 1, 2, 3, 3, 4, 5]:
+            raise AssertionError(f"the drill ran steps "
+                                 f"{[m['step'] for m in m_c]}")
+        ca, cb, cc = leaves("a"), leaves("b"), leaves("c")
+        if not (ca.keys() == cb.keys() == cc.keys()):
+            raise AssertionError("the drill's checkpoints hold other leaves")
+        d_ab, d_ac = diff(ca, cb), diff(ca, cc)
+        same = la == lb and not any(d_ab.values())
+        if same:
+            ok = lc[4:] == la[3:] and not any(d_ac.values())
+        else:
+            ok = all(abs(x - y) <= abs(x - z) for x, y, z in
+                     zip(la[3:], lc[4:], lb[3:])) and all(
+                d_ac[k] <= d_ab[k] for k in d_ab)
+        say(f"[train_restart] uninterrupted losses {la}; second "
+            f"uninterrupted run {'identical' if same else lb}; resumed "
+            f"steps 3-5 {lc[4:]}")
+        say(f"[train_restart] two uninterrupted runs agree bit for bit: "
+            f"{same} (largest leaf difference {max(d_ab.values())}); "
+            f"resumed vs uninterrupted: largest leaf difference "
+            f"{max(d_ac.values())} over {len(ca)} leaves of step 6")
+        for s in saves:
+            say(f"[train_restart] save {s}")
+        if not ok:
+            raise AssertionError("the resumed run differs from the "
+                                 "uninterrupted one beyond the difference "
+                                 "of two uninterrupted runs")
+        return dict(bit_identical_runs=same, losses=la, resumed=lc[4:],
+                    saves=saves)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1613,6 +2024,12 @@ def main() -> int:
                    speculative=True, draft_mode="quant", draft_k=3)
     at_launches, at_warm_s, race_rows, geo_rows = serve_pim_autotune(
         params, base, dev, pim_tokens)
+    # training: fresh weights from the same seed; the serve phases' params
+    # stay as they are
+    tq_launches, tq = train_quant(base, dev, quant_rows)
+    tp_launches, tp = train_pim(base, dev)
+    drill = train_restart()
+    m_train = TRAIN_QUANT[0] * TRAIN_QUANT[1]
 
     qrow = quant_rows[(4, 1024, 2816)]
     kernels = [
@@ -1621,6 +2038,7 @@ def main() -> int:
              replaces="src/repro/kernels/quant_matmul/quant_matmul.py:53",
              launches=q_launches, launches_prefix_path=qp_launches,
              launches_spec_path=qs_launches + ps_launches[0],
+             launches_train_path=tq_launches,
              max_abs_err=qrow["max_abs_err"],
              exact=qrow["max_abs_err"] == 0,
              shape=[4, 1024, 2816], ms=qrow["ms"], plain_ms=qrow["plain_ms"],
@@ -1628,7 +2046,12 @@ def main() -> int:
              library_ms=qrow["library_ms"], library=qrow["library"],
              launch_floor_ms=qrow["launch_floor_ms"],
              device_ops_per_call=qrow["device_ops_per_call"],
-             device_ops_per_call_traced=qrow["device_ops_per_call_traced"]),
+             device_ops_per_call_traced=qrow["device_ops_per_call_traced"],
+             train_shapes=[dict(shape=[m_train, k, n], **{
+                 key: quant_rows[(m_train, k, n)][key]
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                             "bound_by")}) for k, n in QUANT_SHAPES_KN],
+             train=tq, restart_drill=drill),
         dict(name="crossbar_exec", route="cuda",
              source="src/repro_torch/kernels/csrc/crossbar_exec.cu",
              replaces="src/repro/kernels/crossbar_exec/crossbar_exec.py:66",
@@ -1636,6 +2059,7 @@ def main() -> int:
              launches_spec_path=ps_launches[1],
              launches_mult_path=mult_launches,
              launches_autotune_path=at_launches,
+             launches_train_path=tp_launches,
              max_abs_err=xbar_row["max_abs_err"],
              exact=xbar_row["max_abs_err"] == 0,
              shape=xbar_row["shape"], ms=xbar_row["ms"],
@@ -1645,7 +2069,7 @@ def main() -> int:
              launch_floor_ms=xbar_row["launch_floor_ms"],
              one_gate_ms=xbar_row["one_gate_ms"],
              multipliers=mult_table, autotune_warmup_s=at_warm_s,
-             autotune_race=race_rows, geometries=geo_rows),
+             autotune_race=race_rows, geometries=geo_rows, train=tp),
     ]
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s;"
         f" launch counters now {quant_matmul_int.launches}, "

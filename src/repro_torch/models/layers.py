@@ -100,6 +100,17 @@ def embed_lookup(table, ids):
     return table[ids]
 
 
-def unembed(x, table):
-    """Logits = x @ table.T (table: (V, d))."""
-    return x @ table.to(x.dtype).T
+def unembed(x, table, chunk: Optional[int] = None):
+    """Logits = x @ table.T (table: (V, d)).
+
+    ``chunk`` bounds the vocab-axis working set: the table is consumed in
+    ``chunk``-row slices, so the compute-dtype copy of the table (and the
+    product) peaks at ``chunk x d`` instead of ``V x d``.  The loss path
+    threads ``ModelConfig.unembed_chunk`` here.  ``None``, ``<= 0`` or a
+    chunk ``>= V`` is one full-width product.
+    """
+    v = table.shape[0]
+    if chunk is None or chunk <= 0 or chunk >= v:
+        return x @ table.to(x.dtype).T
+    return torch.cat([x @ table[i:i + chunk].to(x.dtype).T
+                      for i in range(0, v, chunk)], dim=-1)

@@ -13,7 +13,16 @@ row per slot, and copying the pool every step would cost its whole size.
 
 Prefill runs its ``pim_sim`` linears on transient crossbar state
 (``pim.engine.transient``): a prompt's length is a one-off GEMM shape, so
-only the decode step keeps crossbar state resident.
+only the decode step keeps crossbar state resident.  So does
+:func:`loss_fn`, the train mode: a train step changes its weights in place
+every step, so no crossbar state of it could be used again.
+
+With ``cfg.remat`` every super-block of the train mode runs under
+``torch.utils.checkpoint`` (non-reentrant) and is recomputed during
+``backward()``; the recompute re-enters the forward's lowering context
+(``pim.engine.capture_context``), since it runs after ``loss_fn`` has
+returned and, for CUDA tensors, on autograd's device thread.  Each token
+chunk of the loss is checkpointed too, so no chunk's logits are kept.
 
 A multi-position decode step (:func:`decode_run_slots`, the speculative
 verify) runs every linear once over all ``B * S`` rows, and its other
@@ -33,12 +42,14 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (activation, apply_rope, embed_lookup,
                                        linear, rms_norm, unembed)
+from repro_torch.tree import leaves as _leaves
 
 Params = Dict[str, Any]
 # (shape, dtype, init kind) — init is "normal" (std 1/sqrt(fan_in)), "zeros"
@@ -103,15 +114,6 @@ def param_specs(cfg: ModelConfig) -> Params:
     if not cfg.tie_embeddings:
         out["lm_head"] = ((v, d), dt, "normal")
     return out
-
-
-def _leaves(tree, prefix=()):
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            yield from _leaves(v, prefix + (k,))
-        else:
-            yield prefix + (k,), v
 
 
 def _set(tree, path, value):
@@ -387,7 +389,9 @@ def _decoder_stack(params, x, cfg: ModelConfig, *, positions, mode,
     """Loop over super-blocks.  ``caches``: {pattern index: stacked cache}
     (in prefill, the mapped prefix to resume from).  Prefill returns
     freshly stacked caches; decode updates ``caches`` in place and returns
-    it."""
+    it; train returns ``(x, None)``."""
+    if mode == "train":
+        return _train_stack(params, x, cfg, positions), None
     per_layer = {str(i): [] for i in range(len(cfg.pattern))}
     for layer in range(cfg.n_super):
         for i, kind in enumerate(cfg.pattern):
@@ -407,8 +411,41 @@ def _decoder_stack(params, x, cfg: ModelConfig, *, positions, mode,
     return x, None
 
 
+def _recompute_ctx():
+    """``torch.utils.checkpoint``'s ``context_fn``: nothing around the
+    forward, the forward's lowering context around the recompute."""
+    from repro_torch.pim import engine
+
+    return contextlib.nullcontext(), engine.capture_context()
+
+
+def _train_stack(params, x, cfg: ModelConfig, positions):
+    """The train mode's layer loop, each super-block checkpointed when
+    ``cfg.remat``.  The stacked weights are unbound once: unbind's
+    backward stacks the per-layer gradients in one op, where indexing
+    would build a zero-filled stack per layer."""
+    blocks = {i: {k: v.unbind(0) for k, v in b.items()}
+              for i, b in params["blocks"].items()}
+
+    def body(x, layer):
+        for i, kind in enumerate(cfg.pattern):
+            p = {k: v[layer] for k, v in blocks[str(i)].items()}
+            x, _ = apply_block(kind, x, p, cfg, positions=positions,
+                               mode="train")
+        return x
+
+    for layer in range(cfg.n_super):
+        if cfg.remat:
+            x = checkpoint(body, x, layer, use_reentrant=False,
+                           preserve_rng_state=False,
+                           context_fn=_recompute_ctx)
+        else:
+            x = body(x, layer)
+    return x
+
+
 # ==========================================================================
-# entry points: prefill / decode
+# entry points: loss / prefill / decode
 # ==========================================================================
 
 def _embed_in(params, tokens, cfg: ModelConfig):
@@ -433,14 +470,57 @@ def _pim_ctx(cfg: ModelConfig):
 
 
 @contextlib.contextmanager
-def _prefill_ctx(cfg: ModelConfig):
+def _transient_ctx(cfg: ModelConfig):
     """``_pim_ctx`` plus transient crossbar state for every ``pim_sim``
-    linear: a prefill's row count is a one-off shape, so its states are not
-    kept resident (``pim.engine.transient``)."""
+    linear (``pim.engine.transient``): a prefill's row count is a one-off
+    shape, and a train step's weights change every step, so neither keeps
+    its states resident."""
     from repro_torch.pim import engine
 
     with _pim_ctx(cfg), engine.transient():
         yield
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Mean next-token cross entropy (chunked over tokens), in float32.
+
+    ``batch``: ``{"tokens": (B, S) int, "labels": (B, S) int}``.  The
+    linears lower per ``cfg.pim_mode`` on transient crossbar state; with
+    ``cfg.remat`` each super-block is recomputed in ``backward()``."""
+    _check_supported(cfg)
+    with _transient_ctx(cfg):
+        return _loss_fn(params, batch, cfg)
+
+
+def _loss_fn(params, batch, cfg: ModelConfig):
+    tokens = batch["tokens"]
+    labels = batch["labels"]
+    x = _embed_in(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x, _ = _decoder_stack(params, x, cfg, positions=positions, mode="train")
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    table = _unembed_table(params, cfg)
+
+    flat_x = x.reshape(-1, cfg.d_model)
+    flat_y = labels.reshape(-1).long()
+    n_tok = flat_x.shape[0]
+    chunk = cfg.loss_chunk if n_tok % cfg.loss_chunk == 0 else n_tok
+
+    def chunk_nll(xc, yc):
+        logits = unembed(xc, table, chunk=cfg.unembed_chunk or None
+                         ).to(torch.float32)
+        m = logits.amax(dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[:, 0]
+        # the gold logit: the one term of the reference's mask-sum
+        gold = torch.gather(logits, 1, yc[:, None])[:, 0]
+        return torch.sum(lse - gold)
+
+    # checkpointed: no chunk's logits are kept for the backward
+    nll = torch.stack([
+        checkpoint(chunk_nll, flat_x[i:i + chunk], flat_y[i:i + chunk],
+                   use_reentrant=False, preserve_rng_state=False)
+        for i in range(0, n_tok, chunk)])
+    return nll.sum() / n_tok
 
 
 def prefill(params, batch, cfg: ModelConfig, last_index=None, prefix=None):
@@ -461,7 +541,7 @@ def prefill(params, batch, cfg: ModelConfig, last_index=None, prefix=None):
     scatters them at block offset ``m``).
     """
     _check_supported(cfg)
-    with _prefill_ctx(cfg):
+    with _transient_ctx(cfg):
         tokens = batch["tokens"]
         x = _embed_in(params, tokens, cfg)
         off = 0
@@ -493,7 +573,7 @@ def prefill_packed(params, tokens, positions, segment_ids, last_index,
     ``PagedCachePool.admit(start=)`` unpacks each segment.
     """
     _check_supported(cfg)
-    with _prefill_ctx(cfg):
+    with _transient_ctx(cfg):
         positions = torch.as_tensor(positions, device=tokens.device).long()
         x = _embed_in(params, tokens, cfg)
         x, caches = _decoder_stack(params, x, cfg, positions=positions,
@@ -654,6 +734,6 @@ def param_count(cfg: ModelConfig) -> int:
 
 
 __all__ = ["PAGED_KV_KEYS", "param_specs", "init_params", "from_reference",
-           "apply_block", "prefill", "prefill_packed", "decode_step",
+           "apply_block", "loss_fn", "prefill", "prefill_packed", "decode_step",
            "decode_step_slots", "decode_run_slots", "cache_specs", "paged_cache_specs",
            "zeros_like_specs", "param_count"]

@@ -61,6 +61,9 @@ The driving side of the partitioned crossbar, as one API:
   partition model, crossbar geometry, chunk and backend; the bits are the
   same under every plan.  ``cache_info()`` carries the tuner's counters,
   and ``clear_cache()`` clears its table.
+* :func:`capture_context` — the calling thread's mode, namespace and
+  transient flag as one context manager, re-entered where a checkpointed
+  block is recomputed during ``backward()`` (another thread on a card).
 * :func:`mode` / :func:`current_mode` / :func:`resolve_mode` — an
   explicit, exception-safe context manager selecting how
   ``models.layers.linear`` lowers a matmul (``"xla"`` | ``"quant"`` |
@@ -118,6 +121,7 @@ __all__ = [
     "resolve_mode",
     "draft_ctx",
     "current_session_ns",
+    "capture_context",
 ]
 
 
@@ -207,6 +211,34 @@ def current_session_ns() -> str:
     """``"draft"`` inside :func:`draft_ctx`, else ``""`` (the verify and
     default session namespace)."""
     return _ns_stack.frames[-1] if _ns_stack.frames else ""
+
+
+def capture_context():
+    """A context manager that re-enters, later and on any thread, the
+    calling thread's lowering context as it is now: its :func:`mode`, its
+    session namespace and whether GEMMs run on :func:`transient` state.
+
+    The mode, the namespace and the transient flag are thread locals read
+    when a linear runs.  ``torch.utils.checkpoint`` runs a block again
+    during ``backward()``: after the caller's ``with`` blocks have closed
+    and, for CUDA tensors, on autograd's device thread, which sees none of
+    the caller's thread locals.  ``models.model`` hands the recompute this
+    context (the checkpoint's ``context_fn``), so the recomputed linears
+    lower as the forward's did."""
+    m, ns, tr = current_mode(), current_session_ns(), _transient.depth > 0
+
+    @contextlib.contextmanager
+    def reenter() -> Iterator[None]:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mode(m))
+            if ns:
+                _ns_stack.frames.append(ns)
+                stack.callback(_ns_stack.frames.pop)
+            if tr:
+                stack.enter_context(transient())
+            yield
+
+    return reenter()
 
 
 # ==========================================================================
@@ -936,17 +968,25 @@ def _chunked_weight(w: torch.Tensor, p: int, chunk: int) -> torch.Tensor:
 # the simulator linear
 # ==========================================================================
 
-# quantized weights per weight tensor (identity key, see _tensor_key) ->
-# (weight, (offset wq^T, scales, column sums)); the stable identity of the
-# cached offset tensor is what keeps the crossbar state resident across
-# calls.  Bounded LRU.
+# quantized weights per weight tensor (identity key without the in-place
+# version, see _tensor_key) -> (version, weight, (offset wq^T, scales,
+# column sums)); the stable identity of the cached offset tensor is what
+# keeps the crossbar state resident across calls.  A weight changed in
+# place (a train step bumps its version) replaces its entry, and the
+# chunked copies made from the old one are dropped: one version per weight
+# is kept.  Bounded LRU.
 _derived: "collections.OrderedDict" = collections.OrderedDict()
 _DERIVED_MAX = 4096
 
 
 def _quantized_weight(w: torch.Tensor, bits: int):
-    key = (_tensor_key(w), bits)
+    key = (_tensor_key(w)[:-1], bits)
     hit = _derived.pop(key, None)
+    if hit is not None and hit[0] != w._version:
+        stale = hit[2][0]
+        for k in [k for k, v in _chunked.items() if v[0] is stale]:
+            del _chunked[k]
+        hit = None
     if hit is None:
         qmax = 2 ** (bits - 1) - 1
         wf = w.detach().to(torch.float32)
@@ -956,11 +996,11 @@ def _quantized_weight(w: torch.Tensor, bits: int):
         # crossbars store magnitudes: the offset operand (wq + qmax + 1)^T
         # lies in [1, 2**bits - 1] and is kept as uint8
         w_off = (wq.T + (qmax + 1)).to(torch.uint8).contiguous()
-        hit = (w, (w_off, wsc, wq.sum(dim=0, keepdim=True)))
+        hit = (w._version, w, (w_off, wsc, wq.sum(dim=0, keepdim=True)))
     _derived[key] = hit
     while len(_derived) > _DERIVED_MAX:
         _derived.popitem(last=False)
-    return hit[1]
+    return hit[2]
 
 
 def _sim_forward(x: torch.Tensor, w: torch.Tensor, bits: int, model: str,
