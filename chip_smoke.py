@@ -65,11 +65,34 @@ served on the picks must give the exact integer product's tokens with one
 launch per linear per decode step, each a table hit, and after an
 untuned serve of the same trace only the non-default picks may upload
 decode state; one w_in decode launch is timed at every raced geometry,
-its state held to the plain version on its first and last crossbars; and
+beside the per-gate plain version, its state held to the grouped plain
+version on its first and last crossbars; and
 a saved, reloaded table must make a fresh warmup run no trial.
 
-Last it trains full-width qwen1.5-0.5b on fresh weights from the same seed
-(the serve phases' weights stay as they are).  ``train_quant``: 4 steps of
+Then it drops the served model's parameters: the engine must report no
+derived, chunked or resident bytes, and the card's allocation must fall by
+at least the weights and what the engine held for them (``check_released``,
+after each model below too).  ``serve_wide`` serves gemma-7b (4 of 28
+layers) and granite-20b (3 of 52) at full width on fresh weights: in
+``quant`` (4 requests, prompts 16-64, batch 4) the prefill logits and
+tokens must equal the plain GEMM's; in ``pim_sim`` (2 requests of 8
+tokens, batch 2) the logits and tokens must equal the exact integer
+product's, no decode step after the first may upload crossbar state, the
+resident state must equal its host arithmetic, and the phase's peak
+allocation must stay below ``wide_pim_limit``.  ``serve_window`` serves
+full-depth h2o-danube-1.8b (window 4096) in ``quant``, paged: a
+4,160-token prompt past the window and a 4,080-token one whose decode
+wraps the ring, at batch 1, whose tokens must equal a naive ring decode's
+(contiguous prefill and decode steps) and whose last logits must lie
+within ``WINDOW_LOGIT_TOL`` of a teacher-forced windowed prefill; then
+three short prompts through packing and 64-token chunks, each served
+token ranked within ``PREFIX_LOGIT_TOL`` of the best by the naive decode
+fed those tokens; one decode step at batch 4 is profiled; then 4 of its
+layers in ``pim_sim``, tokens equal to the exact product's.  The GEMM is
+also timed at these models' decode shapes and at M = 4160, and one w_in
+crossbar launch at gemma's and granite's decode shape.
+
+Last it trains full-width qwen1.5-0.5b on fresh weights from the same seed.  ``train_quant``: 4 steps of
 ``launch.train.train_step`` at batch 4, seq 128 (every linear on the GEMM
 kernel at M = 512); ``train_pim``: 2 steps at batch 2, seq 32 (every linear
 on the crossbar kernel at M = 64, on transient state).  In both, every loss
@@ -96,6 +119,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -118,6 +142,13 @@ INT8_TENSOR_OPS_PER_S = 1979e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 QUANT_SHAPES_KN = ((1024, 1024), (1024, 2816), (2816, 1024))
+# the GEMM where the wide and windowed serves take it: decode (M = 4) at
+# gemma-7b's and granite-20b's (K, N), and one cold prefill past danube's
+# 4096-token window (M = 4160) at its w_in and w_out
+WIDE_QUANT_SHAPES = tuple((4, k, n) for k, n in (
+    (3072, 4096), (4096, 3072), (3072, 24576), (24576, 3072),
+    (6144, 6144), (6144, 128), (6144, 24576), (24576, 6144))) + (
+    (4160, 2560, 6912), (4160, 6912, 2560))
 # last-token logits of one prompt from whole, prefix-resumed, chunked and
 # packed prefill (bf16 model, |logit| below about 0.5): a few bf16 ulps
 PREFIX_LOGIT_TOL = 0.02
@@ -174,6 +205,11 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     if got.numel() == 0:
         return 0
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def exact_matmul(x, w, n_bits=8, **kw):
+    """Each pim_sim GEMM as the exact integer product: |sum| < 2**53."""
+    return (x.double() @ w.double().T).long()
 
 
 def crossbar_bound_ms(c, n_cols, w_words, mc):
@@ -272,7 +308,7 @@ def check_quant_kernel(dev):
                                  f"abs error {e}")
         err = max(err, e)
 
-    for m, k, n in path + ragged + edges:
+    for m, k, n in path + ragged + edges + list(WIDE_QUANT_SHAPES):
         check(rand(m, k), rand(k, n), f"M, K, N = {m, k, n}")
     for m, k, n in ((4, 2816, 1024), (64, 1024, 2816)):
         for xv, wv in ((-128, -128), (127, -128), (127, 127), (-128, 127)):
@@ -305,7 +341,8 @@ def check_quant_kernel(dev):
                                  f" calls at {shape}: max abs error {e}")
     torch.cuda.synchronize()
     say(f"[quant_matmul_int] == plain (exact int32, max abs error {err}) on "
-        f"{len(path)} path shapes, {len(ragged)} ragged shapes, "
+        f"{len(path)} path shapes, {len(WIDE_QUANT_SHAPES)} shapes of the "
+        f"wide and windowed serves, {len(ragged)} ragged shapes, "
         f"{len(edges)} split/column edges {edges}, 10 extreme-operand cases, "
         f"4 unaligned-pointer cases and {len(runs)} back-to-back calls (one "
         "shape 3 times, two interleaved)")
@@ -378,9 +415,8 @@ def check_quant_kernel(dev):
     say(f"[quant_matmul_int] launch floor (an empty kernel, back to back): "
         f"{floor * 1e3:.2f} us")
     rows = {}
-    for m, k, n in path:
-        if m not in (1, 4, 16, 64, 512):
-            continue
+    timed = [s for s in path if s[0] in (1, 4, 16, 64, 512)]
+    for m, k, n in timed + list(WIDE_QUANT_SHAPES):
         x = rand(m, k)
         ws = rotating(lambda: rand(k, n), k * n)
         ms = cuda_ms(lambda i: quant_matmul_int(x, ws[i % len(ws)]), 50)
@@ -586,8 +622,22 @@ def check_crossbar_kernel(dev):
     say(f"[crossbar_exec] launch floor (an empty kernel, back to back): "
         f"{floor * 1e3:.2f} us | one gate over one crossbar (n={n}, "
         f"W={w_words}): {one_gate * 1e3:.2f} us")
+    # w_in of gemma-7b and of granite-20b at their decode shape (batch 2):
+    # 84 x 192 and 167 x 192 crossbars in one launch
+    wide = []
+    for name, k, o in (("gemma-7b", 3072, 24576), ("granite-20b", 6144,
+                                                    24576)):
+        r = dict(model=name, **time_crossbar_at(dev, 2, k, o))
+        err = max(err, r["max_abs_err"])
+        wide.append(r)
+        say(f"[crossbar_exec] {name} w_in decode shape (M=2, K={k}, O={o}):"
+            f" C={r['shape'][0]} n={n} W={w_words} G={r['shape'][3]}: "
+            f"kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.1f} ms | bound"
+            f" {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}) | "
+            f"{r['bound_ms'] / r['ms'] * 100:.2f}% of bound; == plain "
+            "(exact state)")
     row = dict(rows[594], max_abs_err=err, ms_616=rows[616]["ms"],
-               launch_floor_ms=floor, one_gate_ms=one_gate)
+               launch_floor_ms=floor, one_gate_ms=one_gate, wide_shapes=wide)
     return row
 
 
@@ -802,11 +852,7 @@ def serve_pim(params, base_cfg, dev):
         raise AssertionError("a pim_sim prefill kept crossbar state "
                              "resident")
 
-    def exact(x, w, n_bits=8, **kw):
-        # each linear as the exact integer product: |sum| < 2**53
-        return (x.double() @ w.double().T).long()
-
-    with mock.patch.object(engine, "matmul_int", exact):
+    with mock.patch.object(engine, "matmul_int", exact_matmul):
         want = prefill_logits(params, cfg, toks)
     if not (torch.isfinite(got).all() and torch.equal(got, want)):
         raise AssertionError("full-width pim_sim prefill logits differ from "
@@ -852,7 +898,7 @@ def serve_pim(params, base_cfg, dev):
         raise AssertionError(f"the second serve's decode steps made "
                              f"{uploads} cold uploads of the same weights, "
                              "expected 0")
-    with mock.patch.object(engine, "matmul_int", exact):
+    with mock.patch.object(engine, "matmul_int", exact_matmul):
         want, _, _ = serve(params, cfg, dev, n_requests=2,
                            prompt_lens=(plen,), max_new=max_new, max_batch=2,
                            seed=6)
@@ -923,16 +969,13 @@ def serve_pim_spec(params, base_cfg, dev):
     cold upload).  Returns the first speculative serve's launches."""
     from repro_torch.pim import engine
 
-    def exact(x, w, n_bits=8, **kw):
-        return (x.double() @ w.double().T).long()
-
     plen, max_new, k = 16, 8, 3
     n_layers = base_cfg.n_layers
     cfg = base_cfg.scaled(pim_mode="pim_sim", max_seq_len=plen + max_new)
     kw = dict(n_requests=2, prompt_lens=(plen,), max_new=max_new,
               max_batch=2, seed=12)
     plain, s0, w0 = serve(params, cfg, dev, **kw)
-    with mock.patch.object(engine, "matmul_int", exact):
+    with mock.patch.object(engine, "matmul_int", exact_matmul):
         want, _, _ = serve(params, cfg, dev, **kw)
     say(f"[pim_sim spec] plain serve (2 requests, {plen}-token prompts, "
         f"{max_new} new tokens, max_batch 2) in {w0:.2f} s, mean TPOT "
@@ -1177,9 +1220,6 @@ def serve_pim_prefix(params, base_cfg, dev):
     from repro_torch.pim import engine
     from repro_torch.serving import synthetic_requests
 
-    def exact(x, w, n_bits=8, **kw):
-        return (x.double() @ w.double().T).long()
-
     max_new = 4
     cfg = base_cfg.scaled(pim_mode="pim_sim", max_seq_len=32 + max_new)
     reqs = synthetic_requests(3, vocab_size=cfg.vocab_size,
@@ -1193,7 +1233,7 @@ def serve_pim_prefix(params, base_cfg, dev):
     got, s, wall = serve_requests(params, cfg, dev, trace, **kw)
     x_launches = counters()[1]
     info = engine.cache_info()
-    with mock.patch.object(engine, "matmul_int", exact):
+    with mock.patch.object(engine, "matmul_int", exact_matmul):
         want, _, _ = serve_requests(params, cfg, dev, trace, **kw)
     say(f"[pim_sim prefix] 3 requests (16-token shared prefix + 16-token "
         f"tails, {max_new} new tokens, max_batch 2, prefix cache, 16-token "
@@ -1224,7 +1264,7 @@ def serve_pim_prefix(params, base_cfg, dev):
                                       prompt_bucket=16, paged=True)
     peak = torch.cuda.max_memory_allocated()
     info = engine.cache_info()
-    with mock.patch.object(engine, "matmul_int", exact):
+    with mock.patch.object(engine, "matmul_int", exact_matmul):
         want64, _, _ = serve_requests(params, cfg64, dev,
                                       [(prompt, max_new)], max_batch=2,
                                       prompt_bucket=16, paged=True)
@@ -1325,7 +1365,7 @@ def serve_pim_autotune(params, base_cfg, dev, untuned):
 
     from repro_torch.kernels.crossbar_exec import (crossbar_exec,
                                                    crossbar_exec_grouped_ref,
-                                                   plan)
+                                                   crossbar_exec_ref, plan)
     from repro_torch.pim import autotune, engine
     from repro_torch.pim.matmul import max_dot_terms
     from repro_torch.serving import (Scheduler, ServingConfig,
@@ -1531,8 +1571,15 @@ def serve_pim_autotune(params, base_cfg, dev, untuned):
             raise AssertionError(f"w_in decode launch ({p.model}, {p.n_cols} "
                                  f"columns, C={c}): kernel state != grouped "
                                  "plain version on crossbars 0, 1, C-2, C-1")
+        # the per-gate plain version on the card, once
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        crossbar_exec_ref(st, mc)
+        end.record()
+        end.synchronize()
         row = dict(model=p.model, n_cols=p.n_cols, chunk=p.chunk, crossbars=c,
                    rows=int(mc.shape[0]), groups=n_groups, ms=ms,
+                   plain_ms=start.elapsed_time(end), library_ms=None,
                    bound_ms=bound, bound_by=by,
                    ns_per_group=ms * 1e6 / n_groups,
                    launches_per_decode_step=per_geometry.get(
@@ -1544,7 +1591,8 @@ def serve_pim_autotune(params, base_cfg, dev, untuned):
         say(f"[autotune] w_in decode launch ({p.model}, {p.n_cols} columns, "
             f"{p.chunk} terms): C={c} G={mc.shape[0]} in {n_groups} groups | "
             f"kernel {ms:.4f} ms ({row['ns_per_group']:.1f} ns per group) | "
-            f"bound {bound * 1e3:.2f} us ({by}) | "
+            f"plain {row['plain_ms']:.1f} ms | bound {bound * 1e3:.2f} us "
+            f"({by}) | "
             f"{bound / ms * 100:.2f}% of bound | state == plain on "
             f"crossbars 0, 1, C-2, C-1 | launches per decode step "
             f"{row['launches_per_decode_step']}"
@@ -1812,9 +1860,6 @@ def train_pim(base_cfg, dev):
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.pim import engine
 
-    def exact(x, w, n_bits=8, **kw):
-        return (x.double() @ w.double().T).long()
-
     batch, seq, steps = TRAIN_PIM
     cfg = base_cfg.scaled(pim_mode="pim_sim")
     ocfg = AdamWConfig()
@@ -1824,7 +1869,7 @@ def train_pim(base_cfg, dev):
     base = torch.cuda.memory_allocated()
     info0 = engine.cache_info()
     params = M.init_params(cfg, seed=0, device=dev)
-    with mock.patch.object(engine, "matmul_int", exact):
+    with mock.patch.object(engine, "matmul_int", exact_matmul):
         want_loss, want_norm = _loss_and_norm(params, batches[0], cfg)
     params, opt_state, rows, prof = _train_steps(params, batches, cfg, ocfg,
                                                  which=1)
@@ -1968,6 +2013,429 @@ def train_restart():
 
 
 # --------------------------------------------------------------------------
+# phase 7: the engine keeps nothing of a dropped model; the wide dense
+# configs; sliding-window serving
+# --------------------------------------------------------------------------
+
+# depths of the full-width wide serves: a pim_sim decode state at batch 2
+# takes about 1.8 GiB per gemma-7b layer and 2.45 GiB per granite-20b layer
+# (host arithmetic, printed), so these depths keep one model's states under
+# the engine's 8 GiB resident bound
+WIDE_LAYERS = {"gemma-7b": 4, "granite-20b": 3}
+# h2o-danube-1.8b's windowed serve (window 4096): a cold prompt past the
+# window, and one inside it whose decode wraps the ring; then three short
+# prompts through packing and chunking
+WINDOW_RING_TRACE = ((4160, 16), (4080, 32))
+WINDOW_SHORT_TRACE = ((24, 8), (40, 8), (150, 8))
+WINDOW_BLOCK = 16
+WINDOW_CHUNK = 64
+WINDOW_PIM_LAYERS = 4
+# last-token logits of the ring decode against a teacher-forced windowed
+# prefill of the same tokens: bf16 logits (|logit| up to about 1.3, an ulp
+# of 0.0078 there) through two attention paths and int8-quantized
+# activations; the full-width model cut to 2 and 4 layers (window 64) gave
+# 0.043 and 0.046 on the CPU
+WINDOW_LOGIT_TOL = 0.1
+
+
+def footprint(params):
+    """(weight bytes of ``params``, the engine's derived, chunked and
+    resident bytes, bytes allocated on the card)."""
+    from repro_torch.pim import engine
+    from repro_torch.tree import leaves
+
+    info = engine.cache_info()
+    return (sum(t.numel() * t.element_size() for _, t in leaves(params)),
+            info.derived_bytes + info.chunked_bytes + info.resident_bytes,
+            torch.cuda.memory_allocated())
+
+
+def check_released(label, before):
+    """After the caller dropped a model's parameters: the engine reports no
+    derived, chunked or resident bytes, and the card's allocation fell by
+    at least the weights' bytes plus what the engine held for them."""
+    from repro_torch.pim import engine
+
+    weights, held, allocated = before
+    gc.collect()
+    torch.cuda.synchronize()
+    info = engine.cache_info()
+    fell = allocated - torch.cuda.memory_allocated()
+    say(f"[release] {label}: params dropped; the engine held "
+        f"{held / 2 ** 30:.3f} GiB for them, now derived "
+        f"{info.derived_bytes} B ({info.derived_entries} entries), chunked "
+        f"{info.chunked_bytes} B ({info.chunked_entries}), resident "
+        f"{info.resident_bytes} B ({info.resident_entries}); allocated fell "
+        f"{fell / 2 ** 30:.3f} GiB (weights {weights / 2 ** 30:.3f} GiB + "
+        f"engine {held / 2 ** 30:.3f} GiB)")
+    if info.derived_bytes or info.chunked_bytes or info.resident_bytes:
+        raise AssertionError(f"the engine kept state of the dropped {label}")
+    if fell < weights + held:
+        raise AssertionError(f"dropping {label} freed {fell} bytes, less than"
+                             f" its weights and engine state ({weights} + "
+                             f"{held})")
+
+
+def upload_steps(fn):
+    """Run ``fn()`` recording the engine's cold uploads after each plain
+    decode step of the scheduler; returns (fn's result, the list)."""
+    from repro_torch.pim import engine
+    from repro_torch.serving import Scheduler
+
+    real = Scheduler._plain_step
+    seen = []
+
+    def step(self, active, emitted):
+        real(self, active, emitted)
+        seen.append(engine.cache_info().exec_uploads)
+
+    with mock.patch.object(Scheduler, "_plain_step", step):
+        out = fn()
+    return out, seen
+
+
+def pim_state_bytes(m, k, o):
+    """Crossbar state of one pim_sim linear at (M, K, O): 37-term chunks,
+    256 rows per crossbar, 1024 columns of 8 words (host arithmetic)."""
+    return math.ceil(k / 37) * math.ceil(m * o / 256) * 1024 * 8 * 4
+
+
+def linear_shapes(cfg):
+    d, h, kv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                        cfg.d_ff)
+    out = [(d, h * hd), (d, kv * hd), (d, kv * hd), (h * hd, d), (d, ff),
+           (ff, d)]
+    return out + [(d, ff)] if cfg.gated_mlp else out
+
+
+def wide_pim_limit(cfg, weights):
+    """The wide pim_sim phase's peak allocation bound: the weights, their
+    offset and chunked copies (a byte per weight element each), the
+    engine's resident bound, and 8 times the largest transient state of an
+    8-token prefill linear (the state, the kernel's output, and packing's
+    two int64 bit-plane temporaries of about 2.3 times the state each)."""
+    from repro_torch.pim import engine
+
+    elems = cfg.n_layers * sum(k * o for k, o in linear_shapes(cfg))
+    largest = max(pim_state_bytes(8, k, o) for k, o in linear_shapes(cfg))
+    return weights + 2 * elems + engine.MAX_RESIDENT_BYTES + 8 * largest
+
+
+def serve_wide(name, dev):
+    """Full-width gemma-7b or granite-20b cut to ``WIDE_LAYERS[name]``
+    layers, fresh weights from seed 0: a ``quant`` serve whose prefill
+    logits and tokens equal the plain GEMM's, and a ``pim_sim`` serve whose
+    logits and tokens equal the exact integer product's, with no cold
+    upload after the first decode step.  Drops the weights at the end and
+    checks that nothing of them stays.  Returns (quant launches, crossbar
+    launches, a summary)."""
+    from repro_torch import configs
+    from repro_torch.kernels.quant_matmul import ops, quant_matmul_int_ref
+    from repro_torch.models import model_lib as M
+    from repro_torch.pim import engine
+
+    full = configs.get(name)
+    base = full.scaled(n_layers=WIDE_LAYERS[name])
+    t0 = time.perf_counter()
+    params = M.init_params(base, seed=0, device=dev)
+    torch.cuda.synchronize()
+    say(f"[{name}] full width, {base.n_layers} of {full.n_layers} layers: "
+        f"{M.param_count(base) / 1e6:.1f}M parameters (d_model "
+        f"{base.d_model}, {base.n_heads} heads of {base.hd}, "
+        f"{base.n_kv_heads} KV heads, d_ff {base.d_ff} "
+        f"{'gated' if base.gated_mlp else 'ungated'}, {base.activation}, "
+        f"vocab {base.vocab_size}, "
+        f"{'tied' if base.tie_embeddings else 'untied'}) from seed 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # quant: 4 requests, prompts 16-64, 8 new tokens, batch 4, paged
+    plens, max_new = (16, 32, 48, 64), 8
+    qcfg = base.scaled(pim_mode="quant", max_seq_len=max(plens) + max_new)
+    toks = torch.as_tensor(np.random.default_rng(13).integers(
+        0, base.vocab_size, (1, 64)), device=dev)
+    got = prefill_logits(params, qcfg, toks)
+    with mock.patch.object(ops, "quant_matmul_int", quant_matmul_int_ref):
+        want = prefill_logits(params, qcfg, toks)
+    if not (torch.isfinite(got).all() and torch.equal(got, want)):
+        raise AssertionError(f"{name} quant prefill logits differ between "
+                             "the kernel and the plain GEMM")
+    reset_counters()
+    tokens, summary, wall = serve(params, qcfg, dev, n_requests=4,
+                                  prompt_lens=plens, max_new=max_new,
+                                  max_batch=4, seed=14)
+    q_launches = counters()[0]
+    with mock.patch.object(ops, "quant_matmul_int", quant_matmul_int_ref):
+        plain, _, _ = serve(params, qcfg, dev, n_requests=4,
+                            prompt_lens=plens, max_new=max_new, max_batch=4,
+                            seed=14)
+    if q_launches <= 0 or tokens != plain:
+        raise AssertionError(f"{name} quant serve: {q_launches} launches, "
+                             f"tokens {tokens} vs the plain GEMM's {plain}")
+    say(f"[{name} quant] 64-token prefill logits kernel == plain GEMM "
+        f"(identical); served {summary['n_finished']} requests (prompts "
+        f"{plens}, {max_new} new tokens, max_batch 4, paged) in {wall:.2f} "
+        f"s: {summary['tokens_per_s']:.2f} tok/s | mean TTFT "
+        f"{summary['mean_ttft_s'] * 1e3:.1f} ms | mean TPOT "
+        f"{summary['mean_tpot_s'] * 1e3:.2f} ms | quant_matmul_int launches "
+        f"{q_launches}; tokens == the plain GEMM's: {tokens}")
+
+    # pim_sim: 2 requests of 8 tokens, 4 new tokens, batch 2
+    plen, pnew = 8, 4
+    pcfg = base.scaled(pim_mode="pim_sim", max_seq_len=plen + pnew)
+    toks = torch.as_tensor(np.random.default_rng(15).integers(
+        0, base.vocab_size, (1, plen)), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = prefill_logits(params, pcfg, toks)
+    t_prefill = time.perf_counter() - t0
+    with mock.patch.object(engine, "matmul_int", exact_matmul):
+        want = prefill_logits(params, pcfg, toks)
+    if not (torch.isfinite(got).all() and torch.equal(got, want)):
+        raise AssertionError(f"{name} pim_sim prefill logits differ from the "
+                             "exact 7-bit integer product")
+    info0 = engine.cache_info()
+    reset_counters()
+    (ptokens, psummary, pwall), uploads = upload_steps(
+        lambda: serve(params, pcfg, dev, n_requests=2, prompt_lens=(plen,),
+                      max_new=pnew, max_batch=2, seed=16))
+    x_launches = counters()[1]
+    info = engine.cache_info()
+    peak = torch.cuda.max_memory_allocated()
+    with mock.patch.object(engine, "matmul_int", exact_matmul):
+        pwant, _, _ = serve(params, pcfg, dev, n_requests=2,
+                            prompt_lens=(plen,), max_new=pnew, max_batch=2,
+                            seed=16)
+    weights = footprint(params)[0]
+    limit = wide_pim_limit(base, weights)
+    decode_state = base.n_layers * sum(pim_state_bytes(2, k, o)
+                                       for k, o in linear_shapes(base))
+    say(f"[{name} pim_sim] 8-token prefill logits on the crossbar kernel == "
+        f"exact 7-bit integer product (identical), {t_prefill:.2f} s on "
+        f"transient state; served {psummary['n_finished']} requests "
+        f"({plen}-token prompts, {pnew} new tokens, max_batch 2, paged) in "
+        f"{pwall:.2f} s: mean TTFT {psummary['mean_ttft_s'] * 1e3:.0f} ms | "
+        f"mean TPOT {psummary['mean_tpot_s'] * 1e3:.0f} ms | crossbar_exec "
+        f"launches {x_launches} | cold uploads after each decode step "
+        f"{[u - info0.exec_uploads for u in uploads]} | resident "
+        f"{info.resident_entries} states, {info.resident_bytes / 2 ** 30:.2f}"
+        f" GiB (host arithmetic {decode_state / 2 ** 30:.2f} GiB) | peak "
+        f"allocated {peak / 2 ** 30:.2f} GiB, limit {limit / 2 ** 30:.2f} GiB;"
+        f" tokens == exact product's: {ptokens}")
+    if x_launches <= 0 or ptokens != pwant:
+        raise AssertionError(f"{name} pim_sim serve: {x_launches} launches, "
+                             f"tokens {ptokens} vs the exact product's "
+                             f"{pwant}")
+    if len(set(uploads)) != 1:
+        raise AssertionError(f"{name} pim_sim decode uploaded crossbar state "
+                             f"after its first step: {uploads}")
+    if info.resident_bytes != decode_state:
+        raise AssertionError(f"{name} pim_sim keeps {info.resident_bytes} "
+                             f"resident bytes, expected {decode_state}")
+    if peak >= limit:
+        raise AssertionError(f"{name} pim_sim peaked at {peak} bytes, limit "
+                             f"{limit}")
+    before = footprint(params)
+    del params
+    check_released(name, before)
+    return q_launches, x_launches, dict(
+        layers=base.n_layers, quant_tokens_per_s=summary["tokens_per_s"],
+        quant_tpot_ms=summary["mean_tpot_s"] * 1e3,
+        pim_tpot_ms=psummary["mean_tpot_s"] * 1e3,
+        pim_prefill_s=t_prefill, resident_bytes=info.resident_bytes,
+        peak_bytes=peak, peak_limit_bytes=limit)
+
+
+def run_scheduler(params, cfg, dev, trace, **kw):
+    """Serve ``trace`` [(prompt, new tokens)] through a ``Scheduler`` with
+    ``ServingConfig(**kw)``; returns the tokens in submission order, the
+    scheduler and the wall time."""
+    from repro_torch.serving import Scheduler, ServingConfig, make_request
+
+    sched = Scheduler(params, cfg, ServingConfig(**kw), device=dev)
+    reqs = [make_request(p, n, arrival_time=time.monotonic())
+            for p, n in trace]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit_request(r)
+    with torch.no_grad():
+        out = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if sched.decode_traces != 1:
+        raise AssertionError(f"decode step saw {sched.decode_traces} input "
+                             "shapes, expected 1")
+    return [out[r.rid].tolist() for r in reqs], sched, wall
+
+
+def ring_oracle(params, cfg, dev, prompt, n, feed=None):
+    """The naive ring decode: one request alone, contiguous prefill, then
+    scalar decode steps, each fed the token before it — its own greedy
+    choice, or ``feed``'s (teacher-forced).  Returns its greedy tokens and
+    the (V,) logits of every step."""
+    from repro_torch.models import model_lib as M
+
+    with torch.no_grad():
+        logits, caches = M.prefill(
+            params, {"tokens": torch.as_tensor(prompt, device=dev)[None]},
+            cfg)
+        steps = [logits[0]]
+        for i in range(n - 1):
+            tok = (torch.argmax(logits, -1)[:, None] if feed is None
+                   else torch.tensor([[feed[i]]], device=dev))
+            _, logits, caches = M.decode_step(params, tok, len(prompt) + i,
+                                              caches, cfg)
+            steps.append(logits[0])
+    return [int(torch.argmax(l)) for l in steps], steps
+
+
+def serve_window(dev):
+    """Full-depth h2o-danube-1.8b (window 4096) in ``quant``, paged, block
+    16: a cold prompt past the window and a prompt whose decode wraps the
+    ring (alone, as the oracle runs), then short prompts through packing
+    and chunking; the ring requests' tokens equal the naive ring decode's
+    and their last logits lie within ``WINDOW_LOGIT_TOL`` of a
+    teacher-forced windowed prefill, and the naive decode fed the short
+    ones' tokens ranks each within ``PREFIX_LOGIT_TOL`` of its best.  One
+    decode step at batch 4 is profiled.
+    Then 4 of its layers in ``pim_sim``, tokens equal to the exact integer
+    product's.  Returns (quant launches, crossbar launches, a summary)."""
+    from repro_torch import configs
+    from repro_torch.models import model_lib as M
+    from repro_torch.pim import engine
+
+    base = configs.get("h2o-danube-1.8b")
+    t0 = time.perf_counter()
+    params = M.init_params(base, seed=0, device=dev)
+    torch.cuda.synchronize()
+    say(f"[danube] full-width h2o-danube-1.8b: {M.param_count(base) / 1e6:.1f}"
+        f"M parameters ({base.n_layers} layers, d_model {base.d_model}, "
+        f"{base.n_heads} heads of {base.hd}, {base.n_kv_heads} KV heads, "
+        f"d_ff {base.d_ff}, window {base.sliding_window}, vocab "
+        f"{base.vocab_size}) from seed 0 in {time.perf_counter() - t0:.1f} s")
+    cfg = base.scaled(pim_mode="quant", max_seq_len=max(
+        p + n for p, n in WINDOW_RING_TRACE + WINDOW_SHORT_TRACE))
+    rng = np.random.default_rng(17)
+    ring = [(rng.integers(0, base.vocab_size, p), n)
+            for p, n in WINDOW_RING_TRACE]
+    short = [(rng.integers(0, base.vocab_size, p), n)
+             for p, n in WINDOW_SHORT_TRACE]
+    failures = []
+
+    reset_counters()
+    ring_tokens, sched, wall = run_scheduler(
+        params, cfg, dev, ring, max_batch=1, block_size=WINDOW_BLOCK,
+        prompt_bucket=WINDOW_BLOCK)
+    q_ring = counters()[0]
+    bps = sched.pool.blocks_per_slot
+    s = sched.metrics.summary()
+    ring_tpot = s["mean_tpot_s"] * 1e3
+    say(f"[danube quant] served prompts of {[len(p) for p, _ in ring]} tokens"
+        f" ({[n for _, n in ring]} new; max_batch 1, paged, block "
+        f"{WINDOW_BLOCK}, {bps} blocks per slot, not "
+        f"{-(-cfg.max_seq_len // WINDOW_BLOCK)}) in {wall:.2f} "
+        f"s: mean TTFT {s['mean_ttft_s'] * 1e3:.0f} ms | mean TPOT "
+        f"{s['mean_tpot_s'] * 1e3:.1f} ms | quant_matmul_int launches "
+        f"{q_ring}")
+    if bps != -(-base.sliding_window // WINDOW_BLOCK) or q_ring <= 0:
+        failures.append(f"{bps} blocks per slot, {q_ring} launches")
+    diffs = []
+    for (prompt, n), got in zip(ring, ring_tokens):
+        want, steps = ring_oracle(params, cfg, dev, prompt, n)
+        tf = prefill_logits(params, cfg, torch.as_tensor(
+            np.concatenate([prompt, want[:-1]]), device=dev)[None])
+        diff = float((steps[-1] - tf[0]).abs().max())
+        diffs.append(diff)
+        same = got == want
+        say(f"[danube quant] {len(prompt)}-token prompt, {n} new tokens "
+            f"(positions to {len(prompt) + n - 1}): served == naive ring "
+            f"decode: {same}; last logits vs a teacher-forced windowed "
+            f"prefill of {len(prompt) + n - 1} tokens: max abs diff "
+            f"{diff:.5f} (tol {WINDOW_LOGIT_TOL})")
+        if not same:
+            failures.append(f"{len(prompt)}-token prompt: served {got} vs "
+                            f"naive ring decode {want}")
+        if not diff <= WINDOW_LOGIT_TOL:
+            failures.append(f"{len(prompt)}-token prompt: last logits differ"
+                            f" by {diff} from the teacher-forced prefill")
+
+    kw = dict(max_batch=3, block_size=WINDOW_BLOCK, prompt_bucket=WINDOW_BLOCK)
+    reset_counters()
+    short_tokens, sched, wall = run_scheduler(
+        params, cfg, dev, short, prefill_chunk=WINDOW_CHUNK,
+        packed_prefill=True, **kw)
+    q_short = counters()[0]
+    s = sched.metrics.summary()
+    # packed and chunked prefill reduce in other orders than the oracle's
+    # whole prefill, and the decode batch is 3, not 1: the naive ring
+    # decode, fed the served tokens, must rank each one within
+    # PREFIX_LOGIT_TOL (the bound two prefill forms keep on the card) of
+    # its best logit
+    short_gaps, short_exact = [], 0
+    for (prompt, n), got in zip(short, short_tokens):
+        want, steps = ring_oracle(params, cfg, dev, prompt, n, feed=got)
+        gaps = [float(l.max() - l[t]) for l, t in zip(steps, got)]
+        short_gaps.append(max(gaps))
+        short_exact += sum(g == w for g, w in zip(got, want))
+        if max(gaps) > PREFIX_LOGIT_TOL:
+            failures.append(f"{len(prompt)}-token prompt: served {got}, the "
+                            f"naive ring decode's greedy tokens on them "
+                            f"{want}, logit gaps {gaps}")
+    say(f"[danube quant] prompts of {[len(p) for p, _ in short]} tokens "
+        f"(max_batch 3, chunks of {WINDOW_CHUNK}, packing) in {wall:.2f} s: "
+        f"{s['packed_prefills']} packed prefills, {s['prefill_chunks']} "
+        f"prefill chunks, quant_matmul_int launches {q_short}; the naive ring"
+        f" decode fed the served tokens picks {short_exact} of "
+        f"{sum(n for _, n in short)} of them, and ranks each within "
+        f"{max(short_gaps):.5f} of its best logit (tol {PREFIX_LOGIT_TOL})")
+    if not (s["packed_prefills"] > 0 and s["prefill_chunks"] > 0
+            and q_short > 0):
+        failures.append(f"short prompts packed {s['packed_prefills']} and "
+                        f"chunked {s['prefill_chunks']} times")
+
+    # one windowed decode step at full depth, batch 4, profiled (the paged
+    # read gathers every slot's whole ring)
+    profile_decode(params, cfg, dev, 4)
+
+    # pim_sim on 4 of the layers (the same weights), inside the window
+    p4 = dict(params, blocks={i: {k: v[:WINDOW_PIM_LAYERS] for k, v in
+                                  b.items()}
+                              for i, b in params["blocks"].items()})
+    pcfg = base.scaled(n_layers=WINDOW_PIM_LAYERS, pim_mode="pim_sim",
+                       max_seq_len=20)
+    info0 = engine.cache_info()
+    reset_counters()
+    (ptokens, psummary, pwall), uploads = upload_steps(
+        lambda: serve(p4, pcfg, dev, n_requests=2, prompt_lens=(16,),
+                      max_new=4, max_batch=2, seed=18))
+    x_launches = counters()[1]
+    with mock.patch.object(engine, "matmul_int", exact_matmul):
+        pwant, _, _ = serve(p4, pcfg, dev, n_requests=2, prompt_lens=(16,),
+                            max_new=4, max_batch=2, seed=18)
+    say(f"[danube pim_sim] {WINDOW_PIM_LAYERS} layers, window "
+        f"{pcfg.sliding_window}: served {psummary['n_finished']} requests "
+        f"(16-token prompts, 4 new tokens, max_batch 2) in {pwall:.2f} s: "
+        f"mean TPOT {psummary['mean_tpot_s'] * 1e3:.0f} ms | crossbar_exec "
+        f"launches {x_launches} | cold uploads after each decode step "
+        f"{[u - info0.exec_uploads for u in uploads]}; tokens == exact "
+        f"product's: {ptokens == pwant} ({ptokens})")
+    if ptokens != pwant or x_launches <= 0 or len(set(uploads)) != 1:
+        failures.append(f"pim_sim: tokens {ptokens} vs exact {pwant}, "
+                        f"{x_launches} launches, uploads {uploads}")
+    if failures:
+        raise AssertionError("serve_window: " + "; ".join(failures))
+    del p4, sched          # the scheduler holds the parameters
+    before = footprint(params)
+    del params
+    check_released("h2o-danube-1.8b", before)
+    return q_ring + q_short, x_launches, dict(
+        blocks_per_slot=bps, logit_diffs=diffs,
+        short_max_gap=max(short_gaps),
+        ring_tpot_ms=ring_tpot, pim_tpot_ms=psummary["mean_tpot_s"] * 1e3)
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2024,6 +2492,12 @@ def main() -> int:
                    speculative=True, draft_mode="quant", draft_k=3)
     at_launches, at_warm_s, race_rows, geo_rows = serve_pim_autotune(
         params, base, dev, pim_tokens)
+    # the serve phases' model is dropped: the engine may keep nothing of it
+    before = footprint(params)
+    del params
+    check_released(base.name, before)
+    wide = {name: serve_wide(name, dev) for name in WIDE_LAYERS}
+    win_q, win_x, win = serve_window(dev)
     # training: fresh weights from the same seed; the serve phases' params
     # stay as they are
     tq_launches, tq = train_quant(base, dev, quant_rows)
@@ -2039,6 +2513,8 @@ def main() -> int:
              launches=q_launches, launches_prefix_path=qp_launches,
              launches_spec_path=qs_launches + ps_launches[0],
              launches_train_path=tq_launches,
+             launches_wide_path={k: v[0] for k, v in wide.items()},
+             launches_window_path=win_q,
              max_abs_err=qrow["max_abs_err"],
              exact=qrow["max_abs_err"] == 0,
              shape=[4, 1024, 2816], ms=qrow["ms"], plain_ms=qrow["plain_ms"],
@@ -2051,6 +2527,12 @@ def main() -> int:
                  key: quant_rows[(m_train, k, n)][key]
                  for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                              "bound_by")}) for k, n in QUANT_SHAPES_KN],
+             wide_shapes=[dict(shape=list(shape), **{
+                 key: quant_rows[shape][key]
+                 for key in ("ms", "plain_ms", "library_ms", "library",
+                             "bound_ms", "bound_by")})
+                 for shape in WIDE_QUANT_SHAPES],
+             wide={k: v[2] for k, v in wide.items()}, window=win,
              train=tq, restart_drill=drill),
         dict(name="crossbar_exec", route="cuda",
              source="src/repro_torch/kernels/csrc/crossbar_exec.cu",
@@ -2060,6 +2542,8 @@ def main() -> int:
              launches_mult_path=mult_launches,
              launches_autotune_path=at_launches,
              launches_train_path=tp_launches,
+             launches_wide_path={k: v[1] for k, v in wide.items()},
+             launches_window_path=win_x,
              max_abs_err=xbar_row["max_abs_err"],
              exact=xbar_row["max_abs_err"] == 0,
              shape=xbar_row["shape"], ms=xbar_row["ms"],
@@ -2068,6 +2552,7 @@ def main() -> int:
              bound_by=xbar_row["bound_by"], library_ms=None,
              launch_floor_ms=xbar_row["launch_floor_ms"],
              one_gate_ms=xbar_row["one_gate_ms"],
+             wide_shapes=xbar_row["wide_shapes"],
              multipliers=mult_table, autotune_warmup_s=at_warm_s,
              autotune_race=race_rows, geometries=geo_rows, train=tp),
     ]

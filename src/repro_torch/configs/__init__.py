@@ -1,7 +1,8 @@
 """Architecture registry: one module per config, ``get(name)`` API.
 
-The port serves the dense ``"ad"`` stack only so far; the registry holds
-the configurations it can run."""
+The registry holds the configurations the port can run: the dense
+``"ad"`` stack, sliding windows included (MoE, SSM, xLSTM and
+encoder-decoder configs wait in ROADMAP.md queue 1)."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +11,9 @@ from typing import Dict, List
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "granite-20b": "granite_20b",
+    "gemma-7b": "gemma_7b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
 }
 

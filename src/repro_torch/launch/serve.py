@@ -4,7 +4,10 @@ Replays a synthetic request trace through the continuous-batching
 scheduler: a fixed ``--batch``-slot decode batch whose finished slots are
 backfilled from the FIFO admission queue, prefill on admit (bucketed
 prompts), a persistent KV-cache pool (``--paged`` for the block-paged
-one), and one batched decode step of fixed shape.  ``--pim-mode`` threads
+one; sliding-window architectures page unconditionally and serve as rings
+over their block lists), and one batched decode step of fixed shape.
+``--arch`` names any registered configuration: qwen1.5-0.5b (the
+default), gemma-7b, granite-20b or h2o-danube-1.8b (sliding window).  ``--pim-mode`` threads
 the linear lowering through the config: ``quant`` runs every linear on the
 int8 GEMM kernel, ``pim_sim`` on the crossbar microcode kernel, whose
 persistent sessions keep each weight's crossbar state resident on the card.
@@ -216,7 +219,7 @@ def main(argv=None):
           f"queue wait {summary['mean_queue_wait_s'] * 1e3:.0f}ms | "
           f"active slots {summary['mean_active_slots']:.1f}")
     paged = (args.paged or args.prefix_cache or args.packed_prefill
-             or args.prefill_chunk is not None)
+             or args.prefill_chunk is not None or cfg.sliding_window)
     if paged:
         print(f"[pool] peak KV {summary['peak_kv_bytes'] / 1e6:.2f}MB "
               f"(peak {summary['peak_pool_blocks']:.0f} blocks, "

@@ -31,8 +31,15 @@ time, at the shapes of the single-position step: a reduction over more
 rows may take another order on the card, and the verify must give the
 bits of plain decode.
 
+Sliding-window attention (``cfg.sliding_window``) keeps a ring of the
+last window's keys: prefill lays the ring out by position (position ``p``
+at index ``p % cap``), decode writes at ``pos % cap``, and the paged read
+masks the ring through :func:`ring_slot_positions`, the helper the pool's
+admit layout shares.  A multi-position decode step refuses windows: the
+run's writes would destroy ring rows a rejected draft rolls back to.
+
 Not ported yet (ROADMAP queue 1): MoE, Mamba, xLSTM, cross-attention and
-encoders, and sliding windows; they raise ``NotImplementedError``.
+encoders; they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -66,10 +73,26 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: only the dense 'ad' stack is ported so far (MoE, "
             "SSM, xLSTM and enc-dec wait in ROADMAP.md queue 1)")
+
+
+def _refuse_window_run(cfg: ModelConfig) -> None:
     if cfg.sliding_window:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention is not ported yet "
-            "(ROADMAP.md queue 1)")
+        raise ValueError("multi-position decode (speculative verify) does "
+                         "not support sliding_window")
+
+
+def ring_slot_positions(last_pos, r, ring: int, window: int):
+    """Sliding-window ring congruence, shared by writeback and readback.
+
+    For ring index ``r`` (broadcastable against ``last_pos``), returns
+    ``(p_r, valid)``: the newest absolute position ``<= last_pos`` with
+    ``p_r % ring == r``, and whether that position exists and is still
+    inside the attention window.  The paged decode path (reading a slot's
+    block ring at position ``last_pos``) and the pool's admit layout
+    (laying out a ``plen``-token prefill, ``last_pos = plen - 1``) must
+    agree on this bit for bit — keep both on this helper."""
+    p_r = last_pos - ((last_pos - r) % ring)
+    return p_r, (p_r >= 0) & (p_r > last_pos - window)
 
 
 # ==========================================================================
@@ -242,14 +265,28 @@ def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
         # past the slot's logical capacity lcap is routed to the trash
         # block: the clamped table gather would otherwise resolve to the
         # slot's *last real block* and overwrite a committed row.
+        # Under a sliding window the logical row is the position modulo
+        # the block-rounded ring, and the mask keeps the ring rows whose
+        # newest position is inside the window.
         bs_blk = cache["k"].shape[1]
         lcap = block_tables.shape[1] * bs_blk
         r = torch.arange(lcap, device=x.device)
-        widx = pos[:, None] + torch.arange(s, device=x.device)   # (B, s)
-        valid = r[None, None, :] <= widx[:, :, None]            # (B, s, lcap)
         bidx = torch.arange(b, device=x.device)[:, None]
-        blk = block_tables[bidx, torch.clamp(widx, max=lcap - 1) // bs_blk]
-        blk = torch.where(widx < lcap, blk, torch.zeros_like(blk))
+        if cfg.sliding_window:
+            if s > 1:
+                _refuse_window_run(cfg)
+            ring = cfg.window_ring_blocks(bs_blk) * bs_blk
+            widx = (pos % ring)[:, None]                         # (B, 1)
+            _, in_ring = ring_slot_positions(pos[:, None], r[None, :], ring,
+                                             cfg.sliding_window)
+            valid = ((r[None, :] < ring) & in_ring)[:, None]     # (B, 1, lcap)
+            blk = block_tables[bidx, widx // bs_blk]
+        else:
+            widx = pos[:, None] + torch.arange(s, device=x.device)  # (B, s)
+            valid = r[None, None, :] <= widx[:, :, None]       # (B, s, lcap)
+            blk = block_tables[bidx,
+                               torch.clamp(widx, max=lcap - 1) // bs_blk]
+            blk = torch.where(widx < lcap, blk, torch.zeros_like(blk))
         off = widx % bs_blk
         for key, new in _kv_leaves(k, v, quant).items():
             cache[key][blk, off] = new.to(cache[key].dtype)
@@ -265,19 +302,25 @@ def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
             # continuous batching: each slot writes token i at its own
             # absolute position pos + i; a write at or past the capacity
             # is dropped (it keeps the row's old value) rather than
-            # wrapped onto live row 0.  One position at a time, so that
-            # no two writes of one call land on the same row.
+            # wrapped onto live row 0 — but a sliding window's ring wraps
+            # (pos % cap).  One position at a time, so that no two writes
+            # of one call land on the same row.
+            if s > 1:
+                _refuse_window_run(cfg)
             bidx = torch.arange(b, device=x.device)
             for i in range(s):
                 at = pos + i
-                keep = at < cap
-                idx = torch.clamp(at, max=cap - 1)
+                keep = (at < cap) | bool(cfg.sliding_window)
+                idx = at % cap if cfg.sliding_window \
+                    else torch.clamp(at, max=cap - 1)
                 for key, new in leaves.items():
                     c = cache[key]
                     new = new[:, i].to(c.dtype)
                     kshape = (b,) + (1,) * (new.dim() - 1)
                     c[bidx, idx] = torch.where(keep.reshape(kshape), new,
                                                c[bidx, idx])
+            # row r is live up to the query's position (a full ring, past
+            # the first wrap, is live entirely)
             widx = pos[:, None] + torch.arange(s, device=x.device)
             valid = (torch.arange(cap, device=x.device)[None, None, :]
                      <= widx[:, :, None])                        # (B, s, cap)
@@ -297,6 +340,7 @@ def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
             out = _decode_attention(q, k_full, v_full, valid)
         new_cache = cache
     else:
+        window = cfg.sliding_window
         attn_fn = attn.flash_attention if cfg.flash_attention \
             else attn.direct_attention
         if mode == "prefill" and cache is not None:
@@ -312,25 +356,43 @@ def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
             pk, pv = _read_kv(cache, cfg, quant)
             out = attn_fn(q, torch.cat([pk.to(k.dtype), k], dim=1),
                           torch.cat([pv.to(v.dtype), v], dim=1),
-                          causal=True, q_offset=m_len)
+                          causal=True, window=window, q_offset=m_len)
             new_cache = _tail_kv(k, v, cfg, quant)
         elif segment_ids is not None:
             # Packed prefill: several prompts share one (1, L) stream.
             # ``positions`` restarts at 0 per segment (it already drove
             # RoPE above) and the segment mask keeps attention
             # block-diagonal.  The emitted cache is the raw packed k/v;
-            # ``PagedCachePool.admit(start=)`` unpacks each segment.
-            out = attn_fn(q, k, v, causal=True, segment_ids=segment_ids,
-                          positions=positions)
+            # ``PagedCachePool.admit(start=)`` unpacks each segment (a
+            # windowed segment packs only while it fits the window, where
+            # the ring layout is the dense one).
+            out = attn_fn(q, k, v, causal=True, window=window,
+                          segment_ids=segment_ids, positions=positions)
             new_cache = _tail_kv(k, v, cfg, quant)
         else:
-            out = attn_fn(q, k, v, causal=True)
+            out = attn_fn(q, k, v, causal=True, window=window)
         if mode == "prefill" and new_cache is None:
-            # full cache with decode headroom up to max_seq_len
-            cap = max(s, cfg.max_seq_len)
-            pad = (0, 0, 0, 0, 0, cap - s)
-            kc = torch.nn.functional.pad(k, pad) if cap > s else k
-            vc = torch.nn.functional.pad(v, pad) if cap > s else v
+            if window:
+                # the ring: the window, with decode headroom padded for a
+                # prompt shorter than it, capped at max_seq_len like the
+                # dense cache; a longer prompt keeps its last cap
+                # positions, position p at index p % cap (where decode
+                # writes it)
+                cap = min(window, max(s, cfg.max_seq_len))
+                if s < cap:
+                    kc, vc = k, v
+                else:
+                    shift = (s - cap) % cap
+                    kc = torch.roll(k[:, -cap:], shift, dims=1)
+                    vc = torch.roll(v[:, -cap:], shift, dims=1)
+            else:
+                # full cache with decode headroom up to max_seq_len
+                cap = max(s, cfg.max_seq_len)
+                kc, vc = k, v
+            if cap > kc.shape[1]:
+                pad = (0, 0, 0, 0, 0, cap - kc.shape[1])
+                kc = torch.nn.functional.pad(kc, pad)
+                vc = torch.nn.functional.pad(vc, pad)
             if not quant:
                 kc, vc = kc.to(cfg.compute_dtype), vc.to(cfg.compute_dtype)
             new_cache = _kv_leaves(kc, vc, quant)
@@ -530,7 +592,9 @@ def prefill(params, batch, cfg: ModelConfig, last_index=None, prefix=None):
     prompt token, for right-padded (bucketed) prompts: logits are read
     there instead of at ``S - 1``.  Causal masking makes every position
     <= ``last_index`` independent of the padding, so bucketed prefill is
-    exact for full-attention stacks.
+    exact for full-attention stacks; a sliding-window cache keeps pad KV
+    inside its ring once the padded length exceeds the window, so the
+    scheduler buckets windowed prompts only while ``padded <= window``.
 
     ``prefix`` — optional mapped-prefix KV tree (``{layer: {"k": (ns, 1,
     m, ...), ...}}`` per super-block, as returned by
@@ -655,7 +719,8 @@ def decode_run_slots(params, tokens, pos, active, caches, cfg: ModelConfig,
     longest prefix where ``verify_tok[:, i] == tokens[:, i + 1]`` and
     rewinds past the rejected tail: the rejected rows hold garbage KV, but
     every mask here is position-gated (``row <= query pos``), so the next
-    run overwrites a garbage row before any query can see it.
+    run overwrites a garbage row before any query can see it.  Sliding
+    windows raise: rollback would need ring rows the run overwrote.
 
     Row ``i`` gives the bits of the single-position step at the same
     position with the same fed prefix: every linear lowering quantizes
@@ -697,13 +762,15 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Dict:
     _check_supported(cfg)
     ns, hkv, hd = cfg.n_super, cfg.n_kv_heads, cfg.hd
     kv_dt = torch.int8 if cfg.kv_cache_dtype == "int8" else cfg.compute_dtype
+    # a sliding window's ring holds at most the window
+    cap = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
     out: Dict[str, Any] = {}
     for i in range(len(cfg.pattern)):
-        c = {"k": ((ns, batch, seq_len, hkv, hd), kv_dt),
-             "v": ((ns, batch, seq_len, hkv, hd), kv_dt)}
+        c = {"k": ((ns, batch, cap, hkv, hd), kv_dt),
+             "v": ((ns, batch, cap, hkv, hd), kv_dt)}
         if cfg.kv_cache_dtype == "int8":
-            c["k_scale"] = ((ns, batch, seq_len, hkv), torch.float32)
-            c["v_scale"] = ((ns, batch, seq_len, hkv), torch.float32)
+            c["k_scale"] = ((ns, batch, cap, hkv), torch.float32)
+            c["v_scale"] = ((ns, batch, cap, hkv), torch.float32)
         out[str(i)] = c
     return out
 
@@ -735,5 +802,6 @@ def param_count(cfg: ModelConfig) -> int:
 
 __all__ = ["PAGED_KV_KEYS", "param_specs", "init_params", "from_reference",
            "apply_block", "loss_fn", "prefill", "prefill_packed", "decode_step",
-           "decode_step_slots", "decode_run_slots", "cache_specs", "paged_cache_specs",
-           "zeros_like_specs", "param_count"]
+           "decode_step_slots", "decode_run_slots", "ring_slot_positions",
+           "cache_specs", "paged_cache_specs", "zeros_like_specs",
+           "param_count"]

@@ -42,7 +42,12 @@ The driving side of the partitioned crossbar, as one API:
   CUDA crossbar kernel for a CUDA tensor and on its plain version for a
   CPU tensor (``kernels.crossbar_exec``), unless the session names a
   registered state backend.  Resident state is bounded in bytes per
-  session namespace (:data:`MAX_RESIDENT_BYTES`, LRU).
+  session namespace (:data:`MAX_RESIDENT_BYTES`, LRU).  The weights'
+  derived copies (the quantized offset operand, the zero-padded chunks)
+  are cached per weight, bounded in bytes too (:data:`MAX_DERIVED_BYTES`,
+  :data:`MAX_CHUNKED_BYTES`).  No cache holds a caller's weight: each
+  entry keyed on a tensor goes when that tensor's storage is freed, and
+  with it everything derived from it (see :func:`_bind`).
 * :func:`draft_ctx` / :func:`current_session_ns` — the ``"draft"``
   session namespace of a speculative drafting pass
   (``serving.speculative``): its sessions share the compiled artifacts
@@ -89,6 +94,7 @@ import collections
 import contextlib
 import dataclasses
 import threading
+import weakref
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -314,6 +320,12 @@ class CacheInfo:
     # resident crossbar states across all sessions, and their bytes
     resident_entries: int = 0
     resident_bytes: int = 0
+    # the weights' cached derived copies: quantized offset operands
+    # (``derived``) and zero-padded chunked copies (``chunked``)
+    derived_entries: int = 0
+    derived_bytes: int = 0
+    chunked_entries: int = 0
+    chunked_bytes: int = 0
     # autotuner counters (pim.autotune): table lookups served from a cached
     # pick vs searches run, and how many timed candidate trials those
     # searches spent.
@@ -398,7 +410,11 @@ def cache_info() -> CacheInfo:
                                    resident_entries=sum(
                                        len(lru) for lru in _resident.values()),
                                    resident_bytes=sum(
-                                       _resident_bytes.values()))
+                                       _resident_bytes.values()),
+                                   derived_entries=len(_derived),
+                                   derived_bytes=_cached_bytes["derived"],
+                                   chunked_entries=len(_chunked),
+                                   chunked_bytes=_cached_bytes["chunked"])
     t = autotune.table_info()
     return dataclasses.replace(info, tune_hits=t.hits, tune_misses=t.misses,
                                tune_trials=t.trials)
@@ -413,15 +429,16 @@ def clear_cache() -> None:
         _cache.clear()
         _hits = _misses = _builds = 0
     with _session_lock:
-        for lru in _resident.values():
-            for sess, key in lru:
-                sess._states.pop(key, None)
+        for lru in list(_resident.values()):
+            for sess, key in list(lru):
+                _drop(sess, key)
         _resident.clear()
         _resident_bytes.clear()
         _sessions.clear()
         _exec_hits = _exec_uploads = _exec_transient = 0
-    _derived.clear()
-    _chunked.clear()
+        for name, cache in _weight_caches.items():
+            while cache:
+                _forget(name, next(iter(cache)))
     # picks must not leak across runs: the tuner table (and its counters)
     # clears with the compile cache it indexes into
     autotune.clear()
@@ -618,8 +635,9 @@ def build_multiplier(name: str, n_bits: int, *, n_cols: int = 1024, **kw):
 
 def _tensor_key(t: torch.Tensor) -> Tuple:
     """Identity of a tensor's contents: storage, view geometry, dtype,
-    device and in-place version.  Whoever keys on it must also hold ``t``,
-    so that the storage cannot be freed and reused while the key lives."""
+    device and in-place version.  An entry keyed on it must not outlive
+    ``t``'s storage, or a later tensor at the freed address would find it:
+    :func:`_bind` drops the entry when the storage is freed."""
     return (t.untyped_storage().data_ptr(), t.storage_offset(),
             tuple(t.shape), tuple(t.stride()), t.dtype, t.device, t._version)
 
@@ -635,7 +653,9 @@ def _grid(v: torch.Tensor, n_cb: int, rows: int) -> torch.Tensor:
 
 
 _sessions: Dict[Tuple, "ExecutionSession"] = {}
-_session_lock = threading.Lock()
+# re-entrant: freeing a tensor inside a critical section can run the
+# finalizer of an entry bound to it (_bind), which takes the lock again
+_session_lock = threading.RLock()
 _exec_hits = 0
 _exec_uploads = 0
 _exec_transient = 0
@@ -672,19 +692,62 @@ def transient() -> Iterator[None]:
         _transient.depth -= 1
 
 
+class _Entry:
+    """One cache entry keyed on a tensor's identity: ``value`` (never the
+    keyed tensor itself), its bytes, and the finalizer that drops it when
+    that tensor's storage is freed (:func:`_bind`)."""
+
+    __slots__ = ("value", "nbytes", "fin", "__weakref__")
+
+    def __init__(self, value, nbytes: int):
+        self.value = value
+        self.nbytes = nbytes
+        self.fin = None
+
+
+def _bind(t: torch.Tensor, entry: _Entry, expire: Callable, owner,
+          key: Tuple) -> None:
+    """End ``entry`` with ``t``'s storage: once the storage is freed,
+    ``expire(owner, key, ref)`` drops the entry, if the entry under
+    ``key`` is still this one (``ref`` is a weak reference to it, so a
+    newer entry at a reused address is never dropped).  Nothing holds
+    ``t``; whoever removes the entry first detaches the finalizer.  A
+    dropped entry releases its value, and so ends every entry bound to a
+    tensor in it: a chunked copy made from a quantized weight, the
+    resident states keyed on either."""
+    entry.fin = weakref.finalize(t.untyped_storage(), expire, owner, key,
+                                 weakref.ref(entry))
+
+
+def _expire_state(sess_ref, key: Tuple, ref) -> None:
+    with _session_lock:
+        sess, entry = sess_ref(), ref()
+        if sess is not None and entry is not None \
+                and sess._states.get(key) is entry:
+            _drop(sess, key)
+
+
 def _keep(sess: "ExecutionSession", key: Tuple, w: torch.Tensor,
           state: torch.Tensor) -> None:
-    """Make ``state`` resident under ``key`` and evict least recently used
-    states past the session's entry bound and its namespace's byte bound.
-    Only states of the session's own namespace are evicted, so a drafting
-    pass (namespace ``"draft"``) never drops a verify state."""
+    """Make ``state`` resident under ``key`` (bound to ``w``'s storage)
+    and evict least recently used states past the session's entry bound
+    and its namespace's byte bound.  Only states of the session's own
+    namespace are evicted, so a drafting pass (namespace ``"draft"``)
+    never drops a verify state."""
     ns = sess.namespace
     with _session_lock:
-        nbytes = state.numel() * 4
         lru = _resident.setdefault(ns, collections.OrderedDict())
-        sess._states[key] = (w, state)
-        lru[(sess, key)] = nbytes
-        _resident_bytes[ns] = _resident_bytes.get(ns, 0) + nbytes
+        entry = sess._states.get(key)
+        if entry is not None:            # a hit: now the most recent
+            entry.value = state
+            sess._states.move_to_end(key)
+            lru.move_to_end((sess, key))
+            return
+        entry = _Entry(state, state.numel() * 4)
+        _bind(w, entry, _expire_state, weakref.ref(sess), key)
+        sess._states[key] = entry
+        lru[(sess, key)] = entry.nbytes
+        _resident_bytes[ns] = _resident_bytes.get(ns, 0) + entry.nbytes
         while len(sess._states) > sess.max_resident:
             _drop(sess, next(iter(sess._states)))
         while _resident_bytes[ns] > MAX_RESIDENT_BYTES and lru:
@@ -692,10 +755,12 @@ def _keep(sess: "ExecutionSession", key: Tuple, w: torch.Tensor,
 
 
 def _drop(sess: "ExecutionSession", key: Tuple) -> None:
-    ns = sess.namespace
-    sess._states.pop(key, None)
-    nbytes = _resident.get(ns, {}).pop((sess, key), 0)
-    _resident_bytes[ns] = _resident_bytes.get(ns, 0) - nbytes
+    entry = sess._states.pop(key, None)
+    if entry is None:
+        return
+    entry.fin.detach()
+    _resident[sess.namespace].pop((sess, key), None)
+    _resident_bytes[sess.namespace] -= entry.nbytes
 
 
 class ExecutionSession:
@@ -715,11 +780,12 @@ class ExecutionSession:
     offset, shape, strides, dtype, device and ``_version`` — not by its
     bytes: hashing or comparing the bytes of a device tensor would cost a
     pass over the weight (and a host copy) on every call.  An in-place
-    change of the weight bumps ``_version`` and so costs a cold upload;
-    the session holds a reference to every keyed weight, so a freed
-    weight's address cannot be reused by another tensor while its state
-    is resident.  An equal weight in another tensor is a different weight
-    here (a cold upload), unlike the reference, which compares bytes.
+    change of the weight bumps ``_version`` and so costs a cold upload.
+    The session does not hold the weight: its state is dropped when the
+    weight's storage is freed (:func:`_bind`), so a dropped model keeps no
+    state, and a later tensor at the freed address never finds it.  An
+    equal weight in another tensor is a different weight here (a cold
+    upload), unlike the reference, which compares bytes.
 
     Inside :func:`transient` a call neither reads nor keeps resident
     state: it writes both operands into a blank state and drops it.
@@ -747,7 +813,7 @@ class ExecutionSession:
         self.namespace = namespace
         self.rows_per_crossbar = rows_per_crossbar
         self.max_resident = max_resident
-        # key -> (weight tensor, resident state)
+        # key -> _Entry(resident state), bound to the keyed weight
         self._states: "collections.OrderedDict" = collections.OrderedDict()
         self.uploads = 0
         self.hits = 0
@@ -802,15 +868,13 @@ class ExecutionSession:
         if keep:
             with _session_lock:
                 entry = self._states.get(key)
-                if entry is not None:
-                    _drop(self, key)     # kept again below, as the MRU
         if entry is None:
             state = ex.blank_state(p * n_cb, art.n_cols, rows,
                                    device=x.device)
             ws = _grid(w.repeat(1, m, 1), n_cb, rows)
             ex.write_numbers(state, w_cols, ws)
         else:
-            state = entry[1]
+            state = entry.value
         xs = _grid(x.repeat_interleave(o, dim=1), n_cb, rows)
         ex.write_numbers(state, x_cols, xs)
         if self.backend is None:
@@ -942,65 +1006,108 @@ def matmul_int(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8, *,
     return acc.sum(dim=0) if k > chunk else acc
 
 
-# zero-padded, chunked weights per weight tensor (identity key, see
-# _tensor_key) -> (weight, (P, O, chunk) view).  The cached view's stable
-# identity is what keeps the crossbar state resident across calls.
-# Bounded LRU.
-_chunked: "collections.OrderedDict" = collections.OrderedDict()
-_CHUNKED_MAX = 4096
+# The weights' derived copies, each cache an LRU of _Entry bound to the
+# storage of the tensor it is keyed on (_bind) and bounded in bytes:
+# "chunked" maps (weight identity without its version, P, chunk) to
+# (version, zero-padded (P, O, chunk) view), "derived" maps (weight
+# identity without its version, bits) to (version, (offset wq^T, scales,
+# column sums)).  The stable identity of a cached view or offset tensor is
+# what keeps the crossbar state made from it resident across calls.  A
+# weight changed in place (a train step bumps its version) replaces its
+# entry: one version per weight is kept, and what was made from the old
+# one goes with it.
+_weight_caches: Dict[str, "collections.OrderedDict"] = {
+    "derived": collections.OrderedDict(), "chunked": collections.OrderedDict()}
+_derived = _weight_caches["derived"]
+_chunked = _weight_caches["chunked"]
+_cached_bytes = {"derived": 0, "chunked": 0}
+#: Bounds on the bytes of each weight cache, least recently used evicted
+#: first, as the resident pool's.  A full-width model's linears take their
+#: weights' element count in each: 0.31 GB for qwen1.5-0.5b, 1.1 GB for 4
+#: layers of gemma-7b.
+MAX_DERIVED_BYTES = 8 << 30
+MAX_CHUNKED_BYTES = 8 << 30
+
+
+def _forget(name: str, key: Tuple) -> None:
+    entry = _weight_caches[name].pop(key)
+    entry.fin.detach()
+    _cached_bytes[name] -= entry.nbytes
+
+
+def _expire_cached(name: str, key: Tuple, ref) -> None:
+    with _session_lock:
+        entry = ref()
+        if entry is not None and _weight_caches[name].get(key) is entry:
+            _forget(name, key)
+
+
+def _cached(name: str, w: torch.Tensor, key: Tuple):
+    """The value cached for ``w`` under ``key``, made the most recent, or
+    None; an entry of another version of ``w`` is dropped."""
+    cache = _weight_caches[name]
+    with _session_lock:
+        entry = cache.get(key)
+        if entry is None:
+            return None
+        if entry.value[0] == w._version:
+            cache.move_to_end(key)
+            return entry.value[1]
+        _forget(name, key)
+    return None
+
+
+def _remember(name: str, w: torch.Tensor, key: Tuple, value, nbytes: int):
+    """Cache ``value`` for ``w``'s current version under ``key``, bound to
+    ``w``'s storage, and evict past the cache's byte bound; returns
+    ``value``."""
+    cache = _weight_caches[name]
+    bound = MAX_DERIVED_BYTES if name == "derived" else MAX_CHUNKED_BYTES
+    entry = _Entry((w._version, value), nbytes)
+    with _session_lock:
+        if key in cache:
+            _forget(name, key)
+        _bind(w, entry, _expire_cached, name, key)
+        cache[key] = entry
+        _cached_bytes[name] += nbytes
+        while _cached_bytes[name] > bound and cache:
+            _forget(name, next(iter(cache)))
+    return value
 
 
 def _chunked_weight(w: torch.Tensor, p: int, chunk: int) -> torch.Tensor:
     """``w`` (O, K) zero-padded to (O, p * chunk), as a (p, O, chunk) view;
-    made once per weight tensor."""
-    key = (_tensor_key(w), p, chunk)
-    hit = _chunked.pop(key, None)
-    if hit is None:
-        wp = torch.nn.functional.pad(w, (0, p * chunk - w.shape[1]))
-        hit = (w, wp.unflatten(1, (p, chunk)).transpose(0, 1))
-    _chunked[key] = hit
-    while len(_chunked) > _CHUNKED_MAX:
-        _chunked.popitem(last=False)
-    return hit[1]
+    made once per weight tensor and version."""
+    key = (_tensor_key(w)[:-1], p, chunk)
+    hit = _cached("chunked", w, key)
+    if hit is not None:
+        return hit
+    wp = torch.nn.functional.pad(w, (0, p * chunk - w.shape[1]))
+    return _remember("chunked", w, key, wp.unflatten(1, (p, chunk)
+                                                     ).transpose(0, 1),
+                     wp.numel() * wp.element_size())
 
 
 # ==========================================================================
 # the simulator linear
 # ==========================================================================
 
-# quantized weights per weight tensor (identity key without the in-place
-# version, see _tensor_key) -> (version, weight, (offset wq^T, scales,
-# column sums)); the stable identity of the cached offset tensor is what
-# keeps the crossbar state resident across calls.  A weight changed in
-# place (a train step bumps its version) replaces its entry, and the
-# chunked copies made from the old one are dropped: one version per weight
-# is kept.  Bounded LRU.
-_derived: "collections.OrderedDict" = collections.OrderedDict()
-_DERIVED_MAX = 4096
-
-
 def _quantized_weight(w: torch.Tensor, bits: int):
     key = (_tensor_key(w)[:-1], bits)
-    hit = _derived.pop(key, None)
-    if hit is not None and hit[0] != w._version:
-        stale = hit[2][0]
-        for k in [k for k, v in _chunked.items() if v[0] is stale]:
-            del _chunked[k]
-        hit = None
-    if hit is None:
-        qmax = 2 ** (bits - 1) - 1
-        wf = w.detach().to(torch.float32)
-        wsc = torch.clamp(torch.amax(torch.abs(wf), dim=0, keepdim=True),
-                          min=1e-8) / qmax
-        wq = torch.clamp(torch.round(wf / wsc), -qmax, qmax).to(torch.int64)
-        # crossbars store magnitudes: the offset operand (wq + qmax + 1)^T
-        # lies in [1, 2**bits - 1] and is kept as uint8
-        w_off = (wq.T + (qmax + 1)).to(torch.uint8).contiguous()
-        hit = (w._version, w, (w_off, wsc, wq.sum(dim=0, keepdim=True)))
-    _derived[key] = hit
-    while len(_derived) > _DERIVED_MAX:
-        _derived.popitem(last=False)
-    return hit[2]
+    hit = _cached("derived", w, key)
+    if hit is not None:
+        return hit
+    qmax = 2 ** (bits - 1) - 1
+    wf = w.detach().to(torch.float32)
+    wsc = torch.clamp(torch.amax(torch.abs(wf), dim=0, keepdim=True),
+                      min=1e-8) / qmax
+    wq = torch.clamp(torch.round(wf / wsc), -qmax, qmax).to(torch.int64)
+    # crossbars store magnitudes: the offset operand (wq + qmax + 1)^T
+    # lies in [1, 2**bits - 1] and is kept as uint8
+    w_off = (wq.T + (qmax + 1)).to(torch.uint8).contiguous()
+    out = (w_off, wsc, wq.sum(dim=0, keepdim=True))
+    return _remember("derived", w, key, out,
+                     sum(t.numel() * t.element_size() for t in out))
 
 
 def _sim_forward(x: torch.Tensor, w: torch.Tensor, bits: int, model: str,

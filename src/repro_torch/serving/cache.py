@@ -21,6 +21,11 @@ host-side free-list allocator reserves exactly
 and evict returns the blocks.  The decode step reads through a gather on
 the block table, whose shape is fixed.
 
+Paging is also what serves **sliding windows**: a windowed slot is a
+*ring* over its block list with capacity ``ceil(window / block) * block``
+— prefill installs the last ``min(prompt, window)`` positions, decode
+wraps, and the reservation stops depending on prompt + generation length.
+
 **Prefix caching** (``prefix_cache=True``) lets *requests* share the
 paged substrate the way the paper's partitions share the crossbar: a
 :class:`PrefixIndex` — a trie over block-sized token runs — maps fully
@@ -37,14 +42,16 @@ drops.  A block's lifetime is therefore::
          -> COW     (first write into a shared block copies it into a
                      fresh private block first; see ensure_writable)
 
-The COW path fires when a fork's divergent continuation enters the
-partially filled boundary block (``fork`` is the parallel-sampling n>1
-primitive — siblings share every content block).  Trie hits never COW:
-the divergent tail always starts on a fresh block (matches are
-block-aligned and capped at ``plen - 1``).  Admission budgets outstanding
-COW copies against the free list (``_cow_debt``) so a copy never finds it
-empty; under pressure, ``can_admit`` reclaims LRU index-only blocks (ref
-held solely by the trie) before deferring.
+The COW path fires on the two writes that can land in a shared block: a
+fork's divergent continuation entering the partially filled boundary
+block (``fork`` is the parallel-sampling n>1 primitive — siblings share
+every content block), and a sliding-window ring wrapping onto mapped
+prefix blocks.  Unwindowed trie hits never COW: the divergent tail always
+starts on a fresh block (matches are block-aligned and capped at
+``plen - 1``).  Admission budgets outstanding COW copies against the free
+list (``_cow_debt``) so a copy never finds it empty; under pressure,
+``can_admit`` reclaims LRU index-only blocks (ref held solely by the
+trie) before deferring.
 
 Chunked and packed prefill install through the same scatter: ``extend``
 writes a later chunk's tail cache at its block offset, and ``admit(start=)``
@@ -56,8 +63,7 @@ counts once per referencing slot), ``tokens_in_use`` the *physical*
 occupancy (allocated blocks x block_size, each block once);
 ``blocks_shared``, ``prefix_blocks`` and ``cow_copies`` report sharing.
 
-Both pools update their cache tensors in place.  Not ported yet (ROADMAP
-queue 1): sliding-window rings.
+Both pools update their cache tensors in place.
 """
 from __future__ import annotations
 
@@ -274,9 +280,10 @@ class PagedCachePool:
     absorbing the garbage writes of inactive decode slots.
 
     ``admit`` expects a (batch-1) prefill cache and the request's true
-    prompt length: the paged leaves are gathered from the dense prefill
-    layout into position-ordered logical blocks, invalid positions zeroed,
-    and scattered to the slot's physical blocks.  With ``prefix_blocks``
+    prompt length: the paged leaves are gathered from the prefill layout
+    (dense, or the windowed ring) into position-ordered logical blocks,
+    invalid positions zeroed, and scattered to the slot's physical blocks.
+    With ``prefix_blocks``
     (a trie hit from :meth:`prefix_match`) the matched blocks are mapped by
     reference and only the tail cache — emitted by the resumed prefill,
     positions ``m..plen-1`` — is scattered, at block offset ``m``.
@@ -284,7 +291,9 @@ class PagedCachePool:
     ``prefix_cache=True`` attaches the :class:`PrefixIndex` and enables
     per-block refcounting/COW (see the module docstring for the block
     lifetime).  The caller gates it to stacks whose KV is
-    position-separable (no recurrent blocks, no MoE).
+    position-separable (no recurrent blocks, no MoE); windowed prompts
+    take part only while ``plen <= window``, where the ring layout is the
+    dense one.
     """
 
     paged = True
@@ -295,20 +304,19 @@ class PagedCachePool:
                  prefix_cache: bool = False):
         if block_size < 1:
             raise ValueError("block_size must be >= 1")
-        if cfg.sliding_window:
-            raise NotImplementedError(
-                f"{cfg.name}: sliding-window rings are not ported yet "
-                "(ROADMAP.md queue 1)")
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len or cfg.max_seq_len
         self.block_size = block_size
-        self.blocks_per_slot = -(-self.max_len // block_size)
+        ring = cfg.window_ring_blocks(block_size)
+        self.blocks_per_slot = (ring if ring is not None
+                                else -(-self.max_len // block_size))
         self.lcap = self.blocks_per_slot * block_size   # logical tokens/slot
-        # bounded by the configured horizon, NOT the block-rounded lcap —
-        # the layout must never admit a request the contiguous pool would
-        # reject
-        self.max_tokens = self.max_len
+        # windowed slots can generate forever (the ring wraps); unwindowed
+        # ones are bounded by the configured horizon, NOT the block-rounded
+        # lcap — the layout must never admit a request the contiguous pool
+        # would reject
+        self.max_tokens = None if cfg.sliding_window else self.max_len
         self.num_blocks = (num_blocks if num_blocks is not None
                            else max_batch * self.blocks_per_slot + 1)
         if self.num_blocks < 2:
@@ -331,8 +339,8 @@ class PagedCachePool:
         self._table_dev = None
         self._ref = np.zeros(self.num_blocks, np.int64)
         # blocks each slot may yet overwrite while shared (the boundary
-        # block of a fork): the free list keeps this many blocks in reserve
-        # so COW never underflows
+        # block of a fork, mapped prefix under a wrapping ring): the free
+        # list keeps this many blocks in reserve so COW never underflows
         self._cow_debt = np.zeros(max_batch, np.int64)
         self.cow_copies = 0
         self.peak_blocks_in_use = 0
@@ -362,6 +370,12 @@ class PagedCachePool:
         return min(self.cfg.kv_blocks_for(n_tokens, self.block_size),
                    self.blocks_per_slot)
 
+    def _will_wrap(self, n_tokens: int) -> bool:
+        """Whether a windowed request writing ``n_tokens`` wraps its ring
+        (and may therefore overwrite mapped or registered prefix
+        blocks)."""
+        return bool(self.cfg.sliding_window) and n_tokens > self.lcap
+
     def _reclaim(self, want: int) -> None:
         """Free up to ``want`` index-only blocks (held solely by the
         prefix trie, LRU first) back to the free list."""
@@ -378,16 +392,22 @@ class PagedCachePool:
                   extra_reserved: int = 0) -> bool:
         """Whether the free list covers a request writing ``n_tokens``
         positions, of which the leading ``prefix_tokens`` arrive mapped
-        from the prefix index (no allocation).  Budgets every outstanding
-        COW debt, reclaiming LRU index-only blocks under pressure before
-        giving up.
+        from the prefix index (no allocation).  Budgets the request's own
+        worst-case COW copies plus every outstanding debt, reclaiming LRU
+        index-only blocks under pressure before giving up.
 
         ``extra_reserved``: blocks already spoken for by earlier members
         of the same batch (packed prefill collects several admits before
         allocating any — each check must budget its predecessors)."""
         need = self.blocks_needed(n_tokens)
         mapped = min(prefix_tokens // self.block_size, need)
-        want = need - mapped + int(self._cow_debt.sum()) + extra_reserved
+        fresh = need - mapped
+        debt = 0
+        if self._will_wrap(n_tokens):
+            # the wrapping ring may copy every mapped block and (with the
+            # index attached) every own block it registers
+            debt = mapped + (fresh if self.prefix is not None else 0)
+        want = fresh + debt + int(self._cow_debt.sum()) + extra_reserved
         if want > len(self._free):
             self._reclaim(want - len(self._free))
         return want <= len(self._free)
@@ -425,13 +445,29 @@ class PagedCachePool:
         start = 0; a resumed tail or a later chunk: m > 0; one segment of a
         packed stream: start > 0).  Every other logical row is written as
         zeros; ``table_row`` routes the rows before ``m`` (sentinel
-        entries) into the trash block, so earlier blocks stay untouched."""
+        entries) into the trash block, so earlier blocks stay untouched.
+
+        A windowed whole prefill (m = 0) holds position ``p`` at ring index
+        ``start + p % cap``; logical row ``r`` takes the newest position
+        congruent to it in the slot's ring, if inside the window — the
+        congruence the paged decode read applies
+        (``models.model.ring_slot_positions``).  A windowed tail (m > 0)
+        only comes with ``plen <= window``, where the ring is the dense
+        layout."""
         row = self._index(table_row)
         r = torch.arange(self.lcap, device=self.device)
-        valid = (r >= m) & (r < plen)
+        ring = bool(self.cfg.sliding_window) and m == 0
+        if ring:
+            p_r, valid = M.ring_slot_positions(plen - 1, r, self.lcap,
+                                               self.cfg.sliding_window)
+        else:
+            valid = (r >= m) & (r < plen)
         for li, key, leaf in self._leaves():
             rleaf = request_cache[li][key]           # (ns, 1, cap, ...)
-            src = torch.clamp(start + r - m, 0, rleaf.shape[2] - 1)
+            if ring:
+                src = (start + p_r) % rleaf.shape[2]
+            else:
+                src = torch.clamp(start + r - m, 0, rleaf.shape[2] - 1)
             logical = rleaf[:, 0][:, src]            # (ns, lcap, ...)
             vshape = (1, self.lcap) + (1,) * (logical.dim() - 2)
             logical = torch.where(valid.reshape(vshape), logical,
@@ -448,10 +484,15 @@ class PagedCachePool:
         """``(m, blocks)``: the longest block-aligned trie prefix of
         ``prompt``, capped at ``plen - 1`` so the divergent tail always
         holds at least one token (the resumed prefill must produce the
-        request's first-token logits)."""
+        request's first-token logits).  Windowed prompts match only while
+        ``plen <= window`` — past it the ring layout diverges from the
+        dense one the index describes."""
         if self.prefix is None:
             return 0, []
         plen = len(prompt)
+        w = self.cfg.sliding_window
+        if w and plen > w:
+            return 0, []
         blocks = self.prefix.match(prompt)
         while blocks and len(blocks) * self.block_size > plen - 1:
             blocks.pop()
@@ -469,14 +510,22 @@ class PagedCachePool:
                 (g.shape[0], 1, nb * self.block_size) + g.shape[3:])
         return out
 
-    def _register(self, slot: int, prompt, plen: int) -> None:
+    def _register(self, slot: int, prompt, plen: int, wrap: bool) -> None:
         """Adopt the slot's fully covered prompt blocks into the index
         (the index holds one reference per adopted block)."""
+        w = self.cfg.sliding_window
+        if w and plen > w:
+            return          # ring layout != dense past the window
         nfull = min(plen // self.block_size, len(self._slot_blocks[slot]))
         if nfull <= 0:
             return
-        for b in self.prefix.insert(prompt, self._slot_blocks[slot][:nfull]):
+        new = self.prefix.insert(prompt, self._slot_blocks[slot][:nfull])
+        for b in new:
             self._ref[b] += 1
+        if wrap:
+            # its own registered blocks are now shared with the index and
+            # in the overwrite path of the wrapping ring
+            self._cow_debt[slot] += len(new)
 
     def clear_prefix(self) -> int:
         """Drop every prefix-index reference (a block returns to the free
@@ -549,8 +598,11 @@ class PagedCachePool:
         row[:len(mapped)] = 0        # prefix blocks are never re-written
         self._install(request_cache, row, plen,
                       m=len(mapped) * self.block_size, start=start)
+        wrap = self._will_wrap(n_tokens)
+        if wrap:
+            self._cow_debt[slot] += len(mapped)
         if self.prefix is not None and prompt is not None:
-            self._register(slot, prompt, plen)
+            self._register(slot, prompt, plen, wrap)
 
     def extend(self, slot: int, request_cache, m: int, new_len: int) -> None:
         """Install a prefill continuation chunk: ``request_cache`` holds
@@ -573,13 +625,14 @@ class PagedCachePool:
         of these as the prefix operand of the next chunk's resume."""
         return list(self._slot_blocks[slot])
 
-    def register_prefix(self, slot: int, prompt, plen: int) -> None:
+    def register_prefix(self, slot: int, prompt, plen: int,
+                        n_tokens: int) -> None:
         """Adopt a completed chunked prefill's prompt blocks into the
         prefix index — the deferred ``prompt=`` leg of :meth:`admit`
         (registering a half-written prompt would serve bogus hits)."""
         if self.prefix is None or prompt is None:
             return
-        self._register(slot, prompt, plen)
+        self._register(slot, prompt, plen, self._will_wrap(n_tokens))
 
     def fork(self, src: int, dst: int, pos: int, n_tokens: int) -> None:
         """Map ``src``'s content blocks (positions ``< pos``) into ``dst``
@@ -594,8 +647,11 @@ class PagedCachePool:
         content = min(-(-int(pos) // self.block_size), need)
         self._take(dst, [int(b) for b in self._slot_blocks[src][:content]],
                    need)
-        if content and int(pos) % self.block_size:
-            self._cow_debt[dst] += 1   # the shared boundary block
+        if content:
+            if self._will_wrap(n_tokens):
+                self._cow_debt[dst] += content   # the ring may reach each
+            elif int(pos) % self.block_size:
+                self._cow_debt[dst] += 1   # the shared boundary block
 
     def ensure_writable(self, slot: int, pos: int) -> int:
         """Guarantee the block receiving ``slot``'s write at ``pos`` is
@@ -606,7 +662,8 @@ class PagedCachePool:
         step; ``has_shared`` short-circuits the common all-private case.
         """
         blocks = self._slot_blocks[slot]
-        bi = int(pos) // self.block_size
+        p = int(pos) % self.lcap if self.cfg.sliding_window else int(pos)
+        bi = p // self.block_size
         if bi >= len(blocks):
             return 0
         b = blocks[bi]

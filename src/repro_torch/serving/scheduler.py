@@ -22,7 +22,9 @@ distinct decode input shapes; tests pin it to 1).  Each scheduler step:
 With ``ServingConfig(paged=True)`` the KV pool is block-paged (see
 :mod:`repro_torch.serving.cache`): admits reserve blocks from a free list
 and *defer* when it runs short, evictions return blocks, and the decode
-step reads through a fixed-shape block table.
+step reads through a fixed-shape block table.  Sliding-window configs
+serve as rings over their block lists and page unconditionally (prompts
+bucket only while the padded length stays inside the window).
 
 ``ServingConfig(prefix_cache=True)`` attaches the pool's prefix index:
 admission walks a trie over the prompt tokens, maps every fully matched
@@ -49,7 +51,10 @@ a block-diagonal segment mask.  Heads are popped in queue-policy order and
 packing stops at the first ineligible head — no skip-ahead.
 
 All three need the paged pool (and turn it on) and KV that depends only on
-the tokens before it: no recurrent blocks, no MoE.
+the tokens before it: no recurrent blocks, no MoE.  A windowed prompt
+chunks or packs only while it fits inside the window, where its ring
+layout is the dense one; a longer one takes the cold whole prefill, which
+lays the ring out directly.
 
 Under ``pim_mode="pim_sim"`` the decode step's crossbar GEMMs run through
 the engine's persistent :class:`ExecutionSession` pool: crossbar state is
@@ -273,10 +278,13 @@ class Scheduler:
             self.autotuned_shapes = autotune.plan_for_params(
                 params, scfg.max_batch, trials=scfg.autotune_trials,
                 device=self.device)
-        # chunked/packed prefill scatter per-chunk/per-segment caches at
-        # block offsets, which only the paged layout supports
-        if (scfg.paged or scfg.prefix_cache or scfg.packed_prefill
-                or scfg.prefill_chunk is not None):
+        # sliding-window slots are rings over their block list — only the
+        # paged pool lays them out, so windowed configs page
+        # unconditionally; chunked/packed prefill scatter per-chunk /
+        # per-segment caches at block offsets, which only the paged layout
+        # supports
+        if (scfg.paged or scfg.prefix_cache or cfg.sliding_window
+                or scfg.packed_prefill or scfg.prefill_chunk is not None):
             self.pool = PagedCachePool(
                 cfg, scfg.max_batch, cfg.max_seq_len,
                 block_size=scfg.block_size, num_blocks=scfg.num_blocks,
@@ -366,13 +374,15 @@ class Scheduler:
     def validate_request(self, req: Request) -> None:
         """Raise if ``req`` can never be served by this scheduler's pool."""
         plen = req.prompt.shape[0]
-        cap = self.pool.max_tokens
-        if plen + req.max_new_tokens > cap:
+        cap = self.pool.max_tokens      # None: windowed ring, unbounded
+        if cap is not None and plen + req.max_new_tokens > cap:
             raise ValueError(
                 f"request {req.rid}: prompt {plen} + budget "
                 f"{req.max_new_tokens} exceeds cache capacity {cap}")
         if self.pool.paged:
-            # a need beyond the whole pool would defer forever
+            # a need beyond the whole pool would defer forever;
+            # ``blocks_needed`` clamps a windowed request to its ring, so a
+            # long windowed request budgets only the ring
             need = self.pool.blocks_needed(plen + req.max_new_tokens)
             if need > self.pool.num_blocks - 1:
                 raise ValueError(
@@ -390,13 +400,19 @@ class Scheduler:
     def _bucket(self, plen: int) -> int:
         bq = max(1, self.scfg.prompt_bucket)
         b = ((plen + bq - 1) // bq) * bq
+        w = self.cfg.sliding_window
+        if w:
+            # bucket padding past the window would evict real KV from the
+            # prefill ring; prompts that can't bucket inside it run unpadded
+            return b if b <= w else plen
         return min(b, self.pool.max_len)
 
     def _bucket_tail(self, tlen: int, m: int) -> int:
         """Bucket for the divergent tail of a trie-hit prompt (or a later
         chunk): the tail prefill emits an unpadded cache and the pool masks
-        pad positions out at scatter time, so only the slot's logical
-        capacity beyond the prefix bounds it."""
+        pad positions out at scatter time, so — unlike cold windowed
+        prefill — padding past the window is harmless here; only the slot's
+        logical capacity beyond the prefix bounds it."""
         bq = max(1, self.scfg.prompt_bucket)
         b = ((tlen + bq - 1) // bq) * bq
         cap = getattr(self.pool, "lcap", self.pool.max_len) - m
@@ -409,6 +425,14 @@ class Scheduler:
         self._slot_rid[slot] = -1
         self.pool.evict(slot)
 
+    def _dense_prefill_ok(self, plen: int) -> bool:
+        """Whether chunked prefill may serve a ``plen`` prompt: a windowed
+        slot's ring layout equals the dense layout only while the prompt
+        fits inside the window — past it, the cold whole-prefill path
+        (which lays the ring out directly) is the only exact one."""
+        w = self.cfg.sliding_window
+        return not w or plen <= w
+
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64)).to(self.device)
 
@@ -420,15 +444,19 @@ class Scheduler:
     def _packable(self, req: Request, m: int) -> bool:
         """Whether ``req`` may join a packed prefill: trie misses only
         (hits resume, they don't prefill the prompt), short enough to stay
-        inside one flash key block, and below the chunking threshold
-        (long prompts chunk instead)."""
+        inside one flash key block, below the chunking threshold (long
+        prompts chunk instead), and — windowed — inside the window."""
         if m:
             return False
         plen = req.prompt.shape[0]
+        b = self._bucket(plen)
         chunk = self.scfg.prefill_chunk
         if chunk is not None and plen > chunk:
             return False
-        return self._bucket(plen) <= _PACK_MAX_TOKENS
+        if b > _PACK_MAX_TOKENS:
+            return False
+        w = self.cfg.sliding_window
+        return not w or b <= w
 
     def _collect_pack(self, now: float, n_free: int,
                       spent: int) -> List[Request]:
@@ -595,7 +623,8 @@ class Scheduler:
             return
         if self._prefix_on:
             # deferred trie registration (admit passed prompt=None)
-            self.pool.register_prefix(slot, req.prompt, plen)
+            self.pool.register_prefix(slot, req.prompt, plen,
+                                      plen + req.max_new_tokens)
         self._tokens[slot, 0] = first
         self._remaining[slot] = req.max_new_tokens - 1
 
@@ -661,7 +690,8 @@ class Scheduler:
                     self._deferred_rids.add(head.rid)    # not steps waiting
                     self.metrics.on_deferred_admit()
                 break
-            chunked = chunk is not None and plen - m > chunk
+            chunked = (chunk is not None and plen - m > chunk
+                       and self._dense_prefill_ok(plen))
             if chunked:
                 cost = chunk
             elif m:
@@ -820,7 +850,8 @@ class Scheduler:
 
     def _tokens_live(self) -> float:
         """Positions actually written across active slots (for the
-        internal-fragmentation metric; ``_pos`` is the next write index)."""
+        internal-fragmentation metric; ``_pos`` is the next write index,
+        clipped to the per-slot logical capacity for windowed rings)."""
         cap = getattr(self.pool, "lcap", self.pool.max_len)
         return float(np.minimum(self._pos[self.active_slots], cap).sum())
 

@@ -238,3 +238,128 @@ def test_resident_bytes_are_bounded():
     # the last two stay resident: a hit each
     engine.matmul_int(x, ws[-1], 8)
     assert engine.cache_info().exec_hits == 1
+
+
+def _weight_bytes(*ws):
+    """derived (uint8 offset operand, f32 scales, int64 column sums) and
+    chunked (the uint8 operand zero-padded to whole 37-term chunks) bytes
+    of (K, N) weights, K > 37."""
+    derived = sum(w.shape[0] * w.shape[1] + 12 * w.shape[1] for w in ws)
+    chunked = sum(-(-w.shape[0] // 37) * 37 * w.shape[1] for w in ws)
+    return derived, chunked
+
+
+@pytest.mark.parametrize("transient", [False, True],
+                         ids=["resident", "transient"])
+def test_dropped_weights_leave_no_cache_entry(transient):
+    """A weight the caller drops leaves nothing in the engine: its derived
+    copies, chunked copies and resident states go with it, in resident and
+    in ``transient()`` calls, while a live weight keeps its entries, its
+    resident state (a hit on its next call) and its bits."""
+    import contextlib
+    import gc
+    import weakref
+
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.normal(size=(2, 80)).astype(np.float32))
+    live = torch.from_numpy(rng.normal(size=(80, 6)).astype(np.float32))
+    ws = [torch.from_numpy(rng.normal(size=(80, 6)).astype(np.float32))
+          for _ in range(3)]
+    ctx = engine.transient if transient else contextlib.nullcontext
+    engine.clear_cache()
+    with ctx():
+        y_live = engine.sim_linear(x, live)
+        for w in ws:
+            engine.sim_linear(x, w)
+    derived, chunked = _weight_bytes(live, *ws)
+    info = engine.cache_info()
+    assert (info.derived_entries, info.chunked_entries) == (4, 4)
+    assert (info.derived_bytes, info.chunked_bytes) == (derived, chunked)
+    # one 3-chunk state per weight: 3 crossbars of 1024 x 8 words
+    assert info.resident_bytes == (0 if transient else 4 * 3 * 1024 * 8 * 4)
+    refs = [weakref.ref(w) for w in ws]
+    del ws, w
+    gc.collect()
+    assert all(r() is None for r in refs)
+    derived, chunked = _weight_bytes(live)
+    info = engine.cache_info()
+    assert (info.derived_entries, info.chunked_entries) == (1, 1)
+    assert (info.derived_bytes, info.chunked_bytes) == (derived, chunked)
+    assert info.resident_entries == (0 if transient else 1)
+    # the live weight: a hit on its resident state, the same bits
+    y_again = engine.sim_linear(x, live)
+    after = engine.cache_info()
+    assert after.exec_hits == info.exec_hits + (0 if transient else 3)
+    assert after.exec_uploads == info.exec_uploads + (3 if transient else 0)
+    assert torch.equal(y_live, y_again)
+    want = r_engine.sim_linear(jnp.asarray(x.numpy()),
+                               jnp.asarray(live.numpy()))
+    np.testing.assert_array_equal(y_again.numpy(), np.asarray(want))
+    ref = weakref.ref(live)
+    del live
+    gc.collect()
+    info = engine.cache_info()
+    assert ref() is None
+    assert (info.derived_bytes, info.chunked_bytes, info.resident_bytes) \
+        == (0, 0, 0)
+    assert (info.derived_entries, info.chunked_entries,
+            info.resident_entries) == (0, 0, 0)
+
+
+def test_dropped_views_of_a_stacked_weight_keep_their_entries():
+    """A layer's weight is a fresh view of the stacked parameter on every
+    call: dropping the view ends nothing while the parameter lives (its
+    second call hits), and dropping the parameter ends every layer's
+    entries."""
+    import gc
+
+    rng = np.random.default_rng(11)
+    stacked = torch.from_numpy(rng.normal(size=(2, 80, 6)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(2, 80)).astype(np.float32))
+    engine.clear_cache()
+    first = [engine.sim_linear(x, stacked[i]) for i in range(2)]
+    gc.collect()
+    info = engine.cache_info()
+    assert info.resident_entries == 2 and info.derived_entries == 2
+    again = [engine.sim_linear(x, stacked[i]) for i in range(2)]
+    assert engine.cache_info().exec_hits == info.exec_hits + 2 * 3
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    del stacked
+    gc.collect()
+    info = engine.cache_info()
+    assert (info.derived_bytes, info.chunked_bytes, info.resident_bytes) \
+        == (0, 0, 0)
+
+
+@pytest.mark.parametrize("which", ["derived", "chunked"])
+def test_weight_caches_are_bounded_in_bytes(which):
+    """Past its byte bound a weight cache evicts its least recently used
+    entry first (with the resident states made from it); an evicted
+    weight is rebuilt on its next call with the same bits."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=(2, 80)).astype(np.float32))
+    ws = [torch.from_numpy(rng.normal(size=(80, 6)).astype(np.float32))
+          for _ in range(3)]
+    derived, chunked = _weight_bytes(ws[0])
+    one = derived if which == "derived" else chunked
+    bound = "MAX_DERIVED_BYTES" if which == "derived" else "MAX_CHUNKED_BYTES"
+    engine.clear_cache()
+    with mock.patch.object(engine, bound, 2 * one):
+        first = [engine.sim_linear(x, w) for w in ws]
+        info = engine.cache_info()
+        assert getattr(info, f"{which}_entries") == 2
+        assert getattr(info, f"{which}_bytes") == 2 * one
+        # the first weight went, and its resident state with it
+        assert info.resident_entries == 2 and info.exec_uploads == 3 * 3
+        engine.sim_linear(x, ws[2])        # the most recent: a hit
+        assert engine.cache_info().exec_hits == 3
+        y0 = engine.sim_linear(x, ws[0])   # rebuilt: a cold upload
+        info = engine.cache_info()
+        assert info.exec_uploads == 4 * 3
+        # ws[1] was the least recently used and is gone now
+        assert getattr(info, f"{which}_entries") == 2
+        y1 = engine.sim_linear(x, ws[1])
+        assert engine.cache_info().exec_uploads == 5 * 3
+    assert torch.equal(y0, first[0]) and torch.equal(y1, first[1])
+    engine.clear_cache()
+    assert engine.cache_info().derived_bytes == 0

@@ -25,7 +25,11 @@ missing = sorted({{"repro_torch.pim.cost_model", "repro_torch.pim.autotune",
                   "repro_torch.optim.adamw", "repro_torch.data.pipeline",
                   "repro_torch.checkpoint.checkpoint",
                   "repro_torch.runtime.fault_tolerance",
-                  "repro_torch.launch.train"}}
+                  "repro_torch.launch.train",
+                  "repro_torch.kernels.crossbar_exec.ref",
+                  "repro_torch.configs.gemma_7b",
+                  "repro_torch.configs.granite_20b",
+                  "repro_torch.configs.h2o_danube_1_8b"}}
                  - set(names))
 print(len(names), bad, missing)
 """
@@ -38,9 +42,9 @@ def test_port_imports_without_jax_or_reference():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad, missing = out.stdout.strip().split(" ", 2)
-    assert int(n) >= 34            # every module of the port was imported
+    assert int(n) >= 38            # every module of the port was imported
     assert bad == "[]"
-    assert missing == "[]"         # the autotuner and trainer among them
+    assert missing == "[]"         # the trainer and the configs among them
 
 
 def test_device_rule_is_explicit():

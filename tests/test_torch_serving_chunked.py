@@ -5,8 +5,8 @@ Each serving case runs the same seeded trace with the same weights (the
 reference's ``init_params``, imported by ``from_reference``) through the
 reference scheduler and the port's, on the float32 smoke model: the token
 streams must be equal, and equal to whole-prompt prefill.  The router
-case (a replica killed mid-prefill) and the windowed-admit case wait with
-their modules (ROADMAP queue 1).
+case (a replica killed mid-prefill) waits with its module (ROADMAP queue
+1); the windowed-admit case is in tests/test_torch_window.py.
 """
 import jax
 import jax.numpy as jnp

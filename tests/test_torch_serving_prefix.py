@@ -7,7 +7,7 @@ reference scheduler and the port's, on the float32 smoke model, where the
 two stacks' logits agree to ~1e-6 (test_torch_model.py): the token
 streams must be equal.  The reference runs without a device mesh — its
 mesh cases check sharding, which the port does not have.  The windowed
-ring-wrap case waits with sliding windows (ROADMAP queue 1).
+ring-wrap case is in tests/test_torch_window.py.
 """
 import jax
 import jax.numpy as jnp
