@@ -1312,17 +1312,20 @@ def profile_decode(params, cfg, dev, max_batch, top=6, max_new=4, **kw):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = counters()
-    if cfg.pim_mode == "quant" and launches[0] != 7 * cfg.n_layers:
+    per_step = len(linear_shapes(cfg)) * cfg.n_layers
+    if cfg.pim_mode == "quant" and launches[0] != per_step:
         raise AssertionError(f"the quant decode step made {launches[0]} "
                              f"quant_matmul_int launches, expected one per "
-                             f"linear: {7 * cfg.n_layers}")
-    if cfg.pim_mode == "pim_sim" and launches[1] != 7 * cfg.n_layers:
+                             f"linear: {per_step}")
+    if cfg.pim_mode == "pim_sim" and launches[1] != per_step:
         raise AssertionError(f"the pim_sim decode step made {launches[1]} "
                              f"crossbar_exec launches, expected one per "
-                             f"linear: {7 * cfg.n_layers}")
+                             f"linear: {per_step}")
     events = prof.key_averages()
+    # device events but the spans of record_function ranges
     kernels = sorted((e for e in events
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
                      key=lambda e: -e.self_device_time_total)
     dev_us = sum(e.self_device_time_total for e in kernels)
     host_us = sum(e.self_cpu_time_total for e in events)
@@ -1341,6 +1344,8 @@ def profile_decode(params, cfg, dev, max_batch, top=6, max_new=4, **kw):
         say(f"[profile] {name}: {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:5d} x {e.self_device_time_total / e.count:9.2f} us  "
             f"{e.key[:70]}")
+    return dict(wall_ms=wall * 1e3, busy_ms=dev_us / 1e3,
+                host_ops_ms=host_us / 1e3, events=events)
 
 
 
@@ -2076,9 +2081,11 @@ def check_released(label, before):
                              f"{held})")
 
 
-def upload_steps(fn):
-    """Run ``fn()`` recording the engine's cold uploads after each plain
-    decode step of the scheduler; returns (fn's result, the list)."""
+def decode_records(fn):
+    """Run ``fn()`` recording, for each plain decode step of the
+    scheduler, the engine's cold uploads after it and the launches of
+    each kernel in it; returns (fn's result, a list of (uploads,
+    quant_matmul_int launches, crossbar_exec launches))."""
     from repro_torch.pim import engine
     from repro_torch.serving import Scheduler
 
@@ -2086,8 +2093,10 @@ def upload_steps(fn):
     seen = []
 
     def step(self, active, emitted):
+        q0, x0 = counters()
         real(self, active, emitted)
-        seen.append(engine.cache_info().exec_uploads)
+        q1, x1 = counters()
+        seen.append((engine.cache_info().exec_uploads, q1 - q0, x1 - x0))
 
     with mock.patch.object(Scheduler, "_plain_step", step):
         out = fn()
@@ -2101,10 +2110,15 @@ def pim_state_bytes(m, k, o):
 
 
 def linear_shapes(cfg):
+    """(K, N) of each linear of one layer: the attention projections, and
+    the dense MLP's unless the block is ``"ae"`` (an MoE block's experts
+    are plain products, outside ``linear``)."""
     d, h, kv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                         cfg.d_ff)
-    out = [(d, h * hd), (d, kv * hd), (d, kv * hd), (h * hd, d), (d, ff),
-           (ff, d)]
+    out = [(d, h * hd), (d, kv * hd), (d, kv * hd), (h * hd, d)]
+    if cfg.pattern == ("ae",):
+        return out
+    out += [(d, ff), (ff, d)]
     return out + [(d, ff)] if cfg.gated_mlp else out
 
 
@@ -2196,9 +2210,10 @@ def serve_wide(name, dev):
                              "exact 7-bit integer product")
     info0 = engine.cache_info()
     reset_counters()
-    (ptokens, psummary, pwall), uploads = upload_steps(
+    (ptokens, psummary, pwall), steps = decode_records(
         lambda: serve(params, pcfg, dev, n_requests=2, prompt_lens=(plen,),
                       max_new=pnew, max_batch=2, seed=16))
+    uploads = [u for u, _, _ in steps]
     x_launches = counters()[1]
     info = engine.cache_info()
     peak = torch.cuda.max_memory_allocated()
@@ -2406,9 +2421,10 @@ def serve_window(dev):
                        max_seq_len=20)
     info0 = engine.cache_info()
     reset_counters()
-    (ptokens, psummary, pwall), uploads = upload_steps(
+    (ptokens, psummary, pwall), steps = decode_records(
         lambda: serve(p4, pcfg, dev, n_requests=2, prompt_lens=(16,),
                       max_new=4, max_batch=2, seed=18))
+    uploads = [u for u, _, _ in steps]
     x_launches = counters()[1]
     with mock.patch.object(engine, "matmul_int", exact_matmul):
         pwant, _, _ = serve(p4, pcfg, dev, n_requests=2, prompt_lens=(16,),
@@ -2433,6 +2449,315 @@ def serve_window(dev):
         blocks_per_slot=bps, logit_diffs=diffs,
         short_max_gap=max(short_gaps),
         ring_tpot_ms=ring_tpot, pim_tpot_ms=psummary["mean_tpot_s"] * 1e3)
+
+
+# granite-moe-1b-a400m's dispatch at full width: one layer's experts on
+# (2, 128) bf16 tokens, a shared vector plus noise of half its scale, so
+# that most tokens pick the same experts and overflow the capacity (80 of
+# 256 at the default factor)
+MOE_DISPATCH_SHAPE = (2, 128)
+MOE_DISPATCH_NOISE = 0.5
+# the dispatch at capacity factor 32 (no drops) against a per-token sum
+# over each token's experts on the card: both round the expert products
+# to bf16 (at other row counts, so other cuBLAS kernels may run) and cast
+# the float32 sum to bf16; a dropped (token, expert) pair moves an entry
+# by about an eighth of the largest, a few bf16 ulps do not
+MOE_DISPATCH_TOL = 2.0 ** -6
+
+
+def moe_routes_on_host(ids, t, cap, n_experts):
+    """The served and the dropped (token, expert) pairs of top-k ``ids``
+    (T, k) under the reference's rule: each expert serves its hits in
+    token order up to ``cap``, and its trash slot holds the largest token
+    index that is not among them, served if that token was routed there;
+    also how many experts the last token overflowed."""
+    served, dropped, last = set(), set(), 0
+    for e in range(n_experts):
+        hits = [int(i) for i in np.nonzero((ids == e).any(1))[0]]
+        ok = set(hits[:cap])
+        rest = [i for i in range(t) if i not in ok]
+        if rest and rest[-1] in hits[cap:]:
+            ok.add(rest[-1])
+        if t - 1 in hits[cap:]:
+            last += 1
+        served |= {(i, e) for i in ok}
+        dropped |= {(i, e) for i in hits if i not in ok}
+    return served, dropped, last
+
+
+def check_moe_dispatch(params, cfg, dev):
+    """``moe_ffn`` on one full-width layer: bit-identical over two runs;
+    the (token, expert) pairs its slot maps served equal to a host
+    recomputation from its own top-k ids, with drops and the last token
+    among them; at capacity factor 32 within ``MOE_DISPATCH_TOL`` of a
+    per-token sum over each token's experts.  Returns (failures, a
+    summary)."""
+    from repro_torch.models import moe
+
+    layer = {k: v[0] for k, v in params["blocks"]["0"].items()}
+    b, s = MOE_DISPATCH_SHAPE
+    t, d, e = b * s, cfg.d_model, cfg.n_experts
+    g = torch.Generator(device=dev).manual_seed(23)
+    shared = torch.randn(d, generator=g, device=dev)
+    x = (shared + MOE_DISPATCH_NOISE * torch.randn(
+        (b, s, d), generator=g, device=dev)).to(cfg.compute_dtype)
+    cap = moe.expert_capacity(t, cfg.top_k, cfg.capacity_factor, e)
+    maps, routes = [], []
+    real_map, real_top_k = moe._slot_map, moe.router_top_k
+
+    def record_map(any_hit, tok, capacity):
+        m = real_map(any_hit, tok, capacity)
+        maps.append(m)
+        return m
+
+    def record_top_k(x2d, router, k):
+        w, ids = real_top_k(x2d, router, k)
+        routes.append(ids)
+        return w, ids
+
+    with torch.no_grad():
+        with mock.patch.object(moe, "_slot_map", record_map), \
+                mock.patch.object(moe, "router_top_k", record_top_k):
+            out1 = moe.moe_ffn(x, layer, cfg)
+        out2 = moe.moe_ffn(x, layer, cfg)
+    torch.cuda.synchronize()
+    identical = torch.equal(out1, out2)
+    ids = routes[0].cpu().numpy()
+    want, dropped, last = moe_routes_on_host(ids, t, cap, e)
+    # a slot's token is served if it was routed there (the trash slot's
+    # winner may be a token that was not)
+    got = {(i, ex) for ex, m in enumerate(maps) for i in m.tolist()
+           if i < t and (ids[i] == ex).any()}
+    exact = len(maps) == e and got == want
+
+    wide = cfg.scaled(capacity_factor=32.0)
+    wide_cap = moe.expert_capacity(t, cfg.top_k, 32.0, e)
+    with torch.no_grad():
+        nodrop = moe.moe_ffn(x, layer, wide)
+        xf = x.reshape(t, d)
+        w, top = real_top_k(xf, layer["router"], cfg.top_k)
+        acc = torch.zeros((t, d), dtype=torch.float32, device=dev)
+        for ex in range(e):
+            h = torch.nn.functional.silu(xf @ layer["w1"][ex]) * (
+                xf @ layer["w3"][ex])
+            y = (h @ layer["w2"][ex]).to(torch.float32)
+            acc += y * ((top == ex) * w).sum(-1)[:, None]
+        brute = acc.to(x.dtype).reshape(b, s, d)
+    scale = float(brute.float().abs().max())
+    err = float((nodrop.float() - brute.float()).abs().max())
+    say(f"[moe dispatch] one full-width layer ({e} experts, top "
+        f"{cfg.top_k}, d_ff {cfg.moe_d_ff}) on {t} bf16 tokens (a shared "
+        f"vector + {MOE_DISPATCH_NOISE} x noise), capacity {cap}: two runs "
+        f"bit-identical: {identical}; served pairs == host recomputation "
+        f"from the card's top-k ids: {exact} ({len(want)} served, "
+        f"{len(dropped)} dropped; the last token overflowed {last} experts,"
+        f" kept through their trash slots); TF32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}; at capacity factor 32 "
+        f"(capacity {wide_cap}) max abs diff {err:.6f} from the per-token "
+        f"expert sum (tol {MOE_DISPATCH_TOL * scale:.6f} = "
+        f"{MOE_DISPATCH_TOL} x max {scale:.4f})")
+    failures = []
+    if not identical:
+        failures.append("two runs of the dispatch differ")
+    if not exact:
+        failures.append(f"served pairs differ from the host rule: "
+                        f"{sorted(got ^ want)[:8]}")
+    if not dropped or not last:
+        failures.append(f"the case must drop tokens ({len(dropped)}) and "
+                        f"the last token ({last} experts)")
+    if wide_cap != t or not err <= MOE_DISPATCH_TOL * scale:
+        failures.append(f"no-drop dispatch (capacity {wide_cap}) off the "
+                        f"per-token sum by {err}")
+    return failures, dict(capacity=cap, served=len(want),
+                          dropped=len(dropped), last_overflows=last,
+                          nodrop_max_abs_diff=err, nodrop_tol=MOE_DISPATCH_TOL
+                          * scale)
+
+
+def serve_moe(dev):
+    """Full-width, full-depth granite-moe-1b-a400m (24 layers of 32
+    experts, top 8) on fresh weights from seed 0.  ``quant``: 8 requests
+    of 16-64 prompt tokens, 8 new tokens, batch 4, whose prefill logits
+    and tokens equal the plain GEMM's, one GEMM per attention projection
+    in each decode step.  ``pim_sim``: 2 requests of 8 and 16 tokens, 4
+    new tokens, batch 2, served twice, logits and tokens equal to the
+    exact integer product's, one crossbar launch per projection per decode
+    step, no upload after the first decode step and none in the second
+    serve, the resident state equal to its host arithmetic.  Then the
+    dispatch check (``check_moe_dispatch``), a profiled ``quant`` decode
+    step with the host time and device span of its MoE blocks, and the
+    release of the weights.  TF32 must be off.  Returns (quant launches,
+    crossbar launches, a summary)."""
+    from repro_torch import configs
+    from repro_torch.kernels.quant_matmul import ops, quant_matmul_int_ref
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import model_lib as M
+    from repro_torch.pim import engine
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: MoE routing needs float32 "
+                             "matmuls")
+    base = configs.get("granite-moe-1b-a400m")
+    t0 = time.perf_counter()
+    params = M.init_params(base, seed=0, device=dev)
+    torch.cuda.synchronize()
+    say(f"[granite-moe] full-width {base.name}: "
+        f"{M.param_count(base) / 1e6:.1f}M parameters ({base.n_layers} "
+        f"layers, d_model {base.d_model}, {base.n_heads} heads of {base.hd},"
+        f" {base.n_kv_heads} KV heads, {base.n_experts} experts top "
+        f"{base.top_k} of d_ff {base.moe_d_ff}, vocab {base.vocab_size} "
+        f"padded to {base.padded_vocab}, tied) from seed 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    per_step = len(linear_shapes(base)) * base.n_layers
+    failures = []
+
+    # quant: 8 requests, prompts 16-64, 8 new tokens, batch 4, paged
+    plens, max_new = (16, 32, 48, 64), 8
+    qcfg = base.scaled(pim_mode="quant", max_seq_len=max(plens) + max_new)
+    toks = torch.as_tensor(np.random.default_rng(19).integers(
+        0, base.vocab_size, (1, 64)), device=dev)
+    got = prefill_logits(params, qcfg, toks)
+    with mock.patch.object(ops, "quant_matmul_int", quant_matmul_int_ref):
+        want = prefill_logits(params, qcfg, toks)
+    q_prefill_equal = bool(torch.isfinite(got).all()
+                               and torch.equal(got, want))
+    if not q_prefill_equal:
+        failures.append("quant prefill logits differ between the kernel and "
+                        "the plain GEMM")
+
+    def quant_serve():
+        return serve(params, qcfg, dev, n_requests=8, prompt_lens=plens,
+                     max_new=max_new, max_batch=4, seed=20)
+
+    reset_counters()
+    (tokens, summary, wall), steps = decode_records(quant_serve)
+    q_launches = counters()[0]
+    with mock.patch.object(ops, "quant_matmul_int", quant_matmul_int_ref):
+        plain, _, _ = quant_serve()
+    q_steps = sorted({q for _, q, _ in steps})
+    say(f"[granite-moe quant] 64-token prefill logits kernel == plain GEMM: "
+        f"{q_prefill_equal}; served {summary['n_finished']} requests "
+        f"(prompts {plens}, {max_new} new tokens, max_batch 4, paged) in "
+        f"{wall:.2f} s: {summary['tokens_per_s']:.2f} tok/s | mean TTFT "
+        f"{summary['mean_ttft_s'] * 1e3:.1f} ms | mean TPOT "
+        f"{summary['mean_tpot_s'] * 1e3:.2f} ms | quant_matmul_int launches "
+        f"{q_launches}, per decode step {q_steps} over {len(steps)} steps "
+        f"(expected {per_step}); tokens == the plain GEMM's: "
+        f"{tokens == plain} ({tokens[0]})")
+    if tokens != plain:
+        failures.append(f"quant tokens {tokens} vs the plain GEMM's {plain}")
+    if q_steps != [per_step] or any(x for _, _, x in steps):
+        failures.append(f"quant decode steps launched {steps}, expected "
+                        f"{per_step} GEMMs each")
+
+    # pim_sim: 2 requests of 8 and 16 tokens, 4 new tokens, batch 2, twice
+    plen, pnew = 16, 4
+    pcfg = base.scaled(pim_mode="pim_sim", max_seq_len=plen + pnew)
+    toks = torch.as_tensor(np.random.default_rng(21).integers(
+        0, base.vocab_size, (1, plen)), device=dev)
+    t0 = time.perf_counter()
+    got = prefill_logits(params, pcfg, toks)
+    t_prefill = time.perf_counter() - t0
+    with mock.patch.object(engine, "matmul_int", exact_matmul):
+        want = prefill_logits(params, pcfg, toks)
+    p_prefill_equal = bool(torch.isfinite(got).all()
+                               and torch.equal(got, want))
+    if not p_prefill_equal:
+        failures.append("pim_sim prefill logits differ from the exact 7-bit "
+                        "integer product")
+
+    def pim_serve():
+        return serve(params, pcfg, dev, n_requests=2, prompt_lens=(8, plen),
+                     max_new=pnew, max_batch=2, seed=22)
+
+    info0 = engine.cache_info()
+    reset_counters()
+    (first, psummary, pwall), rec1 = decode_records(pim_serve)
+    info1 = engine.cache_info()
+    (second, _, _), rec2 = decode_records(pim_serve)
+    x_launches = counters()[1]
+    info2 = engine.cache_info()
+    with mock.patch.object(engine, "matmul_int", exact_matmul):
+        pwant, _, _ = pim_serve()
+    decode_state = base.n_layers * sum(pim_state_bytes(2, k, o)
+                                       for k, o in linear_shapes(base))
+    x_steps = sorted({x for _, _, x in rec1 + rec2})
+    say(f"[granite-moe pim_sim] 16-token prefill logits on the crossbar "
+        f"kernel == exact 7-bit integer product: {p_prefill_equal}, "
+        f"{t_prefill:.2f} s on transient state; served 2 requests (8- and "
+        f"16-token prompts, {pnew} new tokens, max_batch 2, paged) twice, "
+        f"the first in {pwall:.2f} s: mean TTFT "
+        f"{psummary['mean_ttft_s'] * 1e3:.0f} ms | mean TPOT "
+        f"{psummary['mean_tpot_s'] * 1e3:.0f} ms | crossbar_exec launches "
+        f"{x_launches}, per decode step {x_steps} (expected {per_step}) | "
+        f"cold uploads after each decode step, first serve "
+        f"{[u - info0.exec_uploads for u, _, _ in rec1]}, second "
+        f"{[u - info1.exec_uploads for u, _, _ in rec2]} | resident "
+        f"{info2.resident_entries} states, {info2.resident_bytes} B (host "
+        f"arithmetic {decode_state} B); tokens (both serves) == exact "
+        f"product's: {first == second == pwant} ({first})")
+    if not first == second == pwant:
+        failures.append(f"pim_sim tokens {first}, {second} vs the exact "
+                        f"product's {pwant}")
+    if x_steps != [per_step] or any(q for _, q, _ in rec1 + rec2):
+        failures.append(f"pim_sim decode steps launched {rec1 + rec2}, "
+                        f"expected {per_step} crossbar launches each")
+    if len({u for u, _, _ in rec1}) != 1 or \
+            any(u != info1.exec_uploads for u, _, _ in rec2):
+        failures.append(f"pim_sim decode uploaded after its first step: "
+                        f"{rec1}, {rec2}")
+    if info2.resident_bytes != decode_state:
+        failures.append(f"{info2.resident_bytes} resident bytes, expected "
+                        f"{decode_state}")
+
+    dispatch_failures, dispatch = check_moe_dispatch(params, base, dev)
+    failures += dispatch_failures
+
+    # one quant decode step at batch 4, profiled, each MoE block under a
+    # record_function range
+    real_ffn = model_mod.moe_ffn
+
+    def ranged(x, p, cfg):
+        with torch.profiler.record_function("moe_ffn"):
+            return real_ffn(x, p, cfg)
+
+    with mock.patch.object(model_mod, "moe_ffn", ranged):
+        prof = profile_decode(params, qcfg, dev, 4)
+    cuda = torch.autograd.DeviceType.CUDA
+    host = [e for e in prof["events"]
+            if e.key == "moe_ffn" and e.device_type != cuda]
+    span = [e for e in prof["events"]
+            if e.key == "moe_ffn" and e.device_type == cuda]
+    moe_host_ms = host[0].cpu_time_total / 1e3 if host else None
+    moe_span_ms = span[0].device_time_total / 1e3 if span else None
+    gemm_ms = sum(e.self_device_time_total for e in prof["events"]
+                  if "quant_matmul_kernel" in e.key) / 1e3
+
+    def ms(v):
+        return "not measured" if v is None else f"{v:.2f} ms"
+
+    say(f"[profile] granite-moe quant decode step, batch 4: wall "
+        f"{prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms; "
+        f"its {base.n_layers} MoE blocks ({base.n_layers * base.n_experts} "
+        f"expert iterations): host {ms(moe_host_ms)} over "
+        f"{host[0].count if host else 0} calls, device span "
+        f"{ms(moe_span_ms)}; its {per_step} GEMMs {gemm_ms:.3f} ms on the "
+        f"device")
+
+    before = footprint(params)
+    del params
+    check_released(base.name, before)
+    if failures:
+        raise AssertionError("serve_moe: " + "; ".join(failures))
+    return q_launches, x_launches, dict(
+        params_m=M.param_count(base) / 1e6,
+        quant_tokens_per_s=summary["tokens_per_s"],
+        quant_tpot_ms=summary["mean_tpot_s"] * 1e3,
+        pim_tpot_ms=psummary["mean_tpot_s"] * 1e3,
+        pim_prefill_s=t_prefill, resident_bytes=info2.resident_bytes,
+        decode_wall_ms=prof["wall_ms"], decode_busy_ms=prof["busy_ms"],
+        moe_host_ms=moe_host_ms, moe_span_ms=moe_span_ms, gemm_ms=gemm_ms,
+        dispatch=dispatch)
 
 
 # --------------------------------------------------------------------------
@@ -2498,6 +2823,7 @@ def main() -> int:
     check_released(base.name, before)
     wide = {name: serve_wide(name, dev) for name in WIDE_LAYERS}
     win_q, win_x, win = serve_window(dev)
+    moe_q, moe_x, moe_run = serve_moe(dev)
     # training: fresh weights from the same seed; the serve phases' params
     # stay as they are
     tq_launches, tq = train_quant(base, dev, quant_rows)
@@ -2514,7 +2840,7 @@ def main() -> int:
              launches_spec_path=qs_launches + ps_launches[0],
              launches_train_path=tq_launches,
              launches_wide_path={k: v[0] for k, v in wide.items()},
-             launches_window_path=win_q,
+             launches_window_path=win_q, launches_moe_path=moe_q,
              max_abs_err=qrow["max_abs_err"],
              exact=qrow["max_abs_err"] == 0,
              shape=[4, 1024, 2816], ms=qrow["ms"], plain_ms=qrow["plain_ms"],
@@ -2533,6 +2859,7 @@ def main() -> int:
                              "bound_ms", "bound_by")})
                  for shape in WIDE_QUANT_SHAPES],
              wide={k: v[2] for k, v in wide.items()}, window=win,
+             moe=moe_run,
              train=tq, restart_drill=drill),
         dict(name="crossbar_exec", route="cuda",
              source="src/repro_torch/kernels/csrc/crossbar_exec.cu",
@@ -2543,7 +2870,7 @@ def main() -> int:
              launches_autotune_path=at_launches,
              launches_train_path=tp_launches,
              launches_wide_path={k: v[1] for k, v in wide.items()},
-             launches_window_path=win_x,
+             launches_window_path=win_x, launches_moe_path=moe_x,
              max_abs_err=xbar_row["max_abs_err"],
              exact=xbar_row["max_abs_err"] == 0,
              shape=xbar_row["shape"], ms=xbar_row["ms"],

@@ -1,8 +1,10 @@
 """Architecture registry: one module per config, ``get(name)`` API.
 
 The registry holds the configurations the port can run: the dense
-``"ad"`` stack, sliding windows included (MoE, SSM, xLSTM and
-encoder-decoder configs wait in ROADMAP.md queue 1)."""
+``"ad"`` stack, sliding windows included, and the MoE blocks ``"ae"``
+(granite-moe) and ``"ar"`` (arctic, with its dense residual).  The SSM
+hybrid, xLSTM and encoder-decoder or vision configs wait in ROADMAP.md
+queue 1."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +17,8 @@ _MODULES = {
     "granite-20b": "granite_20b",
     "gemma-7b": "gemma_7b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "arctic-480b": "arctic_480b",
 }
 
 ARCH_NAMES: List[str] = list(_MODULES)

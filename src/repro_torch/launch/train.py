@@ -66,6 +66,8 @@ def build_cfg(args):
         kw = dict(PRESETS[args.preset])
         kw.update(n_layers=max(len(cfg.pattern), args.layers or 4),
                   dtype="float32", remat=False, loss_chunk=1 << 30)
+        if cfg.n_experts:
+            kw.update(n_experts=8, top_k=2, moe_d_ff=kw["d_ff"] // 4)
         cfg = cfg.scaled(**kw)
     elif args.layers:
         cfg = cfg.scaled(n_layers=args.layers)

@@ -1,5 +1,6 @@
 """Model configuration, with the reference's fields for every architecture
-(the port serves the dense ``"ad"`` stack so far).
+(the port runs the dense ``"ad"`` and the MoE ``"ae"``/``"ar"`` blocks so
+far).
 
 A model is a stack of *super-blocks*: ``pattern`` lists the layer kinds of
 one period; the stack is ``n_layers / len(pattern)`` periods, with

@@ -1,4 +1,5 @@
-"""Model assembly: parameter specs, prefill, decode — the dense ``"ad"`` path.
+"""Model assembly: parameter specs, prefill, decode and the train mode of
+the dense ``"ad"`` stack and the MoE blocks ``"ae"`` and ``"ar"``.
 
 Parameters keep the reference's tree: ``{"embed", "final_norm", "blocks":
 {"0": {name: (n_super, ...)}}}`` with every block weight stacked over the
@@ -38,8 +39,15 @@ masks the ring through :func:`ring_slot_positions`, the helper the pool's
 admit layout shares.  A multi-position decode step refuses windows: the
 run's writes would destroy ring rows a rejected draft rolls back to.
 
-Not ported yet (ROADMAP queue 1): MoE, Mamba, xLSTM, cross-attention and
-encoders; they raise ``NotImplementedError``.
+The MoE blocks run self-attention, then :func:`moe.moe_ffn` on the
+normed residual (``"ar"`` adds arctic's dense MLP on the same input).  The
+experts are plain products in the compute dtype, outside ``linear``, as
+in the reference; the router is a float32 product.  A multi-position
+decode step routes all its ``B * S`` rows together, as the reference
+does, so the capacity counts them all.
+
+Not ported yet (ROADMAP queue 1): Mamba (``"md"``, ``"me"``), xLSTM,
+cross-attention and encoders; they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -56,6 +64,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (activation, apply_rope, embed_lookup,
                                        linear, rms_norm, unembed)
+from repro_torch.models.moe import moe_ffn
 from repro_torch.tree import leaves as _leaves
 
 Params = Dict[str, Any]
@@ -66,13 +75,17 @@ Spec = Tuple[Tuple[int, ...], torch.dtype, str]
 #: Attention-KV leaf names eligible for block paging.
 PAGED_KV_KEYS = ("k", "v", "k_scale", "v_scale")
 
+#: Block kinds the port runs: dense, MoE, MoE with a dense residual.
+PORTED_KINDS = ("ad", "ae", "ar")
+
 
 def _check_supported(cfg: ModelConfig) -> None:
-    bad = [k for k in cfg.pattern if k != "ad"]
+    bad = [k for k in cfg.pattern if k not in PORTED_KINDS]
     if bad or cfg.is_encoder_decoder or cfg.vision_dim:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense 'ad' stack is ported so far (MoE, "
-            "SSM, xLSTM and enc-dec wait in ROADMAP.md queue 1)")
+            f"{cfg.name}: only the dense 'ad' and MoE 'ae'/'ar' blocks are "
+            "ported so far (SSM, xLSTM and enc-dec wait in ROADMAP.md "
+            "queue 1)")
 
 
 def _refuse_window_run(cfg: ModelConfig) -> None:
@@ -99,9 +112,8 @@ def ring_slot_positions(last_pos, r, ring: int, window: int):
 # parameter specs
 # ==========================================================================
 
-def _block_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
-    d, h, hkv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                         cfg.d_ff)
+def _attn_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     f32 = torch.float32
     s = {
         "norm1": ((d,), f32, "ones"),
@@ -114,11 +126,34 @@ def _block_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
         s.update(bq=((h * hd,), f32, "zeros"),
                  bk=((hkv * hd,), f32, "zeros"),
                  bv=((hkv * hd,), f32, "zeros"))
-    s.update(norm2=((d,), f32, "ones"),
-             w_in=((d, ff), dt, "normal"),
-             w_out=((ff, d), dt, "normal"))
+    return s
+
+
+def _mlp_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
+    d, ff = cfg.d_model, cfg.d_ff
+    s = {"norm2": ((d,), torch.float32, "ones"),
+         "w_in": ((d, ff), dt, "normal"),
+         "w_out": ((ff, d), dt, "normal")}
     if cfg.gated_mlp:
         s["w_gate"] = ((d, ff), dt, "normal")
+    return s
+
+
+def _moe_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+    return {"norm_moe": ((d,), torch.float32, "ones"),
+            "router": ((d, e), torch.float32, "normal"),
+            "w1": ((e, d, f), dt, "normal"),
+            "w2": ((e, f, d), dt, "normal"),
+            "w3": ((e, d, f), dt, "normal")}
+
+
+def _block_specs(kind: str, cfg: ModelConfig, dt) -> Dict[str, Spec]:
+    s = _attn_specs(cfg, dt)
+    if kind in ("ad", "ar"):
+        s.update(_mlp_specs(cfg, dt))
+    if kind in ("ae", "ar"):
+        s.update(_moe_specs(cfg, dt))
     return s
 
 
@@ -131,8 +166,8 @@ def param_specs(cfg: ModelConfig) -> Params:
         "embed": ((v, d), dt, "normal"),
         "final_norm": ((d,), torch.float32, "ones"),
         "blocks": {str(i): {k: ((ns,) + shp, t, init) for k, (shp, t, init)
-                            in _block_specs(cfg, dt).items()}
-                   for i in range(len(cfg.pattern))},
+                            in _block_specs(kind, cfg, dt).items()}
+                   for i, kind in enumerate(cfg.pattern)},
     }
     if not cfg.tie_embeddings:
         out["lm_head"] = ((v, d), dt, "normal")
@@ -429,15 +464,29 @@ def _mlp(x, p, cfg: ModelConfig, run: bool = False):
     return x + _dense_ffn(hh, p, cfg)
 
 
+def _moe(x, p, cfg: ModelConfig, dense_residual: bool, run: bool = False):
+    """The MoE block on the normed residual; all rows route together (a
+    multi-position decode step's too, as in the reference)."""
+    hh = _norm(x, p["norm_moe"], cfg, run)
+    y = moe_ffn(hh, p, cfg)
+    if dense_residual:  # arctic: parallel dense MLP on the same input
+        y = y + _dense_ffn(hh, p, cfg)
+    return x + y
+
+
 def apply_block(kind: str, x, p, cfg: ModelConfig, *, positions, mode,
                 cache=None, pos=None, block_tables=None, segment_ids=None):
     """Returns (x, cache_out or None)."""
-    if kind != "ad":
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     x, c = _self_attention(x, p, cfg, positions, mode, cache, pos,
                            block_tables=block_tables,
                            segment_ids=segment_ids)
-    x = _mlp(x, p, cfg, run=mode == "decode" and x.shape[1] > 1)
+    run = mode == "decode" and x.shape[1] > 1
+    if kind == "ad":
+        x = _mlp(x, p, cfg, run=run)
+    else:
+        x = _moe(x, p, cfg, dense_residual=kind == "ar", run=run)
     return x, c
 
 
@@ -725,7 +774,9 @@ def decode_run_slots(params, tokens, pos, active, caches, cfg: ModelConfig,
     Row ``i`` gives the bits of the single-position step at the same
     position with the same fed prefix: every linear lowering quantizes
     per activation row, and the norms, attention and the unembed (one
-    (B, d) matmul per position) run one position at a time.  Writes at or
+    (B, d) matmul per position) run one position at a time.  An MoE block
+    routes all ``B * S`` rows together, as the reference does, so its
+    capacity counts them all (the scheduler refuses speculation for MoE).  Writes at or
     past a slot's capacity go to the trash block (paged) or are dropped
     (contiguous).  Updates ``caches`` in place.
     """

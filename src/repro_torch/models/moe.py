@@ -1,0 +1,123 @@
+"""Top-k MoE, run locally on one device.
+
+Each token's router logits are a float32 product; it picks its ``top_k``
+experts (ties to the lower expert index) and weighs them by a softmax
+over the k logits.  Each expert accepts at most ``capacity`` tokens, in
+token order; the rest are dropped for that expert (the router's other
+choices still serve them).  The experts are gather -> dense FFN in the
+compute dtype -> scatter-add into a float32 output, expert after expert;
+dispatch is a gather, not a one-hot product.
+
+The reference runs this same loop per rank of its mesh (shard_map with a
+``psum`` over the "model" axis); the port has no mesh yet (ROADMAP.md
+queue 1, C/D) and runs the reference's ``mesh is None`` branch.
+
+**The trash slot.** Every token that is not routed to an expert, or that
+overflows its capacity, lands in the expert's extra slot ``capacity``.
+The reference fills the slot-to-token map and the expert's input buffer
+with scatters whose duplicate indices XLA resolves on the CPU by letting
+the *last* token win, so when the batch's last token overflows an expert
+its contribution is kept, through the trash row, while every earlier
+overflow token is dropped.  The port reproduces that rule
+deterministically: the slot-to-token map is a ``scatter_reduce`` with
+``amax`` of the token indices (the largest index is the last writer), and
+the expert's buffer is *gathered* through that map.  The accumulation's
+``index_add_`` gives each real row at most one add per expert, so its
+result does not depend on the order of the adds; only the discarded row
+``t`` takes many.
+
+The loop is fixed-shape: no ``nonzero``, no ``.item()``, no host sync.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.models.layers import activation
+
+__all__ = ["expert_capacity", "moe_ffn", "router_top_k"]
+
+
+def expert_capacity(t_tokens: int, top_k: int, capacity_factor: float,
+                    n_experts: int) -> int:
+    """Tokens one expert accepts out of ``t_tokens``: ``ceil(T * k * cf /
+    E)`` as the reference writes it (a float floor division), at least 8
+    and never above ``t_tokens``, so tiny decode batches are never
+    dropped."""
+    return min(t_tokens,
+               max(int(-(-t_tokens * top_k * capacity_factor // n_experts)),
+                   8))
+
+
+def router_top_k(x2d, router, k: int):
+    """``(softmaxed top-k weights, top-k expert ids)`` of (T, d) tokens.
+
+    The logits are a true float32 product (TF32 would round the operands
+    to a 10-bit mantissa and flip routing near ties).  ``jax.lax.top_k``
+    puts the lower index first among equal values; a stable descending
+    sort does the same, ``torch.topk`` does not promise it."""
+    if x2d.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("MoE routing needs float32 matmuls: "
+                           "torch.backends.cuda.matmul.allow_tf32 is True")
+    logits = x2d.to(torch.float32) @ router.to(torch.float32)
+    vals, ids = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return torch.softmax(vals[:, :k], dim=-1), ids[:, :k]
+
+
+def _slot_map(any_hit, tok, capacity: int):
+    """One expert's (capacity + 1,) slot -> token map over (T,) hits:
+    the hits in token order up to ``capacity``, then the trash slot with
+    the largest token index sent there (the reference's last writer: an
+    overflow or a token not routed here); ``T`` marks an empty slot."""
+    t = any_hit.shape[0]
+    slot = torch.cumsum(any_hit, 0) - 1
+    slot = torch.where(any_hit & (slot < capacity), slot, capacity)
+    tok_of_slot = torch.full((capacity + 1,), -1, dtype=tok.dtype,
+                             device=tok.device).scatter_reduce(
+        0, slot, tok, reduce="amax")
+    return torch.where(tok_of_slot < 0, t, tok_of_slot)
+
+
+def _local_moe(x, top_ids, top_w, w1, w2, w3, *, capacity: int,
+               act_name: str):
+    """The expert loop over (T, d) tokens; returns the (T, d) float32 sum
+    over the experts of each token's weighted expert outputs."""
+    t, d = x.shape
+    dev = x.device
+    out = torch.zeros((t + 1, d), dtype=torch.float32, device=dev)
+    act = activation(act_name)
+    tok = torch.arange(t, device=dev)
+    zero_row = torch.zeros((1, d), dtype=x.dtype, device=dev)
+    zero_w = torch.zeros((1,), dtype=top_w.dtype, device=dev)
+    for e in range(w1.shape[0]):
+        hit = top_ids == e                                 # (T, k)
+        tok_w = (hit * top_w).sum(-1)                      # (T,)
+        any_hit = hit.any(-1)
+        tok_of_slot = _slot_map(any_hit, tok, capacity)    # (cap + 1,)
+        # the expert's input rows, gathered (an empty slot reads the zero
+        # row, the trash slot its winner's row if it was routed here)
+        xm = torch.where(any_hit[:, None], x, 0)
+        buf = torch.cat([xm, zero_row])[tok_of_slot]       # (cap + 1, d)
+        h = act(buf @ w1[e].to(x.dtype))
+        if w3 is not None:
+            h = h * (buf @ w3[e].to(x.dtype))
+        y = (h @ w2[e].to(x.dtype)).to(torch.float32)
+        gathered_w = torch.cat([tok_w, zero_w])[tok_of_slot]
+        out.index_add_(0, tok_of_slot, y * gathered_w[:, None])
+    return out[:t]
+
+
+def moe_ffn(x, params: Dict, cfg) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d).  params: router (d, E), w1/w3 (E, d, f),
+    w2 (E, f, d).  All ``B * S`` tokens route together: the capacity
+    counts them all."""
+    b, s, d = x.shape
+    k = cfg.top_k
+    xf = x.reshape(b * s, d)
+    top_w, top_ids = router_top_k(xf, params["router"], k)
+    cap = expert_capacity(b * s, k, cfg.capacity_factor, cfg.n_experts)
+    out = _local_moe(xf, top_ids, top_w, params["w1"], params["w2"],
+                     params.get("w3"), capacity=cap,
+                     act_name=cfg.activation)
+    return out.to(x.dtype).reshape(b, s, d)

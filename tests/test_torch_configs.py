@@ -1,7 +1,10 @@
 """The port's configuration registry against ``repro.configs``, and the
 dense configurations gemma-7b (head_dim 256 above d_model / n_heads, the
 embedding scale, tanh gelu, tied embeddings) and granite-20b (one KV head,
-an ungated MLP, untied embeddings) on the reference's weights.
+an ungated MLP, untied embeddings) on the reference's weights.  The MoE
+configurations granite-moe-1b-a400m and arctic-480b are held field for
+field and tree for tree here; their smoke models run in
+tests/test_torch_moe.py.
 
 Tolerances: logits within ``LOGIT_TOL`` = 1e-4 of the reference's
 (float32 smoke models, different reduction orders, as in
@@ -31,13 +34,14 @@ from repro_torch.pim import engine
 
 LOGIT_TOL = 1e-4
 NEW = ("gemma-7b", "granite-20b", "h2o-danube-1.8b")
+MOE = ("granite-moe-1b-a400m", "arctic-480b")
 
 
 def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.mark.parametrize("name", NEW + ("qwen1.5-0.5b",))
+@pytest.mark.parametrize("name", NEW + ("qwen1.5-0.5b",) + MOE)
 def test_every_field_equals_the_reference(name):
     got, want = TC.get(name), RC.get(name)
     names = [f.name for f in dataclasses.fields(got)]
@@ -52,17 +56,18 @@ def test_every_field_equals_the_reference(name):
 
 
 def test_registry():
-    assert set(NEW) <= set(TC.ARCH_NAMES) <= set(RC.ARCH_NAMES)
+    assert set(NEW + MOE) <= set(TC.ARCH_NAMES) <= set(RC.ARCH_NAMES)
     assert set(TC.all_configs()) == set(TC.ARCH_NAMES)
     with pytest.raises(KeyError):
         TC.get("jamba-v0.1-52b")          # an SSM hybrid: not ported yet
 
 
-@pytest.mark.parametrize("name", NEW)
+@pytest.mark.parametrize("name", NEW + MOE)
 def test_full_width_parameter_tree_equals_the_reference(name):
     """The full-width tree, no weight allocated: every leaf's shape and
     dtype (gemma's 16 heads of 256, granite's single KV head and ungated
-    MLP, untied heads)."""
+    MLP, untied heads, the MoE blocks' float32 router and stacked
+    experts, arctic's dense residual MLP)."""
     cfg_t, cfg_r = TC.get(name), RC.get(name)
     specs_r = jax.tree.map(lambda s: (tuple(s.shape), str(s.dtype)),
                            RM.param_specs(cfg_r),
@@ -87,6 +92,15 @@ def test_full_width_parameter_tree_equals_the_reference(name):
         assert blocks["wq"][0] == (28, 3072, 16 * 256)
     if name == "granite-20b":
         assert blocks["wk"][0] == (52, 6144, 128) and "w_gate" not in blocks
+        assert "lm_head" in specs_t
+    if name == "granite-moe-1b-a400m":
+        assert blocks["router"][:2] == ((24, 1024, 32), torch.float32)
+        assert blocks["w1"][0] == (24, 32, 1024, 512)
+        assert blocks["w2"][0] == (24, 32, 512, 1024)
+        assert "w_in" not in blocks and "lm_head" not in specs_t
+    if name == "arctic-480b":
+        assert blocks["w1"][0] == (35, 128, 7168, 4864)
+        assert blocks["w_in"][0] == (35, 7168, 4864)
         assert "lm_head" in specs_t
 
 

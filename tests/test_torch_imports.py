@@ -29,7 +29,10 @@ missing = sorted({{"repro_torch.pim.cost_model", "repro_torch.pim.autotune",
                   "repro_torch.kernels.crossbar_exec.ref",
                   "repro_torch.configs.gemma_7b",
                   "repro_torch.configs.granite_20b",
-                  "repro_torch.configs.h2o_danube_1_8b"}}
+                  "repro_torch.configs.h2o_danube_1_8b",
+                  "repro_torch.models.moe",
+                  "repro_torch.configs.granite_moe_1b_a400m",
+                  "repro_torch.configs.arctic_480b"}}
                  - set(names))
 print(len(names), bad, missing)
 """
