@@ -90,7 +90,27 @@ token ranked within ``PREFIX_LOGIT_TOL`` of the best by the naive decode
 fed those tokens; one decode step at batch 4 is profiled; then 4 of its
 layers in ``pim_sim``, tokens equal to the exact product's.  The GEMM is
 also timed at these models' decode shapes and at M = 4160, and one w_in
-crossbar launch at gemma's and granite's decode shape.
+crossbar launch at gemma's and granite's decode shape; the GEMM and the
+crossbar kernel are also timed at granite-moe's and jamba-v0.1's decode
+shapes.
+
+``serve_moe`` serves full-depth granite-moe-1b-a400m in ``quant`` and
+``pim_sim`` (tokens and prefill logits equal to the plain GEMM's or the
+exact product's, one launch per attention projection per decode step) and
+holds one layer's dispatch to a host recomputation of the reference's
+capacity rule.  ``serve_recurrent`` serves jamba-v0.1-52b at full width,
+one period of 8 layers (Mamba, attention and MoE blocks), unpadded
+(``prompt_bucket=1``): ``quant`` and ``pim_sim`` as ``serve_moe``, 16
+launches per decode step (the Mamba layers' MLPs and the attention
+layer's linears), the resident crossbar state equal to its host
+arithmetic, a profiled ``quant`` decode step with its Mamba mixers and MoE
+blocks under ``record_function`` ranges, and one Mamba layer's state
+continuity in float32 within the reference test's tolerance; then
+full-depth xlstm-1.3b, whose tokens at max_batch 1 equal a naive prefill
+and ``decode_step`` loop's bit for bit, whose pool at max_batch 4 holds
+exactly ``cache_specs``' bytes of state, whose evicted slots read back
+zero state, and which launches neither kernel.  Every model's weights
+are drawn on the card.
 
 Last it trains full-width qwen1.5-0.5b on fresh weights from the same seed.  ``train_quant``: 4 steps of
 ``launch.train.train_step`` at batch 4, seq 128 (every linear on the GEMM
@@ -149,6 +169,11 @@ WIDE_QUANT_SHAPES = tuple((4, k, n) for k, n in (
     (3072, 4096), (4096, 3072), (3072, 24576), (24576, 3072),
     (6144, 6144), (6144, 128), (6144, 24576), (24576, 6144))) + (
     (4160, 2560, 6912), (4160, 6912, 2560))
+# decode (M = 4) at granite-moe's wk/wv and at jamba-v0.1's MLP (w_in and
+# w_gate, w_out) and attention (wq/wo, wk/wv) linears
+MOE_QUANT_SHAPES = ((4, 1024, 512),)
+RECURRENT_QUANT_SHAPES = tuple((4, k, n) for k, n in (
+    (4096, 14336), (14336, 4096), (4096, 4096), (4096, 1024)))
 # last-token logits of one prompt from whole, prefix-resumed, chunked and
 # packed prefill (bf16 model, |logit| below about 0.5): a few bf16 ulps
 PREFIX_LOGIT_TOL = 0.02
@@ -308,7 +333,8 @@ def check_quant_kernel(dev):
                                  f"abs error {e}")
         err = max(err, e)
 
-    for m, k, n in path + ragged + edges + list(WIDE_QUANT_SHAPES):
+    served = WIDE_QUANT_SHAPES + MOE_QUANT_SHAPES + RECURRENT_QUANT_SHAPES
+    for m, k, n in path + ragged + edges + list(served):
         check(rand(m, k), rand(k, n), f"M, K, N = {m, k, n}")
     for m, k, n in ((4, 2816, 1024), (64, 1024, 2816)):
         for xv, wv in ((-128, -128), (127, -128), (127, 127), (-128, 127)):
@@ -341,8 +367,8 @@ def check_quant_kernel(dev):
                                  f" calls at {shape}: max abs error {e}")
     torch.cuda.synchronize()
     say(f"[quant_matmul_int] == plain (exact int32, max abs error {err}) on "
-        f"{len(path)} path shapes, {len(WIDE_QUANT_SHAPES)} shapes of the "
-        f"wide and windowed serves, {len(ragged)} ragged shapes, "
+        f"{len(path)} path shapes, {len(served)} shapes of the wide, "
+        f"windowed, MoE and recurrent serves, {len(ragged)} ragged shapes, "
         f"{len(edges)} split/column edges {edges}, 10 extreme-operand cases, "
         f"4 unaligned-pointer cases and {len(runs)} back-to-back calls (one "
         "shape 3 times, two interleaved)")
@@ -416,7 +442,7 @@ def check_quant_kernel(dev):
         f"{floor * 1e3:.2f} us")
     rows = {}
     timed = [s for s in path if s[0] in (1, 4, 16, 64, 512)]
-    for m, k, n in timed + list(WIDE_QUANT_SHAPES):
+    for m, k, n in timed + list(served):
         x = rand(m, k)
         ws = rotating(lambda: rand(k, n), k * n)
         ms = cuda_ms(lambda i: quant_matmul_int(x, ws[i % len(ws)]), 50)
@@ -623,14 +649,18 @@ def check_crossbar_kernel(dev):
         f"{floor * 1e3:.2f} us | one gate over one crossbar (n={n}, "
         f"W={w_words}): {one_gate * 1e3:.2f} us")
     # w_in of gemma-7b and of granite-20b at their decode shape (batch 2):
-    # 84 x 192 and 167 x 192 crossbars in one launch
+    # 84 x 192 and 167 x 192 crossbars in one launch; granite-moe's wq/wo
+    # and wk/wv (28 x 8 and 28 x 4); jamba-v0.1's w_in (111 x 112)
     wide = []
     for name, k, o in (("gemma-7b", 3072, 24576), ("granite-20b", 6144,
-                                                    24576)):
+                                                    24576),
+                       ("granite-moe-1b-a400m wq", 1024, 1024),
+                       ("granite-moe-1b-a400m wk", 1024, 512),
+                       ("jamba-v0.1-52b", 4096, 14336)):
         r = dict(model=name, **time_crossbar_at(dev, 2, k, o))
         err = max(err, r["max_abs_err"])
         wide.append(r)
-        say(f"[crossbar_exec] {name} w_in decode shape (M=2, K={k}, O={o}):"
+        say(f"[crossbar_exec] {name} decode shape (M=2, K={k}, O={o}):"
             f" C={r['shape'][0]} n={n} W={w_words} G={r['shape'][3]}: "
             f"kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.1f} ms | bound"
             f" {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}) | "
@@ -779,10 +809,12 @@ def serve(params, cfg, dev, *, n_requests, prompt_lens, max_new, max_batch,
     reqs = synthetic_requests(n_requests, vocab_size=cfg.vocab_size,
                               prompt_lens=prompt_lens,
                               max_new_tokens=max_new, seed=seed)
+    # a recurrent stack serves unpadded prompts (its state folds padding)
+    bucket = 1 if cfg.has_recurrent_blocks else max(8, max(prompt_lens) // 4)
     return serve_requests(params, cfg, dev,
                           [(r.prompt, r.max_new_tokens) for r in reqs],
                           max_batch=max_batch, paged=True,
-                          prompt_bucket=max(8, max(prompt_lens) // 4), **kw)
+                          prompt_bucket=bucket, **kw)
 
 
 def prefill_logits(params, cfg, tokens):
@@ -1295,7 +1327,8 @@ def profile_decode(params, cfg, dev, max_batch, top=6, max_new=4, **kw):
                                      synthetic_requests)
 
     sched = Scheduler(params, cfg, ServingConfig(
-        max_batch=max_batch, prompt_bucket=16, paged=True, **kw),
+        max_batch=max_batch, paged=True,
+        prompt_bucket=1 if cfg.has_recurrent_blocks else 16, **kw),
         device=dev)
     for r in synthetic_requests(max_batch, vocab_size=cfg.vocab_size,
                                 prompt_lens=(16,), max_new_tokens=max_new,
@@ -1312,7 +1345,7 @@ def profile_decode(params, cfg, dev, max_batch, top=6, max_new=4, **kw):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = counters()
-    per_step = len(linear_shapes(cfg)) * cfg.n_layers
+    per_step = len(step_linears(cfg))
     if cfg.pim_mode == "quant" and launches[0] != per_step:
         raise AssertionError(f"the quant decode step made {launches[0]} "
                              f"quant_matmul_int launches, expected one per "
@@ -1330,9 +1363,9 @@ def profile_decode(params, cfg, dev, max_batch, top=6, max_new=4, **kw):
     dev_us = sum(e.self_device_time_total for e in kernels)
     host_us = sum(e.self_cpu_time_total for e in events)
     memsets = sum(e.count for e in kernels if "memset" in e.key.lower())
-    name = f"{cfg.pim_mode} decode step, batch {max_batch}"
+    name = f"{cfg.name} {cfg.pim_mode} decode step, batch {max_batch}"
     if kw.get("speculative"):
-        name = (f"{cfg.pim_mode} speculative round (draft "
+        name = (f"{cfg.name} {cfg.pim_mode} speculative round (draft "
                 f"{kw['draft_mode']}, k {kw['draft_k']}), batch {max_batch}")
     say(f"[profile] {name}: wall {wall * 1e3:.2f} ms, device busy "
         f"{dev_us / 1e3:.2f} ms ({dev_us / 1e3 / (wall * 1e3) * 100:.1f}%), "
@@ -1346,6 +1379,36 @@ def profile_decode(params, cfg, dev, max_batch, top=6, max_new=4, **kw):
             f"{e.key[:70]}")
     return dict(wall_ms=wall * 1e3, busy_ms=dev_us / 1e3,
                 host_ops_ms=host_us / 1e3, events=events)
+
+
+def ranged(module, name):
+    """``module.name`` wrapped in a ``record_function`` range of its name
+    (a patch for a profiled step)."""
+    real = getattr(module, name)
+
+    def call(*a, **kw):
+        with torch.profiler.record_function(name):
+            return real(*a, **kw)
+
+    return mock.patch.object(module, name, call)
+
+
+def fmt_ms(v):
+    """A time in ms, or "not measured" where a trace lost it."""
+    return "not measured" if v is None else f"{v:.2f} ms"
+
+
+def range_times(prof, name):
+    """(host ms, calls, device-span ms) of a ``record_function`` range in
+    a profile (None where the trace lost it)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    host = [e for e in prof["events"]
+            if e.key == name and e.device_type != cuda]
+    span = [e for e in prof["events"]
+            if e.key == name and e.device_type == cuda]
+    return (host[0].cpu_time_total / 1e3 if host else None,
+            host[0].count if host else 0,
+            span[0].device_time_total / 1e3 if span else None)
 
 
 
@@ -2109,17 +2172,18 @@ def pim_state_bytes(m, k, o):
     return math.ceil(k / 37) * math.ceil(m * o / 256) * 1024 * 8 * 4
 
 
-def linear_shapes(cfg):
-    """(K, N) of each linear of one layer: the attention projections, and
-    the dense MLP's unless the block is ``"ae"`` (an MoE block's experts
-    are plain products, outside ``linear``)."""
+def step_linears(cfg):
+    """(K, N) of each linear one decode step runs, layer after layer: the
+    attention projections of the attention kinds and the dense MLP of
+    ``"ad"``, ``"ar"`` and ``"md"`` (an MoE's experts, Mamba's and
+    xLSTM's projections are plain products, outside ``linear``)."""
     d, h, kv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                         cfg.d_ff)
-    out = [(d, h * hd), (d, kv * hd), (d, kv * hd), (h * hd, d)]
-    if cfg.pattern == ("ae",):
-        return out
-    out += [(d, ff), (ff, d)]
-    return out + [(d, ff)] if cfg.gated_mlp else out
+    attn = [(d, h * hd), (d, kv * hd), (d, kv * hd), (h * hd, d)]
+    mlp = [(d, ff), (ff, d)] + ([(d, ff)] if cfg.gated_mlp else [])
+    per_kind = {"ad": attn + mlp, "ae": attn, "ar": attn + mlp, "md": mlp,
+                "me": [], "xm": [], "xs": []}
+    return [s for kind in cfg.pattern for s in per_kind[kind]] * cfg.n_super
 
 
 def wide_pim_limit(cfg, weights):
@@ -2130,8 +2194,8 @@ def wide_pim_limit(cfg, weights):
     two int64 bit-plane temporaries of about 2.3 times the state each)."""
     from repro_torch.pim import engine
 
-    elems = cfg.n_layers * sum(k * o for k, o in linear_shapes(cfg))
-    largest = max(pim_state_bytes(8, k, o) for k, o in linear_shapes(cfg))
+    elems = sum(k * o for k, o in step_linears(cfg))
+    largest = max(pim_state_bytes(8, k, o) for k, o in step_linears(cfg))
     return weights + 2 * elems + engine.MAX_RESIDENT_BYTES + 8 * largest
 
 
@@ -2159,8 +2223,8 @@ def serve_wide(name, dev):
         f"{base.n_kv_heads} KV heads, d_ff {base.d_ff} "
         f"{'gated' if base.gated_mlp else 'ungated'}, {base.activation}, "
         f"vocab {base.vocab_size}, "
-        f"{'tied' if base.tie_embeddings else 'untied'}) from seed 0 in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{'tied' if base.tie_embeddings else 'untied'}) drawn on the card "
+        f"from seed 0 in {time.perf_counter() - t0:.3f} s")
 
     # quant: 4 requests, prompts 16-64, 8 new tokens, batch 4, paged
     plens, max_new = (16, 32, 48, 64), 8
@@ -2223,8 +2287,8 @@ def serve_wide(name, dev):
                             seed=16)
     weights = footprint(params)[0]
     limit = wide_pim_limit(base, weights)
-    decode_state = base.n_layers * sum(pim_state_bytes(2, k, o)
-                                       for k, o in linear_shapes(base))
+    decode_state = sum(pim_state_bytes(2, k, o)
+                       for k, o in step_linears(base))
     say(f"[{name} pim_sim] 8-token prefill logits on the crossbar kernel == "
         f"exact 7-bit integer product (identical), {t_prefill:.2f} s on "
         f"transient state; served {psummary['n_finished']} requests "
@@ -2328,7 +2392,8 @@ def serve_window(dev):
         f"M parameters ({base.n_layers} layers, d_model {base.d_model}, "
         f"{base.n_heads} heads of {base.hd}, {base.n_kv_heads} KV heads, "
         f"d_ff {base.d_ff}, window {base.sliding_window}, vocab "
-        f"{base.vocab_size}) from seed 0 in {time.perf_counter() - t0:.1f} s")
+        f"{base.vocab_size}) drawn on the card from seed 0 in "
+        f"{time.perf_counter() - t0:.3f} s")
     cfg = base.scaled(pim_mode="quant", max_seq_len=max(
         p + n for p, n in WINDOW_RING_TRACE + WINDOW_SHORT_TRACE))
     rng = np.random.default_rng(17)
@@ -2606,9 +2671,9 @@ def serve_moe(dev):
         f"layers, d_model {base.d_model}, {base.n_heads} heads of {base.hd},"
         f" {base.n_kv_heads} KV heads, {base.n_experts} experts top "
         f"{base.top_k} of d_ff {base.moe_d_ff}, vocab {base.vocab_size} "
-        f"padded to {base.padded_vocab}, tied) from seed 0 in "
-        f"{time.perf_counter() - t0:.1f} s")
-    per_step = len(linear_shapes(base)) * base.n_layers
+        f"padded to {base.padded_vocab}, tied) drawn on the card from seed "
+        f"0 in {time.perf_counter() - t0:.3f} s")
+    per_step = len(step_linears(base))
     failures = []
 
     # quant: 8 requests, prompts 16-64, 8 new tokens, batch 4, paged
@@ -2679,8 +2744,8 @@ def serve_moe(dev):
     info2 = engine.cache_info()
     with mock.patch.object(engine, "matmul_int", exact_matmul):
         pwant, _, _ = pim_serve()
-    decode_state = base.n_layers * sum(pim_state_bytes(2, k, o)
-                                       for k, o in linear_shapes(base))
+    decode_state = sum(pim_state_bytes(2, k, o)
+                       for k, o in step_linears(base))
     x_steps = sorted({x for _, _, x in rec1 + rec2})
     say(f"[granite-moe pim_sim] 16-token prefill logits on the crossbar "
         f"kernel == exact 7-bit integer product: {p_prefill_equal}, "
@@ -2715,34 +2780,19 @@ def serve_moe(dev):
 
     # one quant decode step at batch 4, profiled, each MoE block under a
     # record_function range
-    real_ffn = model_mod.moe_ffn
-
-    def ranged(x, p, cfg):
-        with torch.profiler.record_function("moe_ffn"):
-            return real_ffn(x, p, cfg)
-
-    with mock.patch.object(model_mod, "moe_ffn", ranged):
+    with ranged(model_mod, "moe_ffn"):
         prof = profile_decode(params, qcfg, dev, 4)
-    cuda = torch.autograd.DeviceType.CUDA
-    host = [e for e in prof["events"]
-            if e.key == "moe_ffn" and e.device_type != cuda]
-    span = [e for e in prof["events"]
-            if e.key == "moe_ffn" and e.device_type == cuda]
-    moe_host_ms = host[0].cpu_time_total / 1e3 if host else None
-    moe_span_ms = span[0].device_time_total / 1e3 if span else None
+    moe_host_ms, moe_calls, moe_span_ms = range_times(prof, "moe_ffn")
     gemm_ms = sum(e.self_device_time_total for e in prof["events"]
                   if "quant_matmul_kernel" in e.key) / 1e3
-
-    def ms(v):
-        return "not measured" if v is None else f"{v:.2f} ms"
 
     say(f"[profile] granite-moe quant decode step, batch 4: wall "
         f"{prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms; "
         f"its {base.n_layers} MoE blocks ({base.n_layers * base.n_experts} "
-        f"expert iterations): host {ms(moe_host_ms)} over "
-        f"{host[0].count if host else 0} calls, device span "
-        f"{ms(moe_span_ms)}; its {per_step} GEMMs {gemm_ms:.3f} ms on the "
-        f"device")
+        f"expert iterations): host {fmt_ms(moe_host_ms)} over "
+        f"{moe_calls} calls, device span "
+        f"{fmt_ms(moe_span_ms)}; its {per_step} GEMMs {gemm_ms:.3f} ms on "
+        f"the device")
 
     before = footprint(params)
     del params
@@ -2758,6 +2808,367 @@ def serve_moe(dev):
         decode_wall_ms=prof["wall_ms"], decode_busy_ms=prof["busy_ms"],
         moe_host_ms=moe_host_ms, moe_span_ms=moe_span_ms, gemm_ms=gemm_ms,
         dispatch=dispatch)
+
+
+# --------------------------------------------------------------------------
+# the recurrent blocks: jamba-v0.1 (Mamba, attention, MoE) and xlstm-1.3b
+# --------------------------------------------------------------------------
+
+# jamba-v0.1 cut to one period (8 of 32 layers: md me md me ad me md me,
+# every block kind of the model): the whole model is 51.57 G parameters,
+# about 103 GB in bf16, beyond one card's 80 GB
+JAMBA_LAYERS = 8
+# Mamba state continuity at full width, float32: the reference test's
+# tolerance (tests/test_lm_correctness.py::test_mamba_state_continuity)
+MAMBA_CONT_RTOL, MAMBA_CONT_ATOL = 2e-3, 2e-4
+# xlstm-1.3b's requests: (prompt, new tokens) at max_batch 1 against the
+# naive decode, then at max_batch 4
+XLSTM_TRACE = ((16, 8), (48, 8))
+XLSTM_BATCH_TRACE = ((16, 8), (32, 8), (48, 8), (64, 8), (24, 8))
+
+
+def check_mamba_continuity(params, cfg, dev):
+    """One ``md`` layer's weights at full width in float32: the mixer over
+    12 tokens, and over the first 8 then the last 4 from the carried
+    state, agree within the reference test's tolerance.  Returns the
+    largest |diff| and whether it held."""
+    from repro_torch.models.ssm import mamba_mixer
+
+    p = {k: v[0].float() for k, v in params["blocks"]["0"].items()}
+    cfg32 = cfg.scaled(dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(29)
+    x = torch.randn((1, 12, cfg.d_model), generator=g, device=dev)
+    with torch.no_grad():
+        y_full, _ = mamba_mixer(x, p, cfg32, None)
+        _, st = mamba_mixer(x[:, :8], p, cfg32, None)
+        y_b, _ = mamba_mixer(x[:, 8:], p, cfg32, st)
+    want = y_full[:, 8:]
+    diff = (y_b - want).abs()
+    ok = bool(torch.isfinite(y_b).all()
+              and (diff <= MAMBA_CONT_ATOL
+                   + MAMBA_CONT_RTOL * want.abs()).all())
+    return float(diff.max()), ok
+
+
+def serve_jamba(dev):
+    """jamba-v0.1-52b at full width, one period (``JAMBA_LAYERS``), fresh
+    weights drawn on the card from seed 0, served at ``prompt_bucket=1``.
+    ``quant``: 8 requests of 16-64 prompt tokens, 8 new, batch 4, prefill
+    logits and tokens equal to the plain GEMM's, one GEMM per linear (16)
+    in each decode step.  ``pim_sim``: 2 requests of 8 and 16 tokens, 4
+    new, batch 2, served twice, logits and tokens equal to the exact
+    integer product's, one crossbar launch per linear per step, no upload
+    after the first decode step nor in the second serve, the resident
+    state equal to its host arithmetic.  Then a profiled ``quant`` decode
+    step (``mamba_mixer`` and ``moe_ffn`` under ``record_function``
+    ranges), a profiled ``pim_sim`` one, Mamba state continuity and the
+    release of the weights.
+    Returns (quant launches, crossbar launches, a summary)."""
+    from repro_torch import configs
+    from repro_torch.kernels.quant_matmul import ops, quant_matmul_int_ref
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import model_lib as M
+    from repro_torch.pim import engine
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: MoE routing needs float32 "
+                             "matmuls")
+    full = configs.get("jamba-v0.1-52b")
+    base = full.scaled(n_layers=JAMBA_LAYERS)
+    t0 = time.perf_counter()
+    params = M.init_params(base, seed=0, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    say(f"[jamba] full width, {base.n_layers} of {full.n_layers} layers "
+        f"({'/'.join(base.pattern)}): {M.param_count(base) / 1e9:.2f}G "
+        f"parameters (d_model {base.d_model}, {base.n_heads} heads, "
+        f"{base.n_kv_heads} KV heads, d_ff {base.d_ff} gated "
+        f"{base.activation}, {base.n_experts} experts top {base.top_k}, "
+        f"d_inner {base.d_inner}, d_state {base.mamba_d_state}, conv "
+        f"{base.mamba_d_conv}, dt_rank {base.dt_rank}, vocab "
+        f"{base.vocab_size}, untied) drawn on the card from seed 0 in "
+        f"{draw_s:.3f} s")
+    per_step = len(step_linears(base))
+    failures = []
+
+    # quant: 8 requests, prompts 16-64, 8 new tokens, batch 4, paged
+    plens, max_new = (16, 32, 48, 64), 8
+    qcfg = base.scaled(pim_mode="quant", max_seq_len=max(plens) + max_new)
+    toks = torch.as_tensor(np.random.default_rng(31).integers(
+        0, base.vocab_size, (1, 64)), device=dev)
+    got = prefill_logits(params, qcfg, toks)
+    with mock.patch.object(ops, "quant_matmul_int", quant_matmul_int_ref):
+        want = prefill_logits(params, qcfg, toks)
+    q_prefill_equal = bool(torch.isfinite(got).all()
+                           and torch.equal(got, want))
+    if not q_prefill_equal:
+        failures.append("quant prefill logits differ between the kernel and "
+                        "the plain GEMM")
+
+    def quant_serve():
+        return serve(params, qcfg, dev, n_requests=8, prompt_lens=plens,
+                     max_new=max_new, max_batch=4, seed=32)
+
+    reset_counters()
+    (tokens, summary, wall), steps = decode_records(quant_serve)
+    q_launches = counters()[0]
+    with mock.patch.object(ops, "quant_matmul_int", quant_matmul_int_ref):
+        plain, _, _ = quant_serve()
+    q_steps = sorted({q for _, q, _ in steps})
+    say(f"[jamba quant] 64-token prefill logits kernel == plain GEMM: "
+        f"{q_prefill_equal}; served {summary['n_finished']} requests "
+        f"(prompts {plens}, {max_new} new tokens, max_batch 4, paged, "
+        f"prompt_bucket 1) in {wall:.2f} s: {summary['tokens_per_s']:.2f} "
+        f"tok/s | mean TTFT {summary['mean_ttft_s'] * 1e3:.1f} ms | mean "
+        f"TPOT {summary['mean_tpot_s'] * 1e3:.2f} ms | quant_matmul_int "
+        f"launches {q_launches}, per decode step {q_steps} over "
+        f"{len(steps)} steps (expected {per_step}); tokens == the plain "
+        f"GEMM's: {tokens == plain} ({tokens[0]})")
+    if tokens != plain:
+        failures.append(f"quant tokens {tokens} vs the plain GEMM's {plain}")
+    if q_steps != [per_step] or any(x for _, _, x in steps):
+        failures.append(f"quant decode steps launched {steps}, expected "
+                        f"{per_step} GEMMs each")
+
+    # pim_sim: 2 requests of 8 and 16 tokens, 4 new tokens, batch 2, twice
+    plen, pnew = 16, 4
+    pcfg = base.scaled(pim_mode="pim_sim", max_seq_len=plen + pnew)
+    toks = torch.as_tensor(np.random.default_rng(33).integers(
+        0, base.vocab_size, (1, plen)), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = prefill_logits(params, pcfg, toks)
+    t_prefill = time.perf_counter() - t0
+    with mock.patch.object(engine, "matmul_int", exact_matmul):
+        want = prefill_logits(params, pcfg, toks)
+    p_prefill_equal = bool(torch.isfinite(got).all()
+                           and torch.equal(got, want))
+    if not p_prefill_equal:
+        failures.append("pim_sim prefill logits differ from the exact 7-bit "
+                        "integer product")
+
+    def pim_serve():
+        return serve(params, pcfg, dev, n_requests=2, prompt_lens=(8, plen),
+                     max_new=pnew, max_batch=2, seed=34)
+
+    info0 = engine.cache_info()
+    reset_counters()
+    (first, psummary, pwall), rec1 = decode_records(pim_serve)
+    info1 = engine.cache_info()
+    (second, _, _), rec2 = decode_records(pim_serve)
+    x_launches = counters()[1]
+    info2 = engine.cache_info()
+    peak = torch.cuda.max_memory_allocated()
+    with mock.patch.object(engine, "matmul_int", exact_matmul):
+        pwant, _, _ = pim_serve()
+    decode_state = sum(pim_state_bytes(2, k, o)
+                       for k, o in step_linears(base))
+    x_steps = sorted({x for _, _, x in rec1 + rec2})
+    say(f"[jamba pim_sim] 16-token prefill logits on the crossbar kernel == "
+        f"exact 7-bit integer product: {p_prefill_equal}, {t_prefill:.2f} s "
+        f"on transient state; served 2 requests (8- and 16-token prompts, "
+        f"{pnew} new tokens, max_batch 2, paged, prompt_bucket 1) twice, "
+        f"the first in {pwall:.2f} s: mean TTFT "
+        f"{psummary['mean_ttft_s'] * 1e3:.0f} ms | mean TPOT "
+        f"{psummary['mean_tpot_s'] * 1e3:.0f} ms | crossbar_exec launches "
+        f"{x_launches}, per decode step {x_steps} (expected {per_step}) | "
+        f"cold uploads after each decode step, first serve "
+        f"{[u - info0.exec_uploads for u, _, _ in rec1]}, second "
+        f"{[u - info1.exec_uploads for u, _, _ in rec2]} | resident "
+        f"{info2.resident_entries} states, {info2.resident_bytes} B (host "
+        f"arithmetic {decode_state} B, bound {engine.MAX_RESIDENT_BYTES} B) "
+        f"| peak allocated {peak / 2 ** 30:.2f} GiB; tokens (both serves) "
+        f"== exact product's: {first == second == pwant} ({first})")
+    if not first == second == pwant:
+        failures.append(f"pim_sim tokens {first}, {second} vs the exact "
+                        f"product's {pwant}")
+    if x_steps != [per_step] or any(q for _, q, _ in rec1 + rec2):
+        failures.append(f"pim_sim decode steps launched {rec1 + rec2}, "
+                        f"expected {per_step} crossbar launches each")
+    if len({u for u, _, _ in rec1}) != 1 or \
+            any(u != info1.exec_uploads for u, _, _ in rec2):
+        failures.append(f"pim_sim decode uploaded after its first step: "
+                        f"{rec1}, {rec2}")
+    if info2.resident_bytes != decode_state \
+            or decode_state > engine.MAX_RESIDENT_BYTES:
+        failures.append(f"{info2.resident_bytes} resident bytes, expected "
+                        f"{decode_state}")
+
+    # one quant decode step at batch 4, profiled, each Mamba mixer and MoE
+    # block under a record_function range
+    with ranged(model_mod, "mamba_mixer"), ranged(model_mod, "moe_ffn"):
+        prof = profile_decode(params, qcfg, dev, 4)
+    mamba = range_times(prof, "mamba_mixer")
+    moe = range_times(prof, "moe_ffn")
+    gemm_ms = sum(e.self_device_time_total for e in prof["events"]
+                  if "quant_matmul_kernel" in e.key) / 1e3
+
+    say(f"[profile] jamba quant decode step, batch 4: wall "
+        f"{prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms; "
+        f"its Mamba mixers: host {fmt_ms(mamba[0])} over {mamba[1]} calls, "
+        f"device span {fmt_ms(mamba[2])}; its MoE blocks: host "
+        f"{fmt_ms(moe[0])} over {moe[1]} calls, device span "
+        f"{fmt_ms(moe[2])}; its {per_step} "
+        f"GEMMs {gemm_ms:.3f} ms on the device")
+
+    # one pim_sim decode step at batch 2, profiled
+    pprof = profile_decode(params, pcfg, dev, 2)
+    xbar_ms = sum(e.self_device_time_total for e in pprof["events"]
+                  if "crossbar_exec_kernel" in e.key) / 1e3
+    say(f"[profile] jamba pim_sim decode step, batch 2: wall "
+        f"{pprof['wall_ms']:.2f} ms, device busy {pprof['busy_ms']:.2f} ms; "
+        f"its {per_step} crossbar launches {xbar_ms:.2f} ms on the device")
+
+    cont_err, cont_ok = check_mamba_continuity(params, base, dev)
+    say(f"[jamba] Mamba state continuity, one md layer at full width in "
+        f"float32: 8 tokens then 4 from the carried state vs 12 at once, "
+        f"max abs diff {cont_err:.3e} (rtol {MAMBA_CONT_RTOL}, atol "
+        f"{MAMBA_CONT_ATOL}): {cont_ok}")
+    if not cont_ok:
+        failures.append(f"Mamba state continuity off by {cont_err}")
+
+    before = footprint(params)
+    del params
+    check_released(base.name, before)
+    if failures:
+        raise AssertionError("serve_jamba: " + "; ".join(failures))
+    return q_launches, x_launches, dict(
+        layers=base.n_layers, params_g=M.param_count(base) / 1e9,
+        draw_s=draw_s, quant_tokens_per_s=summary["tokens_per_s"],
+        quant_tpot_ms=summary["mean_tpot_s"] * 1e3,
+        pim_tpot_ms=psummary["mean_tpot_s"] * 1e3,
+        pim_prefill_s=t_prefill, resident_bytes=info2.resident_bytes,
+        pim_peak_bytes=peak, decode_wall_ms=prof["wall_ms"],
+        decode_busy_ms=prof["busy_ms"], pim_decode_wall_ms=pprof["wall_ms"],
+        pim_decode_busy_ms=pprof["busy_ms"], pim_crossbar_ms=xbar_ms,
+        mamba_host_ms=mamba[0],
+        mamba_span_ms=mamba[2], moe_host_ms=moe[0], moe_span_ms=moe[2],
+        gemm_ms=gemm_ms, continuity_max_abs_diff=cont_err)
+
+
+def serve_xlstm(dev):
+    """Full-width, full-depth xlstm-1.3b (48 layers) on fresh weights drawn
+    on the card from seed 0, in ``quant`` at ``prompt_bucket=1``: at
+    max_batch 1 its tokens equal a naive per-request prefill and
+    ``decode_step`` loop's bit for bit; at max_batch 4 the pool holds
+    exactly ``cache_specs``' bytes of state and every evicted slot reads
+    back zero ``c``/``n``/``m``; one decode step at batch 4 is profiled.
+    Neither kernel launches: the xLSTM projections are plain products,
+    outside ``linear``.  Returns a summary."""
+    from repro_torch import configs
+    from repro_torch.models import model_lib as M
+
+    base = configs.get("xlstm-1.3b")
+    t0 = time.perf_counter()
+    params = M.init_params(base, seed=0, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    say(f"[xlstm] full-width {base.name}: {M.param_count(base) / 1e9:.2f}G "
+        f"parameters ({base.n_layers} layers, {'/'.join(base.pattern)}, "
+        f"d_model {base.d_model}, {base.n_heads} heads, proj factor "
+        f"{base.xlstm_proj_factor}, vocab {base.vocab_size}, tied) drawn on "
+        f"the card from seed 0 in {draw_s:.3f} s")
+    failures = []
+    qcfg = base.scaled(pim_mode="quant",
+                       max_seq_len=max(p + n for p, n in XLSTM_BATCH_TRACE))
+    rng = np.random.default_rng(35)
+    trace = [(rng.integers(1, base.vocab_size, p), n) for p, n in XLSTM_TRACE]
+    kw = dict(paged=True, prompt_bucket=1)
+
+    reset_counters()
+    tokens, sched, wall = run_scheduler(params, qcfg, dev, trace,
+                                        max_batch=1, **kw)
+    del sched
+    naive = [ring_oracle(params, qcfg, dev, p, n)[0] for p, n in trace]
+    launches1 = counters()
+    say(f"[xlstm quant] served {len(trace)} requests (prompts "
+        f"{[p for p, _ in XLSTM_TRACE]}, 8 new tokens, max_batch 1, paged, "
+        f"prompt_bucket 1) in {wall:.2f} s; tokens == naive prefill + "
+        f"decode_step loop: {tokens == naive} ({tokens[0]}); kernel "
+        f"launches (quant_matmul_int, crossbar_exec) {launches1}")
+    if tokens != naive:
+        failures.append(f"batch-1 tokens {tokens} vs the naive decode's "
+                        f"{naive}")
+
+    from repro_torch.serving import Scheduler, ServingConfig, make_request
+
+    sched = Scheduler(params, qcfg, ServingConfig(max_batch=4, **kw),
+                      device=dev)
+    real_evict = sched.pool.evict
+    evicted = []
+
+    def evict(slot):
+        """The pool's evict, recording whether the slot held state before
+        and reads back zero c/n/m after."""
+        before_evict = sched.pool.read_slot(slot)
+        real_evict(slot)
+        after = sched.pool.read_slot(slot)
+        evicted.append((
+            any(bool(c["c"].any()) for c in before_evict.values()),
+            not any(bool(c[k].any()) for c in after.values()
+                    for k in ("c", "n", "m"))))
+
+    sched.pool.evict = evict
+    for p, n in XLSTM_BATCH_TRACE:
+        sched.submit_request(make_request(
+            rng.integers(1, base.vocab_size, p), n,
+            arrival_time=time.monotonic()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        sched.run()
+    torch.cuda.synchronize()
+    bwall = time.perf_counter() - t0
+    launches = counters()
+    held = sum(t.numel() * t.element_size()
+               for c in sched.pool.caches.values() for t in c.values())
+    want_bytes = sum(math.prod(shape) * torch.empty((), dtype=dt)
+                     .element_size() for c in M.cache_specs(
+                         qcfg, 4, qcfg.max_seq_len).values()
+                     for shape, dt in c.values())
+    summary = sched.metrics.summary()
+    say(f"[xlstm quant] served {len(XLSTM_BATCH_TRACE)} requests (prompts "
+        f"{[p for p, _ in XLSTM_BATCH_TRACE]}, 8 new tokens, max_batch 4) "
+        f"in {bwall:.2f} s: {summary['tokens_per_s']:.2f} tok/s | mean TTFT "
+        f"{summary['mean_ttft_s'] * 1e3:.1f} ms | mean TPOT "
+        f"{summary['mean_tpot_s'] * 1e3:.2f} ms | pool state {held} B "
+        f"(cache_specs at batch 4: {want_bytes} B) | evicts {len(evicted)}, "
+        f"each held state before and read back zero c/n/m after: "
+        f"{all(a and b for a, b in evicted)} | kernel launches "
+        f"(quant_matmul_int, crossbar_exec) over both serves {launches}")
+    if held != want_bytes:
+        failures.append(f"the pool holds {held} B of state, expected "
+                        f"{want_bytes}")
+    if len(evicted) != len(XLSTM_BATCH_TRACE) \
+            or not all(a and b for a, b in evicted):
+        failures.append(f"evicted slots {evicted}: each must hold state and "
+                        "read back zeros")
+    if launches != (0, 0):
+        failures.append(f"xLSTM launched the kernels {launches} times")
+    del sched
+    # one decode step at batch 4, profiled (neither kernel may launch)
+    prof = profile_decode(params, qcfg, dev, 4)
+    if counters() != (0, 0):
+        failures.append(f"the profiled xLSTM step launched {counters()}")
+    before = footprint(params)
+    del params
+    check_released(base.name, before)
+    if failures:
+        raise AssertionError("serve_xlstm: " + "; ".join(failures))
+    return dict(layers=base.n_layers, params_g=M.param_count(base) / 1e9,
+                draw_s=draw_s, tokens_per_s=summary["tokens_per_s"],
+                tpot_ms=summary["mean_tpot_s"] * 1e3,
+                decode_wall_ms=prof["wall_ms"],
+                decode_busy_ms=prof["busy_ms"],
+                state_bytes=held, batch1_equal_naive=tokens == naive)
+
+
+def serve_recurrent(dev):
+    """jamba-v0.1-52b (one full-width period) and full xlstm-1.3b on the
+    card (``serve_jamba``, ``serve_xlstm``).  Returns (jamba's quant
+    launches, its crossbar launches, a summary)."""
+    q, x, jamba = serve_jamba(dev)
+    return q, x, dict(jamba=jamba, xlstm=serve_xlstm(dev))
 
 
 # --------------------------------------------------------------------------
@@ -2802,8 +3213,8 @@ def main() -> int:
     say(f"[params] full-width {base.name}: {M.param_count(base) / 1e6:.1f}M "
         f"parameters ({base.n_layers} layers, d_model {base.d_model}, "
         f"d_ff {base.d_ff}, vocab {base.vocab_size} padded to "
-        f"{base.padded_vocab}, {base.dtype}) from seed 0 in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{base.padded_vocab}, {base.dtype}) drawn on the card from seed 0 "
+        f"in {time.perf_counter() - t0:.3f} s")
 
     q_launches, qcfg, q_tokens = serve_quant(params, base, dev)
     x_launches, pcfg, pim_tokens = serve_pim(params, base, dev)
@@ -2824,6 +3235,7 @@ def main() -> int:
     wide = {name: serve_wide(name, dev) for name in WIDE_LAYERS}
     win_q, win_x, win = serve_window(dev)
     moe_q, moe_x, moe_run = serve_moe(dev)
+    rec_q, rec_x, rec_run = serve_recurrent(dev)
     # training: fresh weights from the same seed; the serve phases' params
     # stay as they are
     tq_launches, tq = train_quant(base, dev, quant_rows)
@@ -2841,6 +3253,7 @@ def main() -> int:
              launches_train_path=tq_launches,
              launches_wide_path={k: v[0] for k, v in wide.items()},
              launches_window_path=win_q, launches_moe_path=moe_q,
+             launches_recurrent_path=rec_q,
              max_abs_err=qrow["max_abs_err"],
              exact=qrow["max_abs_err"] == 0,
              shape=[4, 1024, 2816], ms=qrow["ms"], plain_ms=qrow["plain_ms"],
@@ -2857,9 +3270,10 @@ def main() -> int:
                  key: quant_rows[shape][key]
                  for key in ("ms", "plain_ms", "library_ms", "library",
                              "bound_ms", "bound_by")})
-                 for shape in WIDE_QUANT_SHAPES],
+                 for shape in WIDE_QUANT_SHAPES + MOE_QUANT_SHAPES
+                 + RECURRENT_QUANT_SHAPES],
              wide={k: v[2] for k, v in wide.items()}, window=win,
-             moe=moe_run,
+             moe=moe_run, recurrent=rec_run,
              train=tq, restart_drill=drill),
         dict(name="crossbar_exec", route="cuda",
              source="src/repro_torch/kernels/csrc/crossbar_exec.cu",
@@ -2871,6 +3285,7 @@ def main() -> int:
              launches_train_path=tp_launches,
              launches_wide_path={k: v[1] for k, v in wide.items()},
              launches_window_path=win_x, launches_moe_path=moe_x,
+             launches_recurrent_path=rec_x,
              max_abs_err=xbar_row["max_abs_err"],
              exact=xbar_row["max_abs_err"] == 0,
              shape=xbar_row["shape"], ms=xbar_row["ms"],

@@ -1,10 +1,10 @@
 """Architecture registry: one module per config, ``get(name)`` API.
 
 The registry holds the configurations the port can run: the dense
-``"ad"`` stack, sliding windows included, and the MoE blocks ``"ae"``
-(granite-moe) and ``"ar"`` (arctic, with its dense residual).  The SSM
-hybrid, xLSTM and encoder-decoder or vision configs wait in ROADMAP.md
-queue 1."""
+``"ad"`` stack, sliding windows included, the MoE blocks ``"ae"``
+(granite-moe) and ``"ar"`` (arctic, with its dense residual), the
+Mamba/attention/MoE hybrid jamba and the xLSTM stack.  The
+encoder-decoder and vision configs wait in ROADMAP.md queue 1."""
 from __future__ import annotations
 
 import importlib
@@ -19,6 +19,8 @@ _MODULES = {
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "arctic-480b": "arctic_480b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 ARCH_NAMES: List[str] = list(_MODULES)

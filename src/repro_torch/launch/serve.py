@@ -198,7 +198,9 @@ def main(argv=None):
         args.requests, vocab_size=cfg.vocab_size, prompt_lens=plens,
         max_new_tokens=args.max_new_tokens, seed=args.seed,
         start_time=time.monotonic(), shared_prefix_len=args.shared_prefix)
-    bucket = max(8, max(plens) // 4)
+    # recurrent blocks fold right-padding into their state: serve those
+    # unbucketed (exact)
+    bucket = 1 if cfg.has_recurrent_blocks else max(8, max(plens) // 4)
     results, summary = serve_trace(
         params, cfg, requests, max_batch=args.batch, prompt_bucket=bucket,
         paged=args.paged, block_size=args.block_size,

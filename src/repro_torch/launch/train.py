@@ -68,6 +68,8 @@ def build_cfg(args):
                   dtype="float32", remat=False, loss_chunk=1 << 30)
         if cfg.n_experts:
             kw.update(n_experts=8, top_k=2, moe_d_ff=kw["d_ff"] // 4)
+        if cfg.family == "ssm":
+            kw.update(n_kv_heads=kw["n_heads"])
         cfg = cfg.scaled(**kw)
     elif args.layers:
         cfg = cfg.scaled(n_layers=args.layers)
@@ -93,7 +95,7 @@ def _autotune_report(cfg, tokens: int, device) -> None:
     from repro_torch.pim import autotune
 
     mode = cfg.pim_mode or "raw"
-    found = sorted({tuple(shape) for _, (shape, _, _)
+    found = sorted({tuple(shape) for _, (shape, *_)
                     in leaves(M.param_specs(cfg)) if len(shape) == 2})
     print(f"[autotune] cost-model report, {len(found)} linear shape(s) at "
           f"{tokens} tokens ({mode}):")

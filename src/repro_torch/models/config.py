@@ -1,6 +1,6 @@
 """Model configuration, with the reference's fields for every architecture
-(the port runs the dense ``"ad"`` and the MoE ``"ae"``/``"ar"`` blocks so
-far).
+(the port runs the dense ``"ad"``, the MoE ``"ae"``/``"ar"``, the Mamba
+``"md"``/``"me"`` and the xLSTM ``"xm"``/``"xs"`` blocks so far).
 
 A model is a stack of *super-blocks*: ``pattern`` lists the layer kinds of
 one period; the stack is ``n_layers / len(pattern)`` periods, with
@@ -107,8 +107,22 @@ class ModelConfig:
         return self.n_layers // len(self.pattern)
 
     @property
+    def dt_rank(self) -> int:
+        return self.mamba_dt_rank or max(1, self.d_model // 16)
+
+    @property
+    def d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
     def is_encoder_decoder(self) -> bool:
         return self.n_encoder_layers > 0
+
+    @property
+    def has_recurrent_blocks(self) -> bool:
+        """Any SSM/xLSTM block in the stack (state folds the whole prefix,
+        so e.g. right-padded prompts are not admissible)."""
+        return any(k in ("md", "me", "xm", "xs") for k in self.pattern)
 
     def window_ring_blocks(self, block_size: int) -> Optional[int]:
         """Blocks in a sliding-window decode ring (None when unwindowed).
@@ -130,6 +144,15 @@ class ModelConfig:
         nb = -(-max(int(n_tokens), 1) // block_size)
         ring = self.window_ring_blocks(block_size)
         return nb if ring is None else min(nb, ring)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Whether long-context decode is admissible: sliding-window
+        attention bounds the cache; SSM/hybrid blocks keep O(1)/O(S)
+        per-token state.  Pure full-attention stacks are not."""
+        if self.sliding_window:
+            return True
+        return self.has_recurrent_blocks
 
     def scaled(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

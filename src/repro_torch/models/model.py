@@ -1,5 +1,6 @@
 """Model assembly: parameter specs, prefill, decode and the train mode of
-the dense ``"ad"`` stack and the MoE blocks ``"ae"`` and ``"ar"``.
+the dense ``"ad"`` stack, the MoE blocks ``"ae"`` and ``"ar"``, the Mamba
+blocks ``"md"`` and ``"me"`` and the xLSTM blocks ``"xm"`` and ``"xs"``.
 
 Parameters keep the reference's tree: ``{"embed", "final_norm", "blocks":
 {"0": {name: (n_super, ...)}}}`` with every block weight stacked over the
@@ -46,8 +47,20 @@ in the reference; the router is a float32 product.  A multi-position
 decode step routes all its ``B * S`` rows together, as the reference
 does, so the capacity counts them all.
 
-Not ported yet (ROADMAP queue 1): Mamba (``"md"``, ``"me"``), xLSTM,
-cross-attention and encoders; they raise ``NotImplementedError``.
+The recurrent blocks keep per-slot state in the caches instead of KV:
+Mamba (``"md"``, ``"me"``: :func:`ssm.mamba_mixer`, then the dense MLP or
+the MoE) holds ``ssm`` (float32) and ``conv``, xLSTM (``"xm"``, ``"xs"``:
+:mod:`xlstm`) ``c``, ``n`` and ``m`` (float32).  Their projections are
+plain products in the compute dtype, outside ``linear``, as in the
+reference.  Decode writes the new state back into the pool's leaves in
+place for every slot; an inactive slot computes on stale state, as in the
+reference, and the next admit overwrites it.  Their state folds the whole
+prefix, so the scheduler serves them unpadded (``prompt_bucket=1``) and
+without prefix sharing, chunks, packs or speculation.
+
+Not ported yet (ROADMAP queue 1): cross-attention and encoders (the
+``"adx"`` and ``"enc"`` kinds, enc-dec and vision configs); they raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -65,26 +78,34 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (activation, apply_rope, embed_lookup,
                                        linear, rms_norm, unembed)
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.ssm import mamba_mixer
+from repro_torch.models.xlstm import mlstm_block, slstm_block
 from repro_torch.tree import leaves as _leaves
 
 Params = Dict[str, Any]
-# (shape, dtype, init kind) — init is "normal" (std 1/sqrt(fan_in)), "zeros"
-# or "ones", as in the reference's ``layers.materialize``
-Spec = Tuple[Tuple[int, ...], torch.dtype, str]
+# (shape, dtype, init kind, scale) — init is "normal" (std
+# scale/sqrt(fan_in)), "zeros", "ones" or "alog" (log(1..d_state) along the
+# last dim), as in the reference's ``layers.materialize``
+Spec = Tuple[Tuple[int, ...], torch.dtype, str, float]
 
 #: Attention-KV leaf names eligible for block paging.
 PAGED_KV_KEYS = ("k", "v", "k_scale", "v_scale")
 
-#: Block kinds the port runs: dense, MoE, MoE with a dense residual.
-PORTED_KINDS = ("ad", "ae", "ar")
+#: Block kinds the port runs: dense, MoE, MoE with a dense residual, Mamba
+#: with a dense MLP or the MoE, mLSTM and sLSTM.
+PORTED_KINDS = ("ad", "ae", "ar", "md", "me", "xm", "xs")
+
+_ATTN_KINDS = ("ad", "ae", "ar")
+_MAMBA_KINDS = ("md", "me")
+_XLSTM_KINDS = ("xm", "xs")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     bad = [k for k in cfg.pattern if k not in PORTED_KINDS]
     if bad or cfg.is_encoder_decoder or cfg.vision_dim:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense 'ad' and MoE 'ae'/'ar' blocks are "
-            "ported so far (SSM, xLSTM and enc-dec wait in ROADMAP.md "
+            f"{cfg.name}: only the {'/'.join(PORTED_KINDS)} blocks are "
+            "ported so far (enc-dec and cross-attention wait in ROADMAP.md "
             "queue 1)")
 
 
@@ -112,65 +133,124 @@ def ring_slot_positions(last_pos, r, ring: int, window: int):
 # parameter specs
 # ==========================================================================
 
+def _spec(shape, dt, init: str = "normal", scale: float = 1.0) -> Spec:
+    return (tuple(shape), dt, init, scale)
+
+
 def _attn_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     f32 = torch.float32
     s = {
-        "norm1": ((d,), f32, "ones"),
-        "wq": ((d, h * hd), dt, "normal"),
-        "wk": ((d, hkv * hd), dt, "normal"),
-        "wv": ((d, hkv * hd), dt, "normal"),
-        "wo": ((h * hd, d), dt, "normal"),
+        "norm1": _spec((d,), f32, "ones"),
+        "wq": _spec((d, h * hd), dt),
+        "wk": _spec((d, hkv * hd), dt),
+        "wv": _spec((d, hkv * hd), dt),
+        "wo": _spec((h * hd, d), dt),
     }
     if cfg.qkv_bias:
-        s.update(bq=((h * hd,), f32, "zeros"),
-                 bk=((hkv * hd,), f32, "zeros"),
-                 bv=((hkv * hd,), f32, "zeros"))
+        s.update(bq=_spec((h * hd,), f32, "zeros"),
+                 bk=_spec((hkv * hd,), f32, "zeros"),
+                 bv=_spec((hkv * hd,), f32, "zeros"))
     return s
 
 
 def _mlp_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
     d, ff = cfg.d_model, cfg.d_ff
-    s = {"norm2": ((d,), torch.float32, "ones"),
-         "w_in": ((d, ff), dt, "normal"),
-         "w_out": ((ff, d), dt, "normal")}
+    s = {"norm2": _spec((d,), torch.float32, "ones"),
+         "w_in": _spec((d, ff), dt),
+         "w_out": _spec((ff, d), dt)}
     if cfg.gated_mlp:
-        s["w_gate"] = ((d, ff), dt, "normal")
+        s["w_gate"] = _spec((d, ff), dt)
     return s
 
 
 def _moe_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
     d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
-    return {"norm_moe": ((d,), torch.float32, "ones"),
-            "router": ((d, e), torch.float32, "normal"),
-            "w1": ((e, d, f), dt, "normal"),
-            "w2": ((e, f, d), dt, "normal"),
-            "w3": ((e, d, f), dt, "normal")}
+    return {"norm_moe": _spec((d,), torch.float32, "ones"),
+            "router": _spec((d, e), torch.float32),
+            "w1": _spec((e, d, f), dt),
+            "w2": _spec((e, f, d), dt),
+            "w3": _spec((e, d, f), dt)}
+
+
+def _mamba_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
+    d, di, ds, dc, dtr = (cfg.d_model, cfg.d_inner, cfg.mamba_d_state,
+                          cfg.mamba_d_conv, cfg.dt_rank)
+    f32 = torch.float32
+    return {"norm_m": _spec((d,), f32, "ones"),
+            "in_proj": _spec((d, 2 * di), dt),
+            "conv_w": _spec((dc, di), f32, "normal", 0.5),
+            "conv_b": _spec((di,), f32, "zeros"),
+            "x_proj": _spec((di, dtr + 2 * ds), dt),
+            "dt_proj": _spec((dtr, di), f32, "normal", 0.5),
+            "dt_bias": _spec((di,), f32, "zeros"),
+            "a_log": _spec((di, ds), f32, "alog"),
+            "d_skip": _spec((di,), f32, "ones"),
+            "out_proj": _spec((di, d), dt)}
+
+
+def _xlstm_inner(cfg: ModelConfig) -> Tuple[int, int]:
+    """(p, dh): the xLSTM blocks' inner width and head width."""
+    p = int(cfg.xlstm_proj_factor * cfg.d_model)
+    p -= p % cfg.n_heads
+    return p, p // cfg.n_heads
+
+
+def _mlstm_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
+    d, nh = cfg.d_model, cfg.n_heads
+    p, dh = _xlstm_inner(cfg)
+    return {"norm_x": _spec((d,), torch.float32, "ones"),
+            "up_proj": _spec((d, 2 * p), dt),
+            # block-diagonal per-head projections
+            "wq": _spec((nh, dh, dh), dt),
+            "wk": _spec((nh, dh, dh), dt),
+            "wv": _spec((nh, dh, dh), dt),
+            "w_gates": _spec((p, 2 * nh), torch.float32, "normal", 0.5),
+            "down_proj": _spec((p, d), dt)}
+
+
+def _slstm_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
+    d, nh = cfg.d_model, cfg.n_heads
+    p, dh = _xlstm_inner(cfg)
+    return {"norm_x": _spec((d,), torch.float32, "ones"),
+            "up_proj": _spec((d, 2 * p), dt),
+            "wz": _spec((nh, dh, dh), dt),
+            "w_gates": _spec((p, 3 * nh), torch.float32, "normal", 0.5),
+            "down_proj": _spec((p, d), dt)}
 
 
 def _block_specs(kind: str, cfg: ModelConfig, dt) -> Dict[str, Spec]:
-    s = _attn_specs(cfg, dt)
-    if kind in ("ad", "ar"):
+    s: Dict[str, Spec] = {}
+    if kind in _ATTN_KINDS:
+        s.update(_attn_specs(cfg, dt))
+    if kind in ("ad", "md", "ar"):
         s.update(_mlp_specs(cfg, dt))
-    if kind in ("ae", "ar"):
+    if kind in ("ae", "ar", "me"):
         s.update(_moe_specs(cfg, dt))
+    if kind in _MAMBA_KINDS:
+        s.update(_mamba_specs(cfg, dt))
+    if kind == "xm":
+        s.update(_mlstm_specs(cfg, dt))
+    if kind == "xs":
+        s.update(_slstm_specs(cfg, dt))
     return s
 
 
 def param_specs(cfg: ModelConfig) -> Params:
-    """The parameter tree as ``(shape, dtype, init)`` leaves."""
+    """The parameter tree as ``(shape, dtype, init, scale)`` leaves."""
     _check_supported(cfg)
     dt = cfg.compute_dtype
     v, d, ns = cfg.padded_vocab, cfg.d_model, cfg.n_super
     out: Params = {
-        "embed": ((v, d), dt, "normal"),
-        "final_norm": ((d,), torch.float32, "ones"),
-        "blocks": {str(i): {k: ((ns,) + shp, t, init) for k, (shp, t, init)
+        "embed": _spec((v, d), dt),
+        "final_norm": _spec((d,), torch.float32, "ones"),
+        "blocks": {str(i): {k: ((ns,) + shp, t, init, scale)
+                            for k, (shp, t, init, scale)
                             in _block_specs(kind, cfg, dt).items()}
                    for i, kind in enumerate(cfg.pattern)},
     }
     if not cfg.tie_embeddings:
-        out["lm_head"] = ((v, d), dt, "normal")
+        out["lm_head"] = _spec((v, d), dt)
     return out
 
 
@@ -180,24 +260,47 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
+def _leaf_generator(seed: int, i: int, dev) -> torch.Generator:
+    """The generator of random leaf ``i``: seeded from
+    ``numpy.random.SeedSequence([seed, i])``, on ``dev``."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(np.random.SeedSequence([seed, i]).generate_state(
+        1, np.uint64)[0]))
+    return g
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
-    """Random parameters from a numpy seed (the reference's init rule:
-    normal leaves draw std ``1/sqrt(fan_in)``).  Leaves are drawn in
-    sorted-path order from one ``numpy.random.Generator(PCG64(seed))``,
-    as float32, then cast to the leaf dtype on ``device``."""
+    """Random parameters drawn on ``device`` (the reference's init rule:
+    normal leaves draw std ``scale/sqrt(fan_in)``, ``"alog"`` leaves hold
+    ``log(1..d_state)``).
+
+    Random leaf ``i``, in sorted-path order, draws ``torch.randn`` as
+    float32 on ``device`` from its own generator
+    (:func:`_leaf_generator`), is scaled and cast to the leaf dtype; no
+    host array is made.  The draw is deterministic for a given seed and
+    device type (on a card, for a given card model), but the CPU and CUDA
+    generators differ: one seed gives other weights on the CPU than on a
+    card.  Parity with the reference goes through :func:`from_reference`,
+    not through this draw."""
     dev = resolve_device(device)
-    rng = np.random.Generator(np.random.PCG64(seed))
     out: Params = {}
-    for path, (shape, dt, init) in _leaves(param_specs(cfg)):
+    i = 0
+    for path, (shape, dt, init, scale) in _leaves(param_specs(cfg)):
         if init == "zeros":
             t = torch.zeros(shape, dtype=dt, device=dev)
         elif init == "ones":
             t = torch.ones(shape, dtype=dt, device=dev)
+        elif init == "alog":
+            # S4/Mamba A = -(1..d_state) per channel: d_state values
+            row = np.log(np.arange(1, shape[-1] + 1, dtype=np.float32))
+            t = torch.from_numpy(row).to(dev).expand(shape).to(dt)
+            t = t.contiguous()
         else:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-            a = rng.standard_normal(shape, dtype=np.float32)
-            a *= np.float32(1.0 / math.sqrt(max(1, fan_in)))
-            t = torch.from_numpy(a).to(device=dev, dtype=dt)
+            t = torch.randn(shape, dtype=torch.float32, device=dev,
+                            generator=_leaf_generator(seed, i, dev))
+            t = t.mul_(scale / math.sqrt(max(1, fan_in))).to(dt)
+            i += 1
         _set(out, path, t)
     return out
 
@@ -215,7 +318,7 @@ def from_reference(params_np, cfg: ModelConfig, device="cuda") -> Params:
     bit, on ``device``."""
     dev = resolve_device(device)
     out: Params = {}
-    for path, (shape, dt, _) in _leaves(param_specs(cfg)):
+    for path, (shape, dt, _, _) in _leaves(param_specs(cfg)):
         node = params_np
         for k in path:
             node = node[k]
@@ -474,18 +577,57 @@ def _moe(x, p, cfg: ModelConfig, dense_residual: bool, run: bool = False):
     return x + y
 
 
+def _recurrent_cache(mode, cache, state):
+    """A recurrent block's cache out: its new ``state`` after prefill;
+    after decode the pool's leaves, updated in place from it; None in
+    train."""
+    if mode == "decode":
+        for key, t in state.items():
+            cache[key].copy_(t.to(cache[key].dtype))
+        return cache
+    return state if mode == "prefill" else None
+
+
+def _mamba(x, p, cfg: ModelConfig, mode, cache):
+    hh = rms_norm(x, p["norm_m"], cfg.norm_eps)
+    state = (cache["ssm"], cache["conv"]) if mode == "decode" else None
+    y, (ssm, conv) = mamba_mixer(hh, p, cfg, state)
+    return x + y, _recurrent_cache(mode, cache, {
+        "ssm": ssm.to(torch.float32), "conv": conv.to(cfg.compute_dtype)})
+
+
+def _xlstm(x, p, cfg: ModelConfig, mode, cache, kind):
+    hh = rms_norm(x, p["norm_x"], cfg.norm_eps)
+    fn = mlstm_block if kind == "xm" else slstm_block
+    state = ((cache["c"], cache["n"], cache["m"]) if mode == "decode"
+             else None)
+    y, (c, n, m) = fn(hh, p, cfg, state)
+    return x + y, _recurrent_cache(mode, cache, {
+        "c": c.to(torch.float32), "n": n.to(torch.float32),
+        "m": m.to(torch.float32)})
+
+
 def apply_block(kind: str, x, p, cfg: ModelConfig, *, positions, mode,
                 cache=None, pos=None, block_tables=None, segment_ids=None):
-    """Returns (x, cache_out or None)."""
+    """Returns (x, cache_out or None), in the reference's order: the
+    mixer (self-attention, Mamba or xLSTM), then the dense MLP (``"ad"``,
+    ``"md"``) or the MoE (``"ae"``, ``"me"``; ``"ar"`` with arctic's dense
+    residual)."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    x, c = _self_attention(x, p, cfg, positions, mode, cache, pos,
-                           block_tables=block_tables,
-                           segment_ids=segment_ids)
+    # a multi-position decode step: the speculative verify run
     run = mode == "decode" and x.shape[1] > 1
-    if kind == "ad":
-        x = _mlp(x, p, cfg, run=run)
+    if kind in _ATTN_KINDS:
+        x, c = _self_attention(x, p, cfg, positions, mode, cache, pos,
+                               block_tables=block_tables,
+                               segment_ids=segment_ids)
+    elif kind in _MAMBA_KINDS:
+        x, c = _mamba(x, p, cfg, mode, cache)
     else:
+        x, c = _xlstm(x, p, cfg, mode, cache, kind)
+    if kind in ("ad", "md"):
+        x = _mlp(x, p, cfg, run=run)
+    elif kind in ("ae", "me", "ar"):
         x = _moe(x, p, cfg, dense_residual=kind == "ar", run=run)
     return x, c
 
@@ -809,20 +951,37 @@ def decode_run_slots(params, tokens, pos, active, caches, cfg: ModelConfig,
 # ==========================================================================
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Dict:
-    """``(shape, dtype)`` of the contiguous decode caches."""
+    """``(shape, dtype)`` of the contiguous decode caches: KV for the
+    attention kinds, slot-indexed recurrent state for Mamba (``ssm``,
+    ``conv``) and xLSTM (``c``, ``n``, ``m``); a layer with no leaves has
+    no entry."""
     _check_supported(cfg)
-    ns, hkv, hd = cfg.n_super, cfg.n_kv_heads, cfg.hd
+    ns, nh, hkv, hd = cfg.n_super, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    f32 = torch.float32
     kv_dt = torch.int8 if cfg.kv_cache_dtype == "int8" else cfg.compute_dtype
     # a sliding window's ring holds at most the window
     cap = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
     out: Dict[str, Any] = {}
-    for i in range(len(cfg.pattern)):
-        c = {"k": ((ns, batch, cap, hkv, hd), kv_dt),
-             "v": ((ns, batch, cap, hkv, hd), kv_dt)}
-        if cfg.kv_cache_dtype == "int8":
-            c["k_scale"] = ((ns, batch, cap, hkv), torch.float32)
-            c["v_scale"] = ((ns, batch, cap, hkv), torch.float32)
-        out[str(i)] = c
+    for i, kind in enumerate(cfg.pattern):
+        c: Dict[str, Any] = {}
+        if kind in _ATTN_KINDS:
+            c["k"] = ((ns, batch, cap, hkv, hd), kv_dt)
+            c["v"] = ((ns, batch, cap, hkv, hd), kv_dt)
+            if cfg.kv_cache_dtype == "int8":
+                c["k_scale"] = ((ns, batch, cap, hkv), f32)
+                c["v_scale"] = ((ns, batch, cap, hkv), f32)
+        if kind in _MAMBA_KINDS:
+            c["ssm"] = ((ns, batch, cfg.d_inner, cfg.mamba_d_state), f32)
+            c["conv"] = ((ns, batch, cfg.mamba_d_conv - 1, cfg.d_inner),
+                         cfg.compute_dtype)
+        if kind in _XLSTM_KINDS:
+            _, dh = _xlstm_inner(cfg)
+            per_head = (dh, dh) if kind == "xm" else (dh,)
+            c["c"] = ((ns, batch, nh) + per_head, f32)
+            c["n"] = ((ns, batch, nh) + per_head[1:], f32)
+            c["m"] = ((ns, batch, nh), f32)
+        if c:
+            out[str(i)] = c
     return out
 
 
@@ -830,7 +989,8 @@ def paged_cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
                       num_blocks: int, block_size: int) -> Dict:
     """``cache_specs`` with the attention-KV leaves re-laid as
     ``(n_super, num_blocks, block_size, ...)`` block pools (block 0 is the
-    pool's reserved sentinel/trash block)."""
+    pool's reserved sentinel/trash block); the recurrent leaves keep their
+    ``(n_super, batch, ...)`` slot layout."""
     out = cache_specs(cfg, batch, seq_len)
     for c in out.values():
         for key in PAGED_KV_KEYS:
@@ -848,7 +1008,7 @@ def zeros_like_specs(specs: Dict, device) -> Dict:
 
 def param_count(cfg: ModelConfig) -> int:
     return int(sum(math.prod(shape)
-                   for _, (shape, _, _) in _leaves(param_specs(cfg))))
+                   for _, (shape, *_) in _leaves(param_specs(cfg))))
 
 
 __all__ = ["PAGED_KV_KEYS", "param_specs", "init_params", "from_reference",

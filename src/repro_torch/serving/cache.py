@@ -63,6 +63,12 @@ counts once per referencing slot), ``tokens_in_use`` the *physical*
 occupancy (allocated blocks x block_size, each block once);
 ``blocks_shared``, ``prefix_blocks`` and ``cow_copies`` report sharing.
 
+**Recurrent state** (Mamba's ``ssm``/``conv``, xLSTM's ``c``/``n``/``m``)
+is fixed-size per slot and stays slot-indexed in both pools
+(``models.model.PAGED_KV_KEYS`` names what pages): admit installs it into
+the slot, evict zeroes it, ``read_slot`` returns it and ``fork`` copies
+it.  A pure-recurrent stack pages nothing and reserves no block.
+
 Both pools update their cache tensors in place.
 """
 from __future__ import annotations
@@ -427,6 +433,14 @@ class PagedCachePool:
                 if key in M.PAGED_KV_KEYS:
                     yield li, key, leaf
 
+    def _slot_leaves(self):
+        """The slot-indexed (recurrent state) leaves, ``(ns, max_batch,
+        ...)``."""
+        for li, c in self.caches.items():
+            for key, leaf in c.items():
+                if key not in M.PAGED_KV_KEYS:
+                    yield li, key, leaf
+
     def _index(self, ids) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, np.int64)).to(self.device)
 
@@ -437,13 +451,15 @@ class PagedCachePool:
         for _, _, leaf in self._leaves():
             leaf[:, idx] = 0
 
-    def _install(self, request_cache, table_row: np.ndarray, plen: int,
-                 m: int = 0, start: int = 0) -> None:
-        """Scatter positions ``m..plen-1`` of a slot's prompt into its
-        blocks: ``request_cache`` leaves are (ns, 1, cap, ...) and hold
-        position ``p`` at index ``start + p - m`` (a whole prefill: m = 0,
-        start = 0; a resumed tail or a later chunk: m > 0; one segment of a
-        packed stream: start > 0).  Every other logical row is written as
+    def _install(self, slot: int, request_cache, table_row: np.ndarray,
+                 plen: int, m: int = 0, start: int = 0) -> None:
+        """Install the slot-indexed leaves of ``request_cache`` (ns, 1,
+        ...) into ``slot``, and scatter positions ``m..plen-1`` of the
+        slot's prompt into its blocks: paged leaves are (ns, 1, cap, ...)
+        and hold position ``p`` at index ``start + p - m`` (a whole
+        prefill: m = 0, start = 0; a resumed tail or a later chunk: m > 0;
+        one segment of a packed stream: start > 0).  Every other logical
+        row is written as
         zeros; ``table_row`` routes the rows before ``m`` (sentinel
         entries) into the trash block, so earlier blocks stay untouched.
 
@@ -454,6 +470,8 @@ class PagedCachePool:
         (``models.model.ring_slot_positions``).  A windowed tail (m > 0)
         only comes with ``plen <= window``, where the ring is the dense
         layout."""
+        for li, key, leaf in self._slot_leaves():
+            leaf[:, slot:slot + 1] = request_cache[li][key].to(leaf.dtype)
         row = self._index(table_row)
         r = torch.arange(self.lcap, device=self.device)
         ring = bool(self.cfg.sliding_window) and m == 0
@@ -596,7 +614,7 @@ class PagedCachePool:
         self._take(slot, mapped, need)
         row = self._table[slot].copy()
         row[:len(mapped)] = 0        # prefix blocks are never re-written
-        self._install(request_cache, row, plen,
+        self._install(slot, request_cache, row, plen,
                       m=len(mapped) * self.block_size, start=start)
         wrap = self._will_wrap(n_tokens)
         if wrap:
@@ -617,7 +635,7 @@ class PagedCachePool:
             raise ValueError(f"extend offset {m} not block-aligned")
         row = self._table[slot].copy()
         row[:m // self.block_size] = 0
-        self._install(request_cache, row, new_len, m=m)
+        self._install(slot, request_cache, row, new_len, m=m)
 
     def slot_blocks(self, slot: int) -> List[int]:
         """The slot's physical block ids in logical order (a copy) — the
@@ -640,13 +658,16 @@ class PagedCachePool:
         no copy.  Fresh private blocks cover the rest of ``dst``'s
         reservation.  The first divergent write into the shared boundary
         block — the partially filled one when ``pos % block_size != 0`` —
-        copies on write (:meth:`ensure_writable`)."""
+        copies on write (:meth:`ensure_writable`).  The slot-indexed
+        (recurrent) leaves of ``src`` are copied into ``dst``."""
         if self._slot_blocks[dst]:
             raise RuntimeError(f"slot {dst} already holds blocks")
         need = self.blocks_needed(n_tokens)
         content = min(-(-int(pos) // self.block_size), need)
         self._take(dst, [int(b) for b in self._slot_blocks[src][:content]],
                    need)
+        for _, _, leaf in self._slot_leaves():
+            leaf[:, dst] = leaf[:, src]
         if content:
             if self._will_wrap(n_tokens):
                 self._cow_debt[dst] += content   # the ring may reach each
@@ -694,7 +715,9 @@ class PagedCachePool:
         """Drop the slot's block references: a block is zeroed and
         returned to the free list only when its refcount hits zero —
         blocks still shared with other slots or held by the prefix index
-        survive untouched."""
+        survive untouched.  The slot's recurrent leaves are zeroed."""
+        for _, _, leaf in self._slot_leaves():
+            leaf[:, slot] = 0
         freed = []
         for b in self._slot_blocks[slot]:
             self._ref[b] -= 1
@@ -711,7 +734,8 @@ class PagedCachePool:
     def read_slot(self, slot: int):
         """The (batch-1) *logical* cache view of ``slot``: paged leaves are
         gathered back to position-ordered ``(ns, 1, lcap, ...)`` tensors
-        (sentinel blocks read the trash block — callers mask by length).
+        (sentinel blocks read the trash block — callers mask by length),
+        and a copy of its slot-indexed leaves, ``(ns, 1, ...)``.
         Tests/inspection."""
         row = self._index(self._table[slot])
         out = {}
@@ -719,6 +743,8 @@ class PagedCachePool:
             g = leaf[:, row]                         # (ns, bps, bs, ...)
             out.setdefault(li, {})[key] = g.reshape(
                 (g.shape[0], 1, self.lcap) + g.shape[3:])
+        for li, key, leaf in self._slot_leaves():
+            out.setdefault(li, {})[key] = leaf[:, slot:slot + 1].clone()
         return out
 
     def stats(self) -> Dict[str, float]:

@@ -24,7 +24,10 @@ With ``ServingConfig(paged=True)`` the KV pool is block-paged (see
 and *defer* when it runs short, evictions return blocks, and the decode
 step reads through a fixed-shape block table.  Sliding-window configs
 serve as rings over their block lists and page unconditionally (prompts
-bucket only while the padded length stays inside the window).
+bucket only while the padded length stays inside the window).  A stack
+with recurrent blocks (Mamba, xLSTM) folds padding into its state, so it
+serves only at ``prompt_bucket=1``; its per-slot state stays slot-indexed
+in either pool.
 
 ``ServingConfig(prefix_cache=True)`` attaches the pool's prefix index:
 admission walks a trie over the prompt tokens, maps every fully matched
@@ -105,9 +108,6 @@ __all__ = ["ServingConfig", "Scheduler"]
 #: sees a single-block reduction, as its unpacked prefill does.  Longer
 #: prompts chunk instead.
 _PACK_MAX_TOKENS = 512
-
-# layer kinds whose state folds the whole prefix into one vector
-_RECURRENT_KINDS = ("md", "me", "xm", "xs")
 
 
 def _idle_sleep(clock, arrival: float, stalls: int,
@@ -195,14 +195,21 @@ def _validate(cfg: ModelConfig, scfg: ServingConfig) -> None:
     packed prefill rebuild a slot's KV from per-token caches laid out by
     absolute position, so a token's KV must depend only on the tokens
     before it — recurrent state folds the whole prefix into one vector,
-    and MoE capacity dropping couples a token's KV to its batch-mates."""
+    and MoE capacity dropping couples a token's KV to its batch-mates.
+    The same folding makes a recurrent stack refuse padded prompts."""
+    # recurrent state folds right-padding into the prefix: bucketed
+    # prefill would silently change generations
+    if cfg.has_recurrent_blocks and scfg.prompt_bucket != 1:
+        raise ValueError(
+            f"{cfg.name}: SSM/xLSTM blocks require prompt_bucket=1 "
+            "(padding folds into the recurrent state)")
     chunked = scfg.prefill_chunk is not None
     for what, on in (("prefix_cache", scfg.prefix_cache),
                      ("prefill_chunk", chunked),
                      ("packed_prefill", scfg.packed_prefill)):
         if not on:
             continue
-        if any(k in _RECURRENT_KINDS for k in cfg.pattern):
+        if cfg.has_recurrent_blocks:
             raise ValueError(
                 f"{cfg.name}: {what} is incompatible with SSM/xLSTM blocks "
                 "(recurrent state is not prefix-separable)")
@@ -238,7 +245,7 @@ def _validate(cfg: ModelConfig, scfg: ServingConfig) -> None:
                 f"{cfg.name}: speculative decode is incompatible with "
                 "sliding_window (ring writes destroy rows a rejected draft "
                 "must roll back to)")
-        if any(k in _RECURRENT_KINDS for k in cfg.pattern):
+        if cfg.has_recurrent_blocks:
             raise ValueError(
                 f"{cfg.name}: speculative decode is incompatible with "
                 "SSM/xLSTM blocks (recurrent state cannot roll back a "

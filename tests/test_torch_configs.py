@@ -2,9 +2,10 @@
 dense configurations gemma-7b (head_dim 256 above d_model / n_heads, the
 embedding scale, tanh gelu, tied embeddings) and granite-20b (one KV head,
 an ungated MLP, untied embeddings) on the reference's weights.  The MoE
-configurations granite-moe-1b-a400m and arctic-480b are held field for
-field and tree for tree here; their smoke models run in
-tests/test_torch_moe.py.
+configurations granite-moe-1b-a400m and arctic-480b, and the recurrent
+jamba-v0.1-52b and xlstm-1.3b, are held field for field and tree for tree
+here (every leaf's init kind and scale too); their smoke models run in
+tests/test_torch_moe.py and tests/test_torch_recurrent.py.
 
 Tolerances: logits within ``LOGIT_TOL`` = 1e-4 of the reference's
 (float32 smoke models, different reduction orders, as in
@@ -35,13 +36,14 @@ from repro_torch.pim import engine
 LOGIT_TOL = 1e-4
 NEW = ("gemma-7b", "granite-20b", "h2o-danube-1.8b")
 MOE = ("granite-moe-1b-a400m", "arctic-480b")
+RECURRENT = ("jamba-v0.1-52b", "xlstm-1.3b")
 
 
 def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.mark.parametrize("name", NEW + ("qwen1.5-0.5b",) + MOE)
+@pytest.mark.parametrize("name", NEW + ("qwen1.5-0.5b",) + MOE + RECURRENT)
 def test_every_field_equals_the_reference(name):
     got, want = TC.get(name), RC.get(name)
     names = [f.name for f in dataclasses.fields(got)]
@@ -50,26 +52,33 @@ def test_every_field_equals_the_reference(name):
         assert getattr(got, f) == getattr(want, f), f
     assert (got.hd, got.padded_vocab, got.n_super) == \
         (want.hd, want.padded_vocab, want.n_super)
+    assert (got.dt_rank, got.d_inner, got.has_recurrent_blocks,
+            got.sub_quadratic) == (want.dt_rank, want.d_inner,
+                                   want.has_recurrent_blocks,
+                                   want.sub_quadratic)
     smoke_t, smoke_r = got.smoke(), want.smoke()
     for f in names:
         assert getattr(smoke_t, f) == getattr(smoke_r, f), f
 
 
 def test_registry():
-    assert set(NEW + MOE) <= set(TC.ARCH_NAMES) <= set(RC.ARCH_NAMES)
+    assert set(NEW + MOE + RECURRENT) <= set(TC.ARCH_NAMES) \
+        <= set(RC.ARCH_NAMES)
     assert set(TC.all_configs()) == set(TC.ARCH_NAMES)
     with pytest.raises(KeyError):
-        TC.get("jamba-v0.1-52b")          # an SSM hybrid: not ported yet
+        TC.get("seamless-m4t-medium")     # an enc-dec: not ported yet
 
 
-@pytest.mark.parametrize("name", NEW + MOE)
+@pytest.mark.parametrize("name", NEW + MOE + RECURRENT)
 def test_full_width_parameter_tree_equals_the_reference(name):
-    """The full-width tree, no weight allocated: every leaf's shape and
-    dtype (gemma's 16 heads of 256, granite's single KV head and ungated
-    MLP, untied heads, the MoE blocks' float32 router and stacked
-    experts, arctic's dense residual MLP)."""
+    """The full-width tree, no weight allocated: every leaf's shape,
+    dtype, init kind and scale (gemma's 16 heads of 256, granite's single
+    KV head and ungated MLP, untied heads, the MoE blocks' float32 router
+    and stacked experts, arctic's dense residual MLP, jamba's Mamba and
+    xLSTM's per-head leaves)."""
     cfg_t, cfg_r = TC.get(name), RC.get(name)
-    specs_r = jax.tree.map(lambda s: (tuple(s.shape), str(s.dtype)),
+    specs_r = jax.tree.map(lambda s: (tuple(s.shape), str(s.dtype),
+                                      s.init, s.scale),
                            RM.param_specs(cfg_r),
                            is_leaf=lambda x: isinstance(x,
                                                         jax.ShapeDtypeStruct))
@@ -81,9 +90,9 @@ def test_full_width_parameter_tree_equals_the_reference(name):
             if isinstance(t[k], dict):
                 walk(t[k], r[k], path + (k,))
             else:
-                shape, dt, _ = t[k]
-                assert (tuple(shape), str(dt).replace("torch.", "")) \
-                    == r[k], path + (k,)
+                shape, dt, init, scale = t[k]
+                assert (tuple(shape), str(dt).replace("torch.", ""), init,
+                        scale) == r[k], path + (k,)
 
     walk(specs_t, specs_r)
     assert TM.param_count(cfg_t) == RM.param_count(cfg_r)
@@ -102,6 +111,17 @@ def test_full_width_parameter_tree_equals_the_reference(name):
         assert blocks["w1"][0] == (35, 128, 7168, 4864)
         assert blocks["w_in"][0] == (35, 7168, 4864)
         assert "lm_head" in specs_t
+    if name == "jamba-v0.1-52b":
+        assert blocks["in_proj"][0] == (4, 4096, 16384)
+        assert blocks["x_proj"][0] == (4, 8192, 256 + 32)
+        assert blocks["a_log"][2:] == ("alog", 1.0)
+        assert "w_in" in blocks and "w1" in specs_t["blocks"]["1"]
+        assert "wq" in specs_t["blocks"]["4"] and "lm_head" in specs_t
+    if name == "xlstm-1.3b":
+        assert blocks["wz"][0] == (6, 4, 1024, 1024)
+        assert specs_t["blocks"]["1"]["w_gates"][0] == (6, 4096, 8)
+        assert specs_t["blocks"]["1"]["w_gates"][2:] == ("normal", 0.5)
+        assert "lm_head" not in specs_t
 
 
 def _smoke(name, **kw):

@@ -32,7 +32,10 @@ missing = sorted({{"repro_torch.pim.cost_model", "repro_torch.pim.autotune",
                   "repro_torch.configs.h2o_danube_1_8b",
                   "repro_torch.models.moe",
                   "repro_torch.configs.granite_moe_1b_a400m",
-                  "repro_torch.configs.arctic_480b"}}
+                  "repro_torch.configs.arctic_480b",
+                  "repro_torch.models.ssm", "repro_torch.models.xlstm",
+                  "repro_torch.configs.jamba_v0_1_52b",
+                  "repro_torch.configs.xlstm_1_3b"}}
                  - set(names))
 print(len(names), bad, missing)
 """
