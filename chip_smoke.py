@@ -109,8 +109,19 @@ continuity in float32 within the reference test's tolerance; then
 full-depth xlstm-1.3b, whose tokens at max_batch 1 equal a naive prefill
 and ``decode_step`` loop's bit for bit, whose pool at max_batch 4 holds
 exactly ``cache_specs``' bytes of state, whose evicted slots read back
-zero state, and which launches neither kernel.  Every model's weights
-are drawn on the card.
+zero state, and which launches neither kernel.  ``serve_multimodal``
+generates with full-width, full-depth seamless-m4t-medium (12 encoder +
+12 decoder layers) and llama-3.2-vision-11b (40 layers, 1601 patches a
+request) through ``prefill`` and ``decode_step_slots`` (the reference's
+scheduler refuses both configs, and so does the port's): seamless in
+``quant`` and, twice, in ``pim_sim``, llama-vision in ``quant``; every
+step's logits and the tokens equal the plain GEMM's or the exact
+product's, the prefill and each decode step launch the mode's kernel
+once per linear (216 and 108; 312 and 296), the ``pim_sim`` runs upload
+no crossbar state after the first decode step and hold exactly their
+host arithmetic's resident bytes; then two ``quant`` train steps of
+seamless whose step 0 equals its oracle.  Every model's weights are
+drawn on the card.
 
 Last it trains full-width qwen1.5-0.5b on fresh weights from the same seed.  ``train_quant``: 4 steps of
 ``launch.train.train_step`` at batch 4, seq 128 (every linear on the GEMM
@@ -174,6 +185,10 @@ WIDE_QUANT_SHAPES = tuple((4, k, n) for k, n in (
 MOE_QUANT_SHAPES = ((4, 1024, 512),)
 RECURRENT_QUANT_SHAPES = tuple((4, k, n) for k, n in (
     (4096, 14336), (14336, 4096), (4096, 4096), (4096, 1024)))
+# llama-3.2-vision-11b's xwk/xwv prefill on 2 x 1601 patches, and
+# seamless-m4t-medium's decode (M = 4) at its MLP's w_in / w_gate (its
+# w_out, (4, 4096, 1024), is jamba-v0.1's wk/wv shape above)
+MULTIMODAL_QUANT_SHAPES = ((2 * 1601, 4096, 1024), (4, 1024, 4096))
 # last-token logits of one prompt from whole, prefix-resumed, chunked and
 # packed prefill (bf16 model, |logit| below about 0.5): a few bf16 ulps
 PREFIX_LOGIT_TOL = 0.02
@@ -333,7 +348,8 @@ def check_quant_kernel(dev):
                                  f"abs error {e}")
         err = max(err, e)
 
-    served = WIDE_QUANT_SHAPES + MOE_QUANT_SHAPES + RECURRENT_QUANT_SHAPES
+    served = (WIDE_QUANT_SHAPES + MOE_QUANT_SHAPES + RECURRENT_QUANT_SHAPES
+              + MULTIMODAL_QUANT_SHAPES)
     for m, k, n in path + ragged + edges + list(served):
         check(rand(m, k), rand(k, n), f"M, K, N = {m, k, n}")
     for m, k, n in ((4, 2816, 1024), (64, 1024, 2816)):
@@ -368,7 +384,8 @@ def check_quant_kernel(dev):
     torch.cuda.synchronize()
     say(f"[quant_matmul_int] == plain (exact int32, max abs error {err}) on "
         f"{len(path)} path shapes, {len(served)} shapes of the wide, "
-        f"windowed, MoE and recurrent serves, {len(ragged)} ragged shapes, "
+        f"windowed, MoE, recurrent and multimodal serves, {len(ragged)} "
+        f"ragged shapes, "
         f"{len(edges)} split/column edges {edges}, 10 extreme-operand cases, "
         f"4 unaligned-pointer cases and {len(runs)} back-to-back calls (one "
         "shape 3 times, two interleaved)")
@@ -650,13 +667,15 @@ def check_crossbar_kernel(dev):
         f"W={w_words}): {one_gate * 1e3:.2f} us")
     # w_in of gemma-7b and of granite-20b at their decode shape (batch 2):
     # 84 x 192 and 167 x 192 crossbars in one launch; granite-moe's wq/wo
-    # and wk/wv (28 x 8 and 28 x 4); jamba-v0.1's w_in (111 x 112)
+    # and wk/wv (28 x 8 and 28 x 4); jamba-v0.1's w_in (111 x 112);
+    # seamless-m4t-medium's w_in (28 x 32)
     wide = []
     for name, k, o in (("gemma-7b", 3072, 24576), ("granite-20b", 6144,
                                                     24576),
                        ("granite-moe-1b-a400m wq", 1024, 1024),
                        ("granite-moe-1b-a400m wk", 1024, 512),
-                       ("jamba-v0.1-52b", 4096, 14336)):
+                       ("jamba-v0.1-52b", 4096, 14336),
+                       ("seamless-m4t-medium", 1024, 4096)):
         r = dict(model=name, **time_crossbar_at(dev, 2, k, o))
         err = max(err, r["max_abs_err"])
         wide.append(r)
@@ -1318,11 +1337,9 @@ def serve_pim_prefix(params, base_cfg, dev):
 
 def profile_decode(params, cfg, dev, max_batch, top=6, max_new=4, **kw):
     """Profile one decode step of a warm scheduler (``ServingConfig(**kw)``
-    besides; a speculative scheduler's step is one round): wall and
-    device-busy time, kernel launches, memset nodes, the ``top`` kernels by
-    device time and the port's own kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
+    besides; a speculative scheduler's step is one round) with
+    ``profile_call``; it must make one launch of its mode's kernel per
+    linear."""
     from repro_torch.serving import (Scheduler, ServingConfig,
                                      synthetic_requests)
 
@@ -1336,24 +1353,42 @@ def profile_decode(params, cfg, dev, max_batch, top=6, max_new=4, **kw):
                                 start_time=time.monotonic()):
         sched.submit_request(r)
     sched.step()                      # admit + one decode step (warm)
+    name = f"{cfg.name} {cfg.pim_mode} decode step, batch {max_batch}"
+    if kw.get("speculative"):
+        name = (f"{cfg.name} {cfg.pim_mode} speculative round (draft "
+                f"{kw['draft_mode']}, k {kw['draft_k']}), batch {max_batch}")
+    prof = profile_call(name, sched.step, top)
+    check_step_launches(cfg, prof["launches"], len(step_linears(cfg)))
+    return prof
+
+
+def check_step_launches(cfg, launches, per_step):
+    """One launch of the mode's kernel per linear (a speculative round's
+    drafts may launch the other kernel too)."""
+    which = {"quant": 0, "pim_sim": 1}.get(cfg.pim_mode)
+    if which is not None and launches[which] != per_step:
+        raise AssertionError(
+            f"the {cfg.pim_mode} step made {launches[which]} "
+            f"{('quant_matmul_int', 'crossbar_exec')[which]} launches, "
+            f"expected one per linear: {per_step}")
+
+
+def profile_call(name, fn, top=6):
+    """``fn()`` under torch.profiler: wall and device-busy time, kernel
+    launches (the counters read just before and just after), memset
+    nodes, the ``top`` kernels by device time and the port's own kernels,
+    printed; returns them with ``fn``'s result."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
-    reset_counters()
+    before = counters()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sched.step()
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = counters()
-    per_step = len(step_linears(cfg))
-    if cfg.pim_mode == "quant" and launches[0] != per_step:
-        raise AssertionError(f"the quant decode step made {launches[0]} "
-                             f"quant_matmul_int launches, expected one per "
-                             f"linear: {per_step}")
-    if cfg.pim_mode == "pim_sim" and launches[1] != per_step:
-        raise AssertionError(f"the pim_sim decode step made {launches[1]} "
-                             f"crossbar_exec launches, expected one per "
-                             f"linear: {per_step}")
+    launches = tuple(b - a for a, b in zip(before, counters()))
     events = prof.key_averages()
     # device events but the spans of record_function ranges
     kernels = sorted((e for e in events
@@ -1363,10 +1398,6 @@ def profile_decode(params, cfg, dev, max_batch, top=6, max_new=4, **kw):
     dev_us = sum(e.self_device_time_total for e in kernels)
     host_us = sum(e.self_cpu_time_total for e in events)
     memsets = sum(e.count for e in kernels if "memset" in e.key.lower())
-    name = f"{cfg.name} {cfg.pim_mode} decode step, batch {max_batch}"
-    if kw.get("speculative"):
-        name = (f"{cfg.name} {cfg.pim_mode} speculative round (draft "
-                f"{kw['draft_mode']}, k {kw['draft_k']}), batch {max_batch}")
     say(f"[profile] {name}: wall {wall * 1e3:.2f} ms, device busy "
         f"{dev_us / 1e3:.2f} ms ({dev_us / 1e3 / (wall * 1e3) * 100:.1f}%), "
         f"host ops {host_us / 1e3:.2f} ms, launches (quant_matmul_int, "
@@ -1378,7 +1409,8 @@ def profile_decode(params, cfg, dev, max_batch, top=6, max_new=4, **kw):
             f"{e.count:5d} x {e.self_device_time_total / e.count:9.2f} us  "
             f"{e.key[:70]}")
     return dict(wall_ms=wall * 1e3, busy_ms=dev_us / 1e3,
-                host_ops_ms=host_us / 1e3, events=events)
+                host_ops_ms=host_us / 1e3, events=events, launches=launches,
+                out=out)
 
 
 def ranged(module, name):
@@ -1725,12 +1757,14 @@ def _loss_and_norm(params, batch, cfg):
 
 def _expected_launches(cfg):
     """One launch per linear in the forward, and with remat one more per
-    linear in the recompute: the checkpoint recomputes a block until the
-    last tensor the block saved, which w_out's linear saves after its
-    kernel (quant: the float rescale's operands; pim_sim: the autograd
-    Function's inputs, packed when its forward returns)."""
-    fwd = 7 * cfg.n_layers
-    return fwd, fwd if cfg.remat else 0
+    decoder linear in the recompute: the checkpoint recomputes a block
+    until the last tensor the block saved, which w_out's linear saves
+    after its kernel (quant: the float rescale's operands; pim_sim: the
+    autograd Function's inputs, packed when its forward returns).  An
+    encoder is not checkpointed, as in the reference."""
+    fwd = len(prefill_linears(cfg))
+    enc = len(_kind_linears(cfg)["enc"]) * cfg.n_encoder_layers
+    return fwd, fwd - enc if cfg.remat else 0
 
 
 def _train_steps(params, batches, cfg, ocfg, which):
@@ -2172,18 +2206,36 @@ def pim_state_bytes(m, k, o):
     return math.ceil(k / 37) * math.ceil(m * o / 256) * 1024 * 8 * 4
 
 
-def step_linears(cfg):
-    """(K, N) of each linear one decode step runs, layer after layer: the
-    attention projections of the attention kinds and the dense MLP of
-    ``"ad"``, ``"ar"`` and ``"md"`` (an MoE's experts, Mamba's and
-    xLSTM's projections are plain products, outside ``linear``)."""
+def _kind_linears(cfg):
+    """(K, N) of the linears one decode step runs in a layer of each kind:
+    the attention projections of the attention kinds, ``"adx"``'s
+    ``xwq``/``xwo`` and the dense MLP of ``"ad"``, ``"adx"``, ``"enc"``,
+    ``"ar"`` and ``"md"`` (an MoE's experts, Mamba's and xLSTM's
+    projections are plain products, outside ``linear``)."""
     d, h, kv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                         cfg.d_ff)
     attn = [(d, h * hd), (d, kv * hd), (d, kv * hd), (h * hd, d)]
+    xattn = [(d, h * hd), (h * hd, d)]
     mlp = [(d, ff), (ff, d)] + ([(d, ff)] if cfg.gated_mlp else [])
-    per_kind = {"ad": attn + mlp, "ae": attn, "ar": attn + mlp, "md": mlp,
-                "me": [], "xm": [], "xs": []}
+    return {"ad": attn + mlp, "ae": attn, "ar": attn + mlp,
+            "adx": attn + xattn + mlp, "enc": attn + mlp, "md": mlp,
+            "me": [], "xm": [], "xs": []}
+
+
+def step_linears(cfg):
+    """(K, N) of each linear one decode step runs, layer after layer."""
+    per_kind = _kind_linears(cfg)
     return [s for kind in cfg.pattern for s in per_kind[kind]] * cfg.n_super
+
+
+def prefill_linears(cfg):
+    """(K, N) of each linear a prefill (or a train forward) runs: the
+    encoder's layers, the decode step's, and each ``"adx"`` layer's
+    ``xwk``/``xwv`` on the memory."""
+    xkv = [(cfg.d_model, cfg.n_kv_heads * cfg.hd)] * 2
+    return (_kind_linears(cfg)["enc"] * cfg.n_encoder_layers
+            + step_linears(cfg)
+            + xkv * cfg.pattern.count("adx") * cfg.n_super)
 
 
 def wide_pim_limit(cfg, weights):
@@ -3148,8 +3200,9 @@ def serve_xlstm(dev):
     del sched
     # one decode step at batch 4, profiled (neither kernel may launch)
     prof = profile_decode(params, qcfg, dev, 4)
-    if counters() != (0, 0):
-        failures.append(f"the profiled xLSTM step launched {counters()}")
+    if prof["launches"] != (0, 0):
+        failures.append(f"the profiled xLSTM step launched "
+                        f"{prof['launches']}")
     before = footprint(params)
     del params
     check_released(base.name, before)
@@ -3169,6 +3222,429 @@ def serve_recurrent(dev):
     launches, its crossbar launches, a summary)."""
     q, x, jamba = serve_jamba(dev)
     return q, x, dict(jamba=jamba, xlstm=serve_xlstm(dev))
+
+
+# --------------------------------------------------------------------------
+# encoder-decoder and cross-attention: seamless-m4t-medium and
+# llama-3.2-vision-11b
+# --------------------------------------------------------------------------
+
+# (prompt lengths, new tokens) of each greedy generation, one request per
+# prompt; a seamless request carries SEAMLESS_FRAMES frames (64 //
+# audio_frames_div, as the reference's stub sizes them at the padded
+# prompt length) and a llama-vision one all 1601 patches
+SEAMLESS_QUANT = ((16, 32, 48, 64), 8)
+SEAMLESS_PIM = ((8, 16), 4)
+SEAMLESS_FRAMES = 16
+VISION_QUANT = ((16, 32), 8)
+# the seamless train phase: (batch, seq, steps), seq // 4 frames a row
+TRAIN_SEAMLESS = (2, 128, 2)
+
+
+def media_batch(cfg, dev, batch, frames=None, step=0):
+    """The memory input of ``batch`` requests from the port's stubs,
+    float32 on the card: ``{"frames": (B, frames, d)}`` or
+    ``{"patches": (B, n_patches, vision_dim)}``."""
+    from repro_torch.data.pipeline import AudioStub, VisionStub
+
+    if cfg.is_encoder_decoder:
+        a = AudioStub(cfg.d_model, frames).batch_at(step, batch)
+        return {"frames": torch.from_numpy(a).to(dev)}
+    a = VisionStub(cfg.vision_dim, cfg.n_patches).batch_at(step, batch)
+    return {"patches": torch.from_numpy(a).to(dev)}
+
+
+def generate(params, cfg, dev, prompts, media, new, profile=None):
+    """Greedy generation through the model's own entry points, as the
+    reference's tests drive these configs (its scheduler refuses them):
+    one ``prefill`` of the prompts right-padded to the longest, logits
+    read at each one's ``last_index``, with ``media``; then ``new - 1``
+    ``decode_step_slots`` at each slot's own position, from the caches
+    alone.  With ``profile`` (a label), the prefill and the second decode
+    step run under ``profile_call``.  Returns a dict: the tokens per
+    request, every step's logits, the launches (quant_matmul_int,
+    crossbar_exec) of the prefill and of each decode step, the engine's
+    cold uploads after each decode step, the prefill's peak allocation,
+    the ``xk``/``xv`` leaves unchanged by decode, and the profiles."""
+    from repro_torch.models import model_lib as M
+    from repro_torch.pim import engine
+
+    b, plen = len(prompts), max(len(p) for p in prompts)
+    toks = np.zeros((b, plen), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    tokens = torch.as_tensor(toks, device=dev)
+    last = torch.tensor([len(p) - 1 for p in prompts], device=dev)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    profs = {}
+
+    def run(label, fn):
+        if profile is None or label is None:
+            return fn()
+        profs[label] = profile_call(f"{profile} {label}", fn)
+        return profs[label]["out"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    q0, x0 = counters()
+    with torch.no_grad():
+        logits, caches = run("prefill", lambda: M.prefill(
+            params, {"tokens": tokens, **media}, cfg, last_index=last))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        q1, x1 = counters()
+        pre = (q1 - q0, x1 - x0)
+        xattn = {(i, k): c[k].clone() for i, c in caches.items()
+                 for k in ("xk", "xv") if k in c}
+        out, nxt, pos, steps = [logits], logits.argmax(-1)[:, None], \
+            last + 1, []
+        gen = [nxt]
+        for i in range(new - 1):
+            q0, x0 = counters()
+            nxt, logits, caches = run(
+                "decode step" if i == 1 else None,
+                lambda: M.decode_step_slots(params, nxt.to(torch.int32), pos,
+                                            active, caches, cfg))
+            q1, x1 = counters()
+            steps.append((q1 - q0, x1 - x0,
+                          engine.cache_info().exec_uploads))
+            out.append(logits)
+            gen.append(nxt)
+            pos = pos + 1
+    torch.cuda.synchronize()
+    kept = bool(xattn) and all(torch.equal(v, caches[i][k])
+                               for (i, k), v in xattn.items())
+    return dict(tokens=torch.cat(gen, dim=1).tolist(), logits=out,
+                prefill_launches=pre, steps=steps, prefill_peak=peak,
+                xattn_kept=kept, profiles=profs)
+
+
+def same_generation(a, b):
+    """Two ``generate`` results with equal tokens and bitwise-equal,
+    finite logits at every step."""
+    return (a["tokens"] == b["tokens"]
+            and all(torch.isfinite(x).all() and torch.equal(x, y)
+                    for x, y in zip(a["logits"], b["logits"])))
+
+
+def check_generation(tag, res, cfg, failures):
+    """Exact launch counts: one of the mode's kernel per linear of the
+    prefill and of each decode step, none of the other kernel; decode
+    leaves ``xk``/``xv`` as prefill wrote them."""
+    which = {"quant": 0, "pim_sim": 1}[cfg.pim_mode]
+    want_pre = [0, 0]
+    want_pre[which] = len(prefill_linears(cfg))
+    want_step = [0, 0]
+    want_step[which] = len(step_linears(cfg))
+    if list(res["prefill_launches"]) != want_pre:
+        failures.append(f"{tag} prefill launched {res['prefill_launches']}, "
+                        f"expected {tuple(want_pre)}")
+    bad = [s[:2] for s in res["steps"] if list(s[:2]) != want_step]
+    if bad:
+        failures.append(f"{tag} decode steps launched {bad}, expected "
+                        f"{tuple(want_step)} each")
+    if not res["xattn_kept"]:
+        failures.append(f"{tag}: decode changed the xk/xv leaves")
+
+
+def profile_ranges(prof, names):
+    """' | '-joined host and device-span times of the ``record_function``
+    ranges ``names`` in a ``profile_call`` result."""
+    parts = []
+    for name in names:
+        host, calls, span = range_times(prof, name)
+        parts.append(f"{name}: host {fmt_ms(host)} over {calls} calls, "
+                     f"device span {fmt_ms(span)}")
+    return "; ".join(parts)
+
+
+def serve_seamless(dev):
+    """Full-width, full-depth seamless-m4t-medium (12 encoder + 12
+    decoder layers) on fresh weights drawn on the card from seed 0.
+    ``quant``: 4 requests of 16-64 tokens, 16 frames each, 8 new tokens;
+    every step's logits and the tokens equal those of the plain GEMM;
+    216 launches in the prefill, 108 in every decode step.  ``pim_sim``:
+    2 requests of 8 and 16 tokens, 4 new tokens, run twice; logits and
+    tokens equal the exact integer product's, one crossbar launch per
+    linear per step, no upload after the first decode step nor in the
+    second run, the resident state equal to its host arithmetic, the
+    prefill's peak below ``PIM_PEAK_BYTES``.  Then a profiled ``quant``
+    prefill and decode step (``_encode`` and ``_cross_attention`` under
+    ``record_function`` ranges) and the release of the weights.  Returns
+    (quant launches, crossbar launches, a summary)."""
+    from repro_torch import configs
+    from repro_torch.kernels.quant_matmul import ops, quant_matmul_int_ref
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import model_lib as M
+    from repro_torch.pim import engine
+
+    base = configs.get("seamless-m4t-medium")
+    t0 = time.perf_counter()
+    params = M.init_params(base, seed=0, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    say(f"[seamless] full-width {base.name}: "
+        f"{M.param_count(base) / 1e9:.3f}G parameters ({base.n_encoder_layers}"
+        f" encoder + {base.n_layers} decoder layers, d_model {base.d_model}, "
+        f"{base.n_heads} heads of {base.hd}, d_ff {base.d_ff} gated "
+        f"{base.activation}, vocab {base.vocab_size} padded to "
+        f"{base.padded_vocab}, tied) drawn on the card from seed 0 in "
+        f"{draw_s:.3f} s; launches per prefill {len(prefill_linears(base))},"
+        f" per decode step {len(step_linears(base))}")
+    failures = []
+    rng = np.random.default_rng(41)
+
+    # quant: 4 requests, prompts 16-64, 16 frames each, 8 new tokens
+    plens, new = SEAMLESS_QUANT
+    qcfg = base.scaled(pim_mode="quant", max_seq_len=max(plens) + new)
+    qprompts = [rng.integers(1, base.vocab_size, p) for p in plens]
+    qmedia = media_batch(base, dev, len(plens), frames=SEAMLESS_FRAMES)
+    reset_counters()
+    t0 = time.perf_counter()
+    got = generate(params, qcfg, dev, qprompts, qmedia, new)
+    wall = time.perf_counter() - t0
+    q_launches = counters()[0]
+    with mock.patch.object(ops, "quant_matmul_int", quant_matmul_int_ref):
+        plain = generate(params, qcfg, dev, qprompts, qmedia, new)
+    check_generation("seamless quant", got, qcfg, failures)
+    q_equal = same_generation(got, plain)
+    if not q_equal:
+        failures.append(f"quant tokens {got['tokens']} vs the plain GEMM's "
+                        f"{plain['tokens']} (or their logits differ)")
+    say(f"[seamless quant] {len(plens)} requests (prompts {plens} padded to "
+        f"{max(plens)}, {SEAMLESS_FRAMES} frames each, {new} new tokens) "
+        f"through prefill + decode_step_slots in {wall:.2f} s: launches "
+        f"prefill {got['prefill_launches'][0]}, per decode step "
+        f"{sorted({s[0] for s in got['steps']})}, total {q_launches}; "
+        f"xk/xv unchanged by decode {got['xattn_kept']}; tokens and every "
+        f"step's logits == the plain GEMM's: {q_equal} ({got['tokens'][0]})")
+
+    # pim_sim: 2 requests of 8 and 16 tokens, 16 frames, 4 new, twice
+    plens, pnew = SEAMLESS_PIM
+    pcfg = base.scaled(pim_mode="pim_sim", max_seq_len=max(plens) + pnew)
+    prompts = [rng.integers(1, base.vocab_size, p) for p in plens]
+    media = media_batch(base, dev, len(plens), frames=SEAMLESS_FRAMES)
+    info0 = engine.cache_info()
+    reset_counters()
+    t0 = time.perf_counter()
+    first = generate(params, pcfg, dev, prompts, media, pnew)
+    pwall = time.perf_counter() - t0
+    info1 = engine.cache_info()
+    second = generate(params, pcfg, dev, prompts, media, pnew)
+    x_launches = counters()[1]
+    info2 = engine.cache_info()
+    with mock.patch.object(engine, "matmul_int", exact_matmul):
+        exact = generate(params, pcfg, dev, prompts, media, pnew)
+    for tag, res in (("first", first), ("second", second)):
+        check_generation(f"seamless pim_sim ({tag} run)", res, pcfg,
+                         failures)
+    p_equal = same_generation(first, exact) and same_generation(second,
+                                                                exact)
+    decode_state = sum(pim_state_bytes(len(plens), k, o)
+                       for k, o in step_linears(base))
+    up1 = [u - info0.exec_uploads for _, _, u in first["steps"]]
+    up2 = [u - info1.exec_uploads for _, _, u in second["steps"]]
+    peak = max(first["prefill_peak"], second["prefill_peak"])
+    say(f"[seamless pim_sim] 2 requests (prompts {plens}, "
+        f"{SEAMLESS_FRAMES} frames each, {pnew} new tokens) run twice, the "
+        f"first in {pwall:.2f} s: crossbar_exec launches prefill "
+        f"{first['prefill_launches'][1]}, per decode step "
+        f"{sorted({s[1] for s in first['steps'] + second['steps']})}, total "
+        f"{x_launches} | cold uploads after each decode step, first run "
+        f"{up1}, second {up2} | resident {info2.resident_entries} states, "
+        f"{info2.resident_bytes} B (host arithmetic {decode_state} B, bound "
+        f"{engine.MAX_RESIDENT_BYTES} B) | prefill peak allocated "
+        f"{peak / 2 ** 30:.2f} GiB (limit {PIM_PEAK_BYTES / 2 ** 30:.0f} GiB)"
+        f"; tokens and logits (both runs) == exact product's: {p_equal} "
+        f"({first['tokens']})")
+    if not p_equal:
+        failures.append(f"pim_sim tokens {first['tokens']}, "
+                        f"{second['tokens']} vs the exact product's "
+                        f"{exact['tokens']} (or their logits differ)")
+    if len(set(up1)) != 1 or any(up2):
+        failures.append(f"pim_sim decode uploaded after its first step: "
+                        f"{up1}, {up2}")
+    if info2.resident_bytes != decode_state \
+            or decode_state > engine.MAX_RESIDENT_BYTES:
+        failures.append(f"{info2.resident_bytes} resident bytes, expected "
+                        f"{decode_state}")
+    if peak >= PIM_PEAK_BYTES:
+        failures.append(f"pim_sim prefill peaked at {peak} bytes")
+
+    # a profiled quant prefill and warm decode step at batch 4
+    with ranged(model_mod, "_encode"), ranged(model_mod, "_cross_attention"):
+        profs = generate(params, qcfg, dev, qprompts, qmedia, 3,
+                         profile="seamless-m4t-medium quant, batch 4,")[
+                             "profiles"]
+    ranges = ("_encode", "_cross_attention")
+    for label, prof in profs.items():
+        gemm_ms = sum(e.self_device_time_total for e in prof["events"]
+                      if "quant_matmul_kernel" in e.key) / 1e3
+        say(f"[profile] seamless quant {label}, batch 4: "
+            f"{profile_ranges(prof, ranges)}; its {prof['launches'][0]} "
+            f"GEMMs {gemm_ms:.3f} ms on the device")
+
+    before = footprint(params)
+    del params
+    check_released(base.name, before)
+    if failures:
+        raise AssertionError("serve_seamless: " + "; ".join(failures))
+    step, pre = profs["decode step"], profs["prefill"]
+    return q_launches, x_launches, dict(
+        params_g=M.param_count(base) / 1e9, draw_s=draw_s,
+        quant_wall_s=wall, pim_wall_s=pwall,
+        prefill_launches=len(prefill_linears(base)),
+        step_launches=len(step_linears(base)),
+        resident_bytes=info2.resident_bytes, pim_prefill_peak_bytes=peak,
+        decode_wall_ms=step["wall_ms"], decode_busy_ms=step["busy_ms"],
+        prefill_wall_ms=pre["wall_ms"], prefill_busy_ms=pre["busy_ms"],
+        encode_ms=range_times(pre, "_encode")[0],
+        encode_span_ms=range_times(pre, "_encode")[2])
+
+
+def serve_vision(dev):
+    """Full-width, full-depth llama-3.2-vision-11b (40 layers, 8 of them
+    ``"adx"``) on fresh weights drawn on the card from seed 0, in
+    ``quant``: 2 requests of 16 and 32 tokens, all 1601 patches each, 8
+    new tokens; every step's logits and the tokens equal those of the
+    plain GEMM; 312 launches in the prefill, 296 in every decode step;
+    then a profiled prefill and decode step (``_cross_attention`` under a
+    ``record_function`` range) and the release of the weights.  Its
+    ``pim_sim`` is not run: the line printed first says why.  Returns
+    (quant launches, a summary)."""
+    from repro_torch import configs
+    from repro_torch.kernels.quant_matmul import ops, quant_matmul_int_ref
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import model_lib as M
+
+    base = configs.get("llama-3.2-vision-11b")
+    t0 = time.perf_counter()
+    params = M.init_params(base, seed=0, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    say(f"[vision] full-width {base.name}: "
+        f"{M.param_count(base) / 1e9:.2f}G parameters ({base.n_layers} "
+        f"layers, {'/'.join(base.pattern)}, d_model {base.d_model}, "
+        f"{base.n_heads} heads, {base.n_kv_heads} KV heads, d_ff "
+        f"{base.d_ff} gated {base.activation}, vision_dim "
+        f"{base.vision_dim}, {base.n_patches} patches, vocab "
+        f"{base.vocab_size}, untied) drawn on the card from seed 0 in "
+        f"{draw_s:.3f} s; launches per prefill {len(prefill_linears(base))},"
+        f" per decode step {len(step_linears(base))}")
+    xkv = (base.n_patches, base.d_model, base.n_kv_heads * base.hd)
+    one = pim_state_bytes(*xkv)
+    say(f"[vision] pim_sim not run: at batch 1 the prefill's xwk on "
+        f"{xkv[0]} patches at (K, O) = {xkv[1:]} alone needs "
+        f"{math.ceil(xkv[1] / 37)} x {math.ceil(xkv[0] * xkv[2] / 256)} "
+        f"crossbars x 32 KiB = {one / 1e9:.1f} GB of transient state, about "
+        f"{8 * one / 1e9:.0f} GB with packing's temporaries (the factor 8 of "
+        "wide_pim_limit), over the card's 80 GB; it waits for row-chunked "
+        "transient launches")
+    failures = []
+    rng = np.random.default_rng(43)
+    plens, new = VISION_QUANT
+    qcfg = base.scaled(pim_mode="quant", max_seq_len=max(plens) + new)
+    prompts = [rng.integers(1, base.vocab_size, p) for p in plens]
+    media = media_batch(base, dev, len(plens))
+    reset_counters()
+    t0 = time.perf_counter()
+    got = generate(params, qcfg, dev, prompts, media, new)
+    wall = time.perf_counter() - t0
+    q_launches = counters()[0]
+    with mock.patch.object(ops, "quant_matmul_int", quant_matmul_int_ref):
+        plain = generate(params, qcfg, dev, prompts, media, new)
+    check_generation("vision quant", got, qcfg, failures)
+    q_equal = same_generation(got, plain)
+    if not q_equal:
+        failures.append(f"quant tokens {got['tokens']} vs the plain GEMM's "
+                        f"{plain['tokens']} (or their logits differ)")
+    say(f"[vision quant] {len(plens)} requests (prompts {plens} padded to "
+        f"{max(plens)}, {base.n_patches} patches each, {new} new tokens) "
+        f"through prefill + decode_step_slots in {wall:.2f} s: launches "
+        f"prefill {got['prefill_launches'][0]}, per decode step "
+        f"{sorted({s[0] for s in got['steps']})}, total {q_launches}; "
+        f"peak allocated {got['prefill_peak'] / 2 ** 30:.2f} GiB; xk/xv "
+        f"unchanged by decode {got['xattn_kept']}; tokens and every step's "
+        f"logits == the plain GEMM's: {q_equal} ({got['tokens']})")
+    with ranged(model_mod, "_cross_attention"):
+        profs = generate(params, qcfg, dev, prompts, media, 3,
+                         profile="llama-3.2-vision-11b quant, batch 2,")[
+                             "profiles"]
+    for label, prof in profs.items():
+        gemm_ms = sum(e.self_device_time_total for e in prof["events"]
+                      if "quant_matmul_kernel" in e.key) / 1e3
+        say(f"[profile] vision quant {label}, batch 2: "
+            f"{profile_ranges(prof, ('_cross_attention',))}; its "
+            f"{prof['launches'][0]} GEMMs {gemm_ms:.3f} ms on the device")
+    before = footprint(params)
+    del params
+    check_released(base.name, before)
+    if failures:
+        raise AssertionError("serve_vision: " + "; ".join(failures))
+    step, pre = profs["decode step"], profs["prefill"]
+    return q_launches, dict(
+        params_g=M.param_count(base) / 1e9, draw_s=draw_s, quant_wall_s=wall,
+        prefill_launches=len(prefill_linears(base)),
+        step_launches=len(step_linears(base)),
+        peak_bytes=got["prefill_peak"], pim_xwk_transient_bytes=one,
+        decode_wall_ms=step["wall_ms"], decode_busy_ms=step["busy_ms"],
+        prefill_wall_ms=pre["wall_ms"], prefill_busy_ms=pre["busy_ms"])
+
+
+def train_seamless(dev):
+    """Full-width seamless-m4t-medium in ``quant``: ``TRAIN_SEAMLESS``
+    steps of ``launch.train.train_step`` at batch 2, seq 128, with 32
+    frames a row from the port's audio stub (the reference's AdamW
+    defaults).  Step 0's loss and grad norm equal those through the plain
+    GEMM; each step launches once per linear in the forward (the encoder
+    included) and once more per decoder linear in remat's recompute.
+    Returns (launches, a summary)."""
+    from repro_torch import configs
+    from repro_torch.kernels.quant_matmul import ops, quant_matmul_int_ref
+    from repro_torch.models import model_lib as M
+    from repro_torch.optim.adamw import AdamWConfig
+
+    batch, seq, steps = TRAIN_SEAMLESS
+    cfg = configs.get("seamless-m4t-medium").scaled(pim_mode="quant")
+    batches = _train_batches(cfg, dev, batch, seq, steps)
+    frames = seq // cfg.audio_frames_div
+    for step, b in enumerate(batches):
+        b.update(media_batch(cfg, dev, batch, frames=frames, step=step))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = M.init_params(cfg, seed=0, device=dev)
+    with mock.patch.object(ops, "quant_matmul_int", quant_matmul_int_ref):
+        want_loss, want_norm = _loss_and_norm(params, batches[0], cfg)
+    params, opt_state, rows, prof = _train_steps(params, batches, cfg,
+                                                 AdamWConfig(), which=0)
+    peak = torch.cuda.max_memory_allocated()
+    _check_train_rows("train_seamless", rows, cfg, want_loss, want_norm)
+    say(f"[train_seamless] full-width {cfg.name} ({cfg.n_encoder_layers} + "
+        f"{cfg.n_layers} layers, remat {cfg.remat}), batch {batch}, seq "
+        f"{seq}, {frames} frames, {steps} steps of launch.train.train_step: "
+        f"step 0's loss {rows[0]['loss']!r} and grad norm "
+        f"{rows[0]['grad_norm']!r} == the plain GEMM's (identical)")
+    busy = _train_report("train_seamless", rows, prof, cfg, peak, base)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return sum(r["launches"] for r in rows), dict(
+        batch=batch, seq=seq, frames=frames, steps=steps,
+        losses=[r["loss"] for r in rows],
+        wall_ms=[r["wall_s"] * 1e3 for r in rows], busy_ms_last=busy,
+        peak_bytes=peak, launches_per_step=rows[0]["launches"])
+
+
+def serve_multimodal(dev):
+    """seamless-m4t-medium and llama-3.2-vision-11b at full width and
+    depth (``serve_seamless``, ``serve_vision``), then seamless's train
+    steps (``train_seamless``).  Returns (quant launches, crossbar
+    launches, a summary)."""
+    q1, x1, seamless = serve_seamless(dev)
+    q2, vision = serve_vision(dev)
+    q3, train = train_seamless(dev)
+    return q1 + q2 + q3, x1, dict(seamless=seamless, vision=vision,
+                                  train=train)
 
 
 # --------------------------------------------------------------------------
@@ -3236,6 +3712,7 @@ def main() -> int:
     win_q, win_x, win = serve_window(dev)
     moe_q, moe_x, moe_run = serve_moe(dev)
     rec_q, rec_x, rec_run = serve_recurrent(dev)
+    mm_q, mm_x, mm_run = serve_multimodal(dev)
     # training: fresh weights from the same seed; the serve phases' params
     # stay as they are
     tq_launches, tq = train_quant(base, dev, quant_rows)
@@ -3253,7 +3730,7 @@ def main() -> int:
              launches_train_path=tq_launches,
              launches_wide_path={k: v[0] for k, v in wide.items()},
              launches_window_path=win_q, launches_moe_path=moe_q,
-             launches_recurrent_path=rec_q,
+             launches_recurrent_path=rec_q, launches_multimodal_path=mm_q,
              max_abs_err=qrow["max_abs_err"],
              exact=qrow["max_abs_err"] == 0,
              shape=[4, 1024, 2816], ms=qrow["ms"], plain_ms=qrow["plain_ms"],
@@ -3271,9 +3748,9 @@ def main() -> int:
                  for key in ("ms", "plain_ms", "library_ms", "library",
                              "bound_ms", "bound_by")})
                  for shape in WIDE_QUANT_SHAPES + MOE_QUANT_SHAPES
-                 + RECURRENT_QUANT_SHAPES],
+                 + RECURRENT_QUANT_SHAPES + MULTIMODAL_QUANT_SHAPES],
              wide={k: v[2] for k, v in wide.items()}, window=win,
-             moe=moe_run, recurrent=rec_run,
+             moe=moe_run, recurrent=rec_run, multimodal=mm_run,
              train=tq, restart_drill=drill),
         dict(name="crossbar_exec", route="cuda",
              source="src/repro_torch/kernels/csrc/crossbar_exec.cu",
@@ -3285,7 +3762,7 @@ def main() -> int:
              launches_train_path=tp_launches,
              launches_wide_path={k: v[1] for k, v in wide.items()},
              launches_window_path=win_x, launches_moe_path=moe_x,
-             launches_recurrent_path=rec_x,
+             launches_recurrent_path=rec_x, launches_multimodal_path=mm_x,
              max_abs_err=xbar_row["max_abs_err"],
              exact=xbar_row["max_abs_err"] == 0,
              shape=xbar_row["shape"], ms=xbar_row["ms"],

@@ -1,10 +1,11 @@
 """Architecture registry: one module per config, ``get(name)`` API.
 
-The registry holds the configurations the port can run: the dense
-``"ad"`` stack, sliding windows included, the MoE blocks ``"ae"``
+The registry holds the reference's configurations, in its order: the
+dense ``"ad"`` stack, sliding windows included, the MoE blocks ``"ae"``
 (granite-moe) and ``"ar"`` (arctic, with its dense residual), the
-Mamba/attention/MoE hybrid jamba and the xLSTM stack.  The
-encoder-decoder and vision configs wait in ROADMAP.md queue 1."""
+encoder-decoder seamless-m4t-medium and the vision llama-3.2-vision-11b
+(``"adx"`` cross-attention, ``"enc"`` encoder blocks), the
+Mamba/attention/MoE hybrid jamba and the xLSTM stack."""
 from __future__ import annotations
 
 import importlib
@@ -19,6 +20,8 @@ _MODULES = {
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "arctic-480b": "arctic_480b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "xlstm-1.3b": "xlstm_1_3b",
 }

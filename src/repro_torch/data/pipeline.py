@@ -64,8 +64,8 @@ class SyntheticLM:
 
 @dataclasses.dataclass
 class AudioStub:
-    """Precomputed frame-embedding stub for the audio frontend (enc-dec
-    configs, not ported yet)."""
+    """Precomputed frame-embedding stub for the audio frontend (the
+    encoder-decoder configs' ``"frames"``)."""
 
     d_model: int
     frames: int
@@ -78,8 +78,8 @@ class AudioStub:
 
 @dataclasses.dataclass
 class VisionStub:
-    """Precomputed patch-embedding stub for the vision tower (vision
-    configs, not ported yet)."""
+    """Precomputed patch-embedding stub for the vision tower (the vision
+    configs' ``"patches"``)."""
 
     vision_dim: int
     n_patches: int

@@ -8,7 +8,8 @@ with a straight-through backward).  Fault tolerance: periodic atomic
 checkpoints in the reference's format, auto-resume (``--resume``), and
 stateless data indexing, so the token stream continues exactly where the
 failed run left off; ``--fail-at-step`` injects a crash for the restart
-drill.  Weights are random, drawn from ``--seed``.  Runs on ``--device
+drill.  Weights are random, drawn from ``--seed``; an encoder-decoder
+or vision config is fed the stubs' frames or patches every step.  Runs on ``--device
 cuda`` (the default; it raises without a card) or ``--device cpu`` with
 the kernels' plain versions.
 
@@ -36,7 +37,7 @@ import time
 import torch
 
 from repro_torch import configs
-from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.data.pipeline import AudioStub, SyntheticLM, VisionStub
 from repro_torch.device import resolve_device
 from repro_torch.models import model_lib as M
 from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_state
@@ -68,6 +69,10 @@ def build_cfg(args):
                   dtype="float32", remat=False, loss_chunk=1 << 30)
         if cfg.n_experts:
             kw.update(n_experts=8, top_k=2, moe_d_ff=kw["d_ff"] // 4)
+        if cfg.n_encoder_layers:
+            kw.update(n_encoder_layers=2)
+        if cfg.vision_dim:
+            kw.update(vision_dim=64, n_patches=16)
         if cfg.family == "ssm":
             kw.update(n_kv_heads=kw["n_heads"])
         cfg = cfg.scaled(**kw)
@@ -167,6 +172,12 @@ def main(argv=None):
     ocfg = AdamWConfig(lr_peak=args.lr, warmup_steps=max(args.steps // 20, 5),
                        total_steps=args.steps)
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
+    # the stubs draw from their own default seed, as the reference's loop
+    # calls them
+    audio = AudioStub(cfg.d_model, args.seq // cfg.audio_frames_div) \
+        if cfg.is_encoder_decoder else None
+    vision = VisionStub(cfg.vision_dim, cfg.n_patches) if cfg.vision_dim \
+        else None
 
     params = M.init_params(cfg, args.seed, device)
     opt_state = init_state(ocfg, params)
@@ -205,6 +216,12 @@ def main(argv=None):
             batch = {k: torch.from_numpy(v).to(device=device,
                                                dtype=torch.long)
                      for k, v in data.batch_at(step).items()}
+            if audio:
+                batch["frames"] = torch.from_numpy(
+                    audio.batch_at(step, args.batch)).to(device)
+            if vision:
+                batch["patches"] = torch.from_numpy(
+                    vision.batch_at(step, args.batch)).to(device)
             params, opt_state, loss, metrics = train_step(params, opt_state,
                                                           batch, cfg, ocfg)
             loss = float(loss)

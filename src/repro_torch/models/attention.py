@@ -1,4 +1,5 @@
-"""Attention: GQA/MQA, sliding-window masks, KV-cache decode.
+"""Attention: GQA/MQA, sliding-window masks, KV-cache decode, and
+cross-attention onto an encoder's or a vision projection's memory.
 
 Eager PyTorch: these are plain jnp functions in the reference, not Pallas
 kernels.  ``flash_attention`` keeps the reference's blockwise online
@@ -161,3 +162,18 @@ def decode_attention(q, k_cache, v_cache, cache_len=None, *,
     out = torch.einsum("bhgqs,bshd->bqhgd", p.to(torch.float32),
                        v_cache.to(torch.float32))
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def cross_attention(q, k, v) -> torch.Tensor:
+    """Full (unmasked) attention onto a memory of frames or patches: q (B,
+    Sq, H, D), k/v (B, Sk, Hkv, D) -> (B, Sq, H, D).  float32 scores over
+    ``sqrt(D)``, the softmax cast to ``v``'s dtype, float32 accumulation
+    cast to ``q``'s."""
+    h, d, hkv = q.shape[2], q.shape[3], k.shape[2]
+    k = _repeat_kv(k, h // hkv)
+    v = _repeat_kv(v, h // hkv)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) / math.sqrt(d)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(torch.float32),
+                        v.to(torch.float32)).to(q.dtype)

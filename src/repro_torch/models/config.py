@@ -1,6 +1,5 @@
 """Model configuration, with the reference's fields for every architecture
-(the port runs the dense ``"ad"``, the MoE ``"ae"``/``"ar"``, the Mamba
-``"md"``/``"me"`` and the xLSTM ``"xm"``/``"xs"`` blocks so far).
+(the port runs every block kind below).
 
 A model is a stack of *super-blocks*: ``pattern`` lists the layer kinds of
 one period; the stack is ``n_layers / len(pattern)`` periods, with

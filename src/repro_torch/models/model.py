@@ -1,6 +1,7 @@
 """Model assembly: parameter specs, prefill, decode and the train mode of
 the dense ``"ad"`` stack, the MoE blocks ``"ae"`` and ``"ar"``, the Mamba
-blocks ``"md"`` and ``"me"`` and the xLSTM blocks ``"xm"`` and ``"xs"``.
+blocks ``"md"`` and ``"me"``, the xLSTM blocks ``"xm"`` and ``"xs"``, the
+cross-attention block ``"adx"`` and the encoder block ``"enc"``.
 
 Parameters keep the reference's tree: ``{"embed", "final_norm", "blocks":
 {"0": {name: (n_super, ...)}}}`` with every block weight stacked over the
@@ -58,9 +59,17 @@ reference, and the next admit overwrites it.  Their state folds the whole
 prefix, so the scheduler serves them unpadded (``prompt_bucket=1``) and
 without prefix sharing, chunks, packs or speculation.
 
-Not ported yet (ROADMAP queue 1): cross-attention and encoders (the
-``"adx"`` and ``"enc"`` kinds, enc-dec and vision configs); they raise
-``NotImplementedError``.
+The cross-attention block ``"adx"`` (self-attention, cross-attention
+onto a memory, the dense MLP) serves the encoder-decoder and vision
+configs.  The memory is the encoder's output over the request's frames
+(``"enc"`` blocks: non-causal self-attention without RoPE and the dense
+MLP, run in train mode, then ``enc_norm``) or the patches projected by
+``vision_proj``, a plain product in the compute dtype as in the
+reference.  Prefill runs ``xwk``/``xwv`` on the memory and returns their
+outputs as the ``xk``/``xv`` cache leaves, slot-indexed and not paged;
+decode reads them and never writes them, so a decode step needs no
+memory.  The encoder runs inside prefill's and ``loss_fn``'s transient
+context like every other linear of theirs.
 """
 from __future__ import annotations
 
@@ -91,22 +100,27 @@ Spec = Tuple[Tuple[int, ...], torch.dtype, str, float]
 #: Attention-KV leaf names eligible for block paging.
 PAGED_KV_KEYS = ("k", "v", "k_scale", "v_scale")
 
-#: Block kinds the port runs: dense, MoE, MoE with a dense residual, Mamba
-#: with a dense MLP or the MoE, mLSTM and sLSTM.
-PORTED_KINDS = ("ad", "ae", "ar", "md", "me", "xm", "xs")
+#: Block kinds the port runs: dense, MoE, MoE with a dense residual,
+#: dense with cross-attention, the encoder's, Mamba with a dense MLP or the
+#: MoE, mLSTM and sLSTM.
+PORTED_KINDS = ("ad", "ae", "ar", "adx", "enc", "md", "me", "xm", "xs")
 
-_ATTN_KINDS = ("ad", "ae", "ar")
+#: Kinds with self-attention (``"enc"`` only in the encoder stack, so never
+#: with a KV cache) and with the dense MLP.
+_ATTN_KINDS = ("ad", "ae", "ar", "adx", "enc")
+_MLP_KINDS = ("ad", "adx", "enc", "md", "ar")
 _MAMBA_KINDS = ("md", "me")
 _XLSTM_KINDS = ("xm", "xs")
+#: Cross-attention cache leaves: written by prefill, read by decode.
+_XATTN_KEYS = ("xk", "xv")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     bad = [k for k in cfg.pattern if k not in PORTED_KINDS]
-    if bad or cfg.is_encoder_decoder or cfg.vision_dim:
+    if bad:
         raise NotImplementedError(
-            f"{cfg.name}: only the {'/'.join(PORTED_KINDS)} blocks are "
-            "ported so far (enc-dec and cross-attention wait in ROADMAP.md "
-            "queue 1)")
+            f"{cfg.name}: block kinds {bad} are not ported; the port runs "
+            f"{'/'.join(PORTED_KINDS)}")
 
 
 def _refuse_window_run(cfg: ModelConfig) -> None:
@@ -173,6 +187,15 @@ def _moe_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
             "w3": _spec((e, d, f), dt)}
 
 
+def _xattn_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {"normx": _spec((d,), torch.float32, "ones"),
+            "xwq": _spec((d, h * hd), dt),
+            "xwk": _spec((d, hkv * hd), dt),
+            "xwv": _spec((d, hkv * hd), dt),
+            "xwo": _spec((h * hd, d), dt)}
+
+
 def _mamba_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
     d, di, ds, dc, dtr = (cfg.d_model, cfg.d_inner, cfg.mamba_d_state,
                           cfg.mamba_d_conv, cfg.dt_rank)
@@ -223,10 +246,12 @@ def _block_specs(kind: str, cfg: ModelConfig, dt) -> Dict[str, Spec]:
     s: Dict[str, Spec] = {}
     if kind in _ATTN_KINDS:
         s.update(_attn_specs(cfg, dt))
-    if kind in ("ad", "md", "ar"):
+    if kind in _MLP_KINDS:
         s.update(_mlp_specs(cfg, dt))
     if kind in ("ae", "ar", "me"):
         s.update(_moe_specs(cfg, dt))
+    if kind == "adx":
+        s.update(_xattn_specs(cfg, dt))
     if kind in _MAMBA_KINDS:
         s.update(_mamba_specs(cfg, dt))
     if kind == "xm":
@@ -240,17 +265,27 @@ def param_specs(cfg: ModelConfig) -> Params:
     """The parameter tree as ``(shape, dtype, init, scale)`` leaves."""
     _check_supported(cfg)
     dt = cfg.compute_dtype
-    v, d, ns = cfg.padded_vocab, cfg.d_model, cfg.n_super
+    v, d = cfg.padded_vocab, cfg.d_model
+
+    def stacked(kind, n):
+        return {k: ((n,) + shp, t, init, scale) for k, (shp, t, init, scale)
+                in _block_specs(kind, cfg, dt).items()}
+
     out: Params = {
         "embed": _spec((v, d), dt),
         "final_norm": _spec((d,), torch.float32, "ones"),
-        "blocks": {str(i): {k: ((ns,) + shp, t, init, scale)
-                            for k, (shp, t, init, scale)
-                            in _block_specs(kind, cfg, dt).items()}
+        "blocks": {str(i): stacked(kind, cfg.n_super)
                    for i, kind in enumerate(cfg.pattern)},
     }
     if not cfg.tie_embeddings:
         out["lm_head"] = _spec((v, d), dt)
+    if cfg.is_encoder_decoder:
+        out["encoder"] = {
+            "blocks": {"0": stacked("enc", cfg.n_encoder_layers)},
+            "enc_norm": _spec((d,), torch.float32, "ones"),
+        }
+    if cfg.vision_dim:
+        out["vision_proj"] = _spec((cfg.vision_dim, d), dt)
     return out
 
 
@@ -380,7 +415,7 @@ def _norm(x, weight, cfg: ModelConfig, run: bool):
 
 
 def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
-                    block_tables=None, segment_ids=None):
+                    causal=True, block_tables=None, segment_ids=None):
     b, s, d = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     quant = cfg.kv_cache_dtype == "int8"
@@ -390,8 +425,9 @@ def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
     q = linear(hh, p["wq"], p.get("bq")).reshape(b, s, h, hd)
     k = linear(hh, p["wk"], p.get("bk")).reshape(b, s, hkv, hd)
     v = linear(hh, p["wv"], p.get("bv")).reshape(b, s, hkv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if causal:  # RoPE only on the causal (decoder) stacks
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     new_cache = None
     if mode == "decode" and block_tables is not None:
         # Block-paged cache: leaves are (num_blocks, block, ...) physical
@@ -478,7 +514,7 @@ def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
             out = _decode_attention(q, k_full, v_full, valid)
         new_cache = cache
     else:
-        window = cfg.sliding_window
+        window = cfg.sliding_window if causal else None
         attn_fn = attn.flash_attention if cfg.flash_attention \
             else attn.direct_attention
         if mode == "prefill" and cache is not None:
@@ -494,7 +530,7 @@ def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
             pk, pv = _read_kv(cache, cfg, quant)
             out = attn_fn(q, torch.cat([pk.to(k.dtype), k], dim=1),
                           torch.cat([pv.to(v.dtype), v], dim=1),
-                          causal=True, window=window, q_offset=m_len)
+                          causal=causal, window=window, q_offset=m_len)
             new_cache = _tail_kv(k, v, cfg, quant)
         elif segment_ids is not None:
             # Packed prefill: several prompts share one (1, L) stream.
@@ -504,11 +540,11 @@ def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
             # ``PagedCachePool.admit(start=)`` unpacks each segment (a
             # windowed segment packs only while it fits the window, where
             # the ring layout is the dense one).
-            out = attn_fn(q, k, v, causal=True, window=window,
+            out = attn_fn(q, k, v, causal=causal, window=window,
                           segment_ids=segment_ids, positions=positions)
             new_cache = _tail_kv(k, v, cfg, quant)
         else:
-            out = attn_fn(q, k, v, causal=True, window=window)
+            out = attn_fn(q, k, v, causal=causal, window=window)
         if mode == "prefill" and new_cache is None:
             if window:
                 # the ring: the window, with decode headroom padded for a
@@ -552,6 +588,34 @@ def _tail_kv(k, v, cfg: ModelConfig, quant: bool):
         return _kv_leaves(k, v, True)
     return _kv_leaves(k.to(cfg.compute_dtype), v.to(cfg.compute_dtype),
                       False)
+
+
+def _cross_attention(x, p, cfg: ModelConfig, memory, mode, cache,
+                     run: bool = False):
+    """Cross-attention onto ``memory`` (B, S_m, d): prefill and train run
+    ``xwk``/``xwv`` on it (prefill returns them, in the compute dtype, as
+    the ``xk``/``xv`` leaves; train keeps nothing); decode reads them from
+    ``cache`` and writes nothing."""
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hh = _norm(x, p["normx"], cfg, run)
+    q = linear(hh, p["xwq"]).reshape(b, s, h, hd)
+    new_cache = None
+    if mode == "decode":
+        k, v = cache["xk"], cache["xv"]
+    else:
+        sk = memory.shape[1]
+        k = linear(memory, p["xwk"]).reshape(b, sk, hkv, hd)
+        v = linear(memory, p["xwv"]).reshape(b, sk, hkv, hd)
+        if mode == "prefill":
+            new_cache = {"xk": k.to(cfg.compute_dtype),
+                         "xv": v.to(cfg.compute_dtype)}
+    if run:
+        out = _per_position(lambda qi: attn.cross_attention(qi, k, v), q)
+    else:
+        out = attn.cross_attention(q, k, v)
+    y = linear(out.reshape(b, s, h * hd), p["xwo"])
+    return x + y, new_cache
 
 
 def _dense_ffn(hh, p, cfg: ModelConfig):
@@ -608,27 +672,39 @@ def _xlstm(x, p, cfg: ModelConfig, mode, cache, kind):
 
 
 def apply_block(kind: str, x, p, cfg: ModelConfig, *, positions, mode,
-                cache=None, pos=None, block_tables=None, segment_ids=None):
+                cache=None, pos=None, memory=None, block_tables=None,
+                segment_ids=None):
     """Returns (x, cache_out or None), in the reference's order: the
-    mixer (self-attention, Mamba or xLSTM), then the dense MLP (``"ad"``,
-    ``"md"``) or the MoE (``"ae"``, ``"me"``; ``"ar"`` with arctic's dense
-    residual)."""
+    mixer (self-attention, Mamba or xLSTM), the cross-attention of
+    ``"adx"`` onto ``memory``, then the dense MLP (``"ad"``, ``"adx"``,
+    ``"enc"``, ``"md"``) or the MoE (``"ae"``, ``"me"``; ``"ar"`` with
+    arctic's dense residual).  ``"enc"`` attends without a causal mask or
+    RoPE."""
     if kind not in PORTED_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+        raise NotImplementedError(f"block kind {kind!r} is not ported")
     # a multi-position decode step: the speculative verify run
     run = mode == "decode" and x.shape[1] > 1
     if kind in _ATTN_KINDS:
-        x, c = _self_attention(x, p, cfg, positions, mode, cache, pos,
+        # the self-attention sees its KV leaves only (a paged read gathers
+        # every leaf it is given through the block table)
+        kv = (None if cache is None else
+              {k: v for k, v in cache.items() if k not in _XATTN_KEYS})
+        x, c = _self_attention(x, p, cfg, positions, mode, kv, pos,
+                               causal=kind != "enc",
                                block_tables=block_tables,
                                segment_ids=segment_ids)
+        if kind == "adx":
+            x, xc = _cross_attention(x, p, cfg, memory, mode, cache, run)
+            if xc:
+                c = {**c, **xc}
     elif kind in _MAMBA_KINDS:
         x, c = _mamba(x, p, cfg, mode, cache)
     else:
         x, c = _xlstm(x, p, cfg, mode, cache, kind)
-    if kind in ("ad", "md"):
-        x = _mlp(x, p, cfg, run=run)
-    elif kind in ("ae", "me", "ar"):
+    if kind in ("ae", "me", "ar"):
         x = _moe(x, p, cfg, dense_residual=kind == "ar", run=run)
+    elif kind in _MLP_KINDS:
+        x = _mlp(x, p, cfg, run=run)
     return x, c
 
 
@@ -637,14 +713,15 @@ def apply_block(kind: str, x, p, cfg: ModelConfig, *, positions, mode,
 # ==========================================================================
 
 def _decoder_stack(params, x, cfg: ModelConfig, *, positions, mode,
-                   caches=None, pos=None, block_tables=None,
+                   caches=None, pos=None, memory=None, block_tables=None,
                    segment_ids=None):
     """Loop over super-blocks.  ``caches``: {pattern index: stacked cache}
-    (in prefill, the mapped prefix to resume from).  Prefill returns
+    (in prefill, the mapped prefix to resume from); ``memory``: what the
+    ``"adx"`` blocks attend to in prefill and train.  Prefill returns
     freshly stacked caches; decode updates ``caches`` in place and returns
     it; train returns ``(x, None)``."""
     if mode == "train":
-        return _train_stack(params, x, cfg, positions), None
+        return _train_stack(params, x, cfg, positions, memory), None
     per_layer = {str(i): [] for i in range(len(cfg.pattern))}
     for layer in range(cfg.n_super):
         for i, kind in enumerate(cfg.pattern):
@@ -652,7 +729,7 @@ def _decoder_stack(params, x, cfg: ModelConfig, *, positions, mode,
             c = ({k: v[layer] for k, v in caches[str(i)].items()}
                  if caches is not None else None)
             x, cout = apply_block(kind, x, p, cfg, positions=positions,
-                                  mode=mode, cache=c, pos=pos,
+                                  mode=mode, cache=c, pos=pos, memory=memory,
                                   block_tables=block_tables,
                                   segment_ids=segment_ids)
             per_layer[str(i)].append(cout)
@@ -672,29 +749,63 @@ def _recompute_ctx():
     return contextlib.nullcontext(), engine.capture_context()
 
 
-def _train_stack(params, x, cfg: ModelConfig, positions):
-    """The train mode's layer loop, each super-block checkpointed when
-    ``cfg.remat``.  The stacked weights are unbound once: unbind's
+def _unbound(stacks):
+    """Per-layer views of stacked block weights, unbound once: unbind's
     backward stacks the per-layer gradients in one op, where indexing
     would build a zero-filled stack per layer."""
-    blocks = {i: {k: v.unbind(0) for k, v in b.items()}
-              for i, b in params["blocks"].items()}
+    return {i: {k: v.unbind(0) for k, v in b.items()}
+            for i, b in stacks.items()}
 
-    def body(x, layer):
+
+def _train_stack(params, x, cfg: ModelConfig, positions, memory=None):
+    """The train mode's layer loop, each super-block checkpointed when
+    ``cfg.remat`` (``memory`` passed in, so the recompute reads the same
+    tensor)."""
+    blocks = _unbound(params["blocks"])
+
+    def body(x, layer, memory):
         for i, kind in enumerate(cfg.pattern):
             p = {k: v[layer] for k, v in blocks[str(i)].items()}
             x, _ = apply_block(kind, x, p, cfg, positions=positions,
-                               mode="train")
+                               mode="train", memory=memory)
         return x
 
     for layer in range(cfg.n_super):
         if cfg.remat:
-            x = checkpoint(body, x, layer, use_reentrant=False,
+            x = checkpoint(body, x, layer, memory, use_reentrant=False,
                            preserve_rng_state=False,
                            context_fn=_recompute_ctx)
         else:
-            x = body(x, layer)
+            x = body(x, layer, memory)
     return x
+
+
+def _encode(params, frames, cfg: ModelConfig):
+    """The encoder over ``frames`` (B, S_f, d): ``"enc"`` blocks in train
+    mode at positions ``arange(S_f)``, then ``enc_norm``.  No remat: the
+    reference checkpoints the decoder stack only."""
+    x = frames.to(cfg.compute_dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    blocks = _unbound(params["encoder"]["blocks"])["0"]
+    for layer in range(cfg.n_encoder_layers):
+        p = {k: v[layer] for k, v in blocks.items()}
+        x, _ = apply_block("enc", x, p, cfg, positions=positions,
+                           mode="train")
+    return rms_norm(x, params["encoder"]["enc_norm"], cfg.norm_eps)
+
+
+def _memory(params, batch, cfg: ModelConfig):
+    """What the ``"adx"`` blocks attend to: the encoder's output over
+    ``batch["frames"]``, or ``batch["patches"] @ vision_proj`` in the
+    compute dtype (a plain product, outside ``linear``, as in the
+    reference); None for a decoder-only config."""
+    if cfg.is_encoder_decoder:
+        return _encode(params, batch["frames"], cfg)
+    if cfg.vision_dim:
+        dt = cfg.compute_dtype
+        return torch.matmul(batch["patches"].to(dt),
+                            params["vision_proj"].to(dt))
+    return None
 
 
 # ==========================================================================
@@ -737,7 +848,9 @@ def _transient_ctx(cfg: ModelConfig):
 def loss_fn(params, batch, cfg: ModelConfig):
     """Mean next-token cross entropy (chunked over tokens), in float32.
 
-    ``batch``: ``{"tokens": (B, S) int, "labels": (B, S) int}``.  The
+    ``batch``: ``{"tokens": (B, S) int, "labels": (B, S) int}``, with
+    ``"frames"`` (B, S_f, d) for an encoder-decoder config or
+    ``"patches"`` (B, n_patches, vision_dim) for a vision one.  The
     linears lower per ``cfg.pim_mode`` on transient crossbar state; with
     ``cfg.remat`` each super-block is recomputed in ``backward()``."""
     _check_supported(cfg)
@@ -749,8 +862,10 @@ def _loss_fn(params, batch, cfg: ModelConfig):
     tokens = batch["tokens"]
     labels = batch["labels"]
     x = _embed_in(params, tokens, cfg)
+    memory = _memory(params, batch, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x, _ = _decoder_stack(params, x, cfg, positions=positions, mode="train")
+    x, _ = _decoder_stack(params, x, cfg, positions=positions, mode="train",
+                          memory=memory)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = _unembed_table(params, cfg)
 
@@ -779,6 +894,11 @@ def _loss_fn(params, batch, cfg: ModelConfig):
 def prefill(params, batch, cfg: ModelConfig, last_index=None, prefix=None):
     """Forward the prompt; return (last-token logits, caches).
 
+    ``batch``: ``{"tokens": (B, S) int}``, with ``"frames"`` or
+    ``"patches"`` for an encoder-decoder or vision config (see
+    :func:`loss_fn`); their ``"adx"`` layers return ``xk``/``xv`` leaves of
+    the memory's length.
+
     ``last_index`` — optional (B,) int index of each request's last real
     prompt token, for right-padded (bucketed) prompts: logits are read
     there instead of at ``S - 1``.  Causal masking makes every position
@@ -799,12 +919,14 @@ def prefill(params, batch, cfg: ModelConfig, last_index=None, prefix=None):
     with _transient_ctx(cfg):
         tokens = batch["tokens"]
         x = _embed_in(params, tokens, cfg)
+        memory = _memory(params, batch, cfg)
         off = 0
         if prefix is not None:
             off = next(iter(prefix.values()))["k"].shape[2]
         positions = off + torch.arange(tokens.shape[1], device=tokens.device)
         x, caches = _decoder_stack(params, x, cfg, positions=positions,
-                                   mode="prefill", caches=prefix)
+                                   mode="prefill", caches=prefix,
+                                   memory=memory)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         if last_index is None:
             xl = x[:, -1]
@@ -952,7 +1074,9 @@ def decode_run_slots(params, tokens, pos, active, caches, cfg: ModelConfig,
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Dict:
     """``(shape, dtype)`` of the contiguous decode caches: KV for the
-    attention kinds, slot-indexed recurrent state for Mamba (``ssm``,
+    attention kinds, slot-indexed cross-attention memory for ``"adx"``
+    (``xk``, ``xv``: ``n_patches`` rows, or ``seq_len // audio_frames_div``
+    for an encoder's frames) and recurrent state for Mamba (``ssm``,
     ``conv``) and xLSTM (``c``, ``n``, ``m``); a layer with no leaves has
     no entry."""
     _check_supported(cfg)
@@ -970,6 +1094,10 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Dict:
             if cfg.kv_cache_dtype == "int8":
                 c["k_scale"] = ((ns, batch, cap, hkv), f32)
                 c["v_scale"] = ((ns, batch, cap, hkv), f32)
+        if kind == "adx":
+            rows = cfg.n_patches or seq_len // cfg.audio_frames_div
+            for key in _XATTN_KEYS:
+                c[key] = ((ns, batch, rows, hkv, hd), cfg.compute_dtype)
         if kind in _MAMBA_KINDS:
             c["ssm"] = ((ns, batch, cfg.d_inner, cfg.mamba_d_state), f32)
             c["conv"] = ((ns, batch, cfg.mamba_d_conv - 1, cfg.d_inner),
@@ -989,8 +1117,8 @@ def paged_cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
                       num_blocks: int, block_size: int) -> Dict:
     """``cache_specs`` with the attention-KV leaves re-laid as
     ``(n_super, num_blocks, block_size, ...)`` block pools (block 0 is the
-    pool's reserved sentinel/trash block); the recurrent leaves keep their
-    ``(n_super, batch, ...)`` slot layout."""
+    pool's reserved sentinel/trash block); the cross-attention and
+    recurrent leaves keep their ``(n_super, batch, ...)`` slot layout."""
     out = cache_specs(cfg, batch, seq_len)
     for c in out.values():
         for key in PAGED_KV_KEYS:

@@ -265,6 +265,13 @@ class Scheduler:
                  clock=time.monotonic, device="cuda"):
         if scfg.max_batch < 1:
             raise ValueError("max_batch must be >= 1")
+        # enc-dec / vision prefill needs frames/patches carried per request
+        # and their cross-attention caches pooled; the reference serves
+        # neither, so neither does the port
+        if cfg.is_encoder_decoder or cfg.vision_dim:
+            raise NotImplementedError(
+                f"{cfg.name}: multimodal serving (frames/patches on the "
+                "request) is a ROADMAP follow-on; decoder-only stacks only")
         _validate(cfg, scfg)
         self.device = resolve_device(device)
         self.params = params

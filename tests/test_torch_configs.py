@@ -3,9 +3,11 @@ dense configurations gemma-7b (head_dim 256 above d_model / n_heads, the
 embedding scale, tanh gelu, tied embeddings) and granite-20b (one KV head,
 an ungated MLP, untied embeddings) on the reference's weights.  The MoE
 configurations granite-moe-1b-a400m and arctic-480b, and the recurrent
-jamba-v0.1-52b and xlstm-1.3b, are held field for field and tree for tree
-here (every leaf's init kind and scale too); their smoke models run in
-tests/test_torch_moe.py and tests/test_torch_recurrent.py.
+jamba-v0.1-52b and xlstm-1.3b, and the encoder-decoder seamless-m4t-medium
+and vision llama-3.2-vision-11b, are held field for field and tree for
+tree here (every leaf's init kind and scale too); their smoke models run
+in tests/test_torch_moe.py, tests/test_torch_recurrent.py and
+tests/test_torch_multimodal.py.
 
 Tolerances: logits within ``LOGIT_TOL`` = 1e-4 of the reference's
 (float32 smoke models, different reduction orders, as in
@@ -37,13 +39,15 @@ LOGIT_TOL = 1e-4
 NEW = ("gemma-7b", "granite-20b", "h2o-danube-1.8b")
 MOE = ("granite-moe-1b-a400m", "arctic-480b")
 RECURRENT = ("jamba-v0.1-52b", "xlstm-1.3b")
+MULTIMODAL = ("seamless-m4t-medium", "llama-3.2-vision-11b")
 
 
 def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.mark.parametrize("name", NEW + ("qwen1.5-0.5b",) + MOE + RECURRENT)
+@pytest.mark.parametrize("name", NEW + ("qwen1.5-0.5b",) + MOE + RECURRENT
+                         + MULTIMODAL)
 def test_every_field_equals_the_reference(name):
     got, want = TC.get(name), RC.get(name)
     names = [f.name for f in dataclasses.fields(got)]
@@ -53,29 +57,32 @@ def test_every_field_equals_the_reference(name):
     assert (got.hd, got.padded_vocab, got.n_super) == \
         (want.hd, want.padded_vocab, want.n_super)
     assert (got.dt_rank, got.d_inner, got.has_recurrent_blocks,
-            got.sub_quadratic) == (want.dt_rank, want.d_inner,
-                                   want.has_recurrent_blocks,
-                                   want.sub_quadratic)
+            got.sub_quadratic, got.is_encoder_decoder) == (
+                want.dt_rank, want.d_inner, want.has_recurrent_blocks,
+                want.sub_quadratic, want.is_encoder_decoder)
     smoke_t, smoke_r = got.smoke(), want.smoke()
     for f in names:
         assert getattr(smoke_t, f) == getattr(smoke_r, f), f
 
 
 def test_registry():
-    assert set(NEW + MOE + RECURRENT) <= set(TC.ARCH_NAMES) \
-        <= set(RC.ARCH_NAMES)
-    assert set(TC.all_configs()) == set(TC.ARCH_NAMES)
+    """Every reference configuration, in the reference's order; an
+    unknown name raises ``KeyError``."""
+    assert TC.ARCH_NAMES == RC.ARCH_NAMES
+    assert set(NEW + MOE + RECURRENT + MULTIMODAL) <= set(TC.ARCH_NAMES)
+    assert list(TC.all_configs()) == TC.ARCH_NAMES
     with pytest.raises(KeyError):
-        TC.get("seamless-m4t-medium")     # an enc-dec: not ported yet
+        TC.get("seamless-m4t-large")
 
 
-@pytest.mark.parametrize("name", NEW + MOE + RECURRENT)
+@pytest.mark.parametrize("name", NEW + MOE + RECURRENT + MULTIMODAL)
 def test_full_width_parameter_tree_equals_the_reference(name):
     """The full-width tree, no weight allocated: every leaf's shape,
     dtype, init kind and scale (gemma's 16 heads of 256, granite's single
     KV head and ungated MLP, untied heads, the MoE blocks' float32 router
-    and stacked experts, arctic's dense residual MLP, jamba's Mamba and
-    xLSTM's per-head leaves)."""
+    and stacked experts, arctic's dense residual MLP, jamba's Mamba,
+    xLSTM's per-head leaves, seamless's encoder subtree and
+    cross-attention, llama-vision's ``vision_proj``)."""
     cfg_t, cfg_r = TC.get(name), RC.get(name)
     specs_r = jax.tree.map(lambda s: (tuple(s.shape), str(s.dtype),
                                       s.init, s.scale),
@@ -122,6 +129,19 @@ def test_full_width_parameter_tree_equals_the_reference(name):
         assert specs_t["blocks"]["1"]["w_gates"][0] == (6, 4096, 8)
         assert specs_t["blocks"]["1"]["w_gates"][2:] == ("normal", 0.5)
         assert "lm_head" not in specs_t
+    if name == "seamless-m4t-medium":
+        enc = specs_t["encoder"]
+        assert enc["blocks"]["0"]["wq"][0] == (12, 1024, 1024)
+        assert "xwq" not in enc["blocks"]["0"]
+        assert enc["enc_norm"][2] == "ones"
+        assert blocks["xwk"][0] == (12, 1024, 1024)
+        assert blocks["normx"][:3] == ((12, 1024), torch.float32, "ones")
+        assert "lm_head" not in specs_t and "vision_proj" not in specs_t
+    if name == "llama-3.2-vision-11b":
+        assert specs_t["vision_proj"][:2] == ((1280, 4096), torch.bfloat16)
+        assert specs_t["blocks"]["3"]["xwk"][0] == (8, 4096, 1024)
+        assert "xwq" not in blocks and "encoder" not in specs_t
+        assert "lm_head" in specs_t
 
 
 def _smoke(name, **kw):

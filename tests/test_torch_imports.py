@@ -35,7 +35,9 @@ missing = sorted({{"repro_torch.pim.cost_model", "repro_torch.pim.autotune",
                   "repro_torch.configs.arctic_480b",
                   "repro_torch.models.ssm", "repro_torch.models.xlstm",
                   "repro_torch.configs.jamba_v0_1_52b",
-                  "repro_torch.configs.xlstm_1_3b"}}
+                  "repro_torch.configs.xlstm_1_3b",
+                  "repro_torch.configs.seamless_m4t_medium",
+                  "repro_torch.configs.llama_3_2_vision_11b"}}
                  - set(names))
 print(len(names), bad, missing)
 """
