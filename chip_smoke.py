@@ -123,6 +123,21 @@ host arithmetic's resident bytes; then two ``quant`` train steps of
 seamless whose step 0 equals its oracle.  Every model's weights are
 drawn on the card.
 
+``serve_tp`` runs ``quant_tp`` and the expert-parallel MoE block at model
+parallel 2: at world size 1 ``tp_quant_linear`` is ``quant_linear`` bit
+for bit; then two processes share the card (``launch.mesh.spawn``,
+gloo) and each serves full-width qwen1.5-0.5b in ``quant_tp`` (its int32
+tiles equal to ``tp_quant_linear_ref``'s, outputs to single-rank
+``quant``'s, the ``quant`` phase's tokens in both pools with 168
+launches per decode step per rank; the tile GEMMs, one ``all_gather``
+and one ``all_reduce`` timed; a profiled step; one ``autotune_linear``
+pick, the same on both ranks), granite-moe-1b-a400m (16 experts per
+rank: routes, capacity and each rank's partial exact, the summed block
+within ``MOE_TP_TOL`` of the meshless one; ``serve_moe``'s trace served
+and its agreement with the ``quant`` tokens printed) and one full-width
+arctic-480b layer (64 experts per rank, 28 GB per rank, the ranks drawn
+one after the other).
+
 Last it trains full-width qwen1.5-0.5b on fresh weights from the same seed.  ``train_quant``: 4 steps of
 ``launch.train.train_step`` at batch 4, seq 128 (every linear on the GEMM
 kernel at M = 512); ``train_pim``: 2 steps at batch 2, seq 32 (every linear
@@ -460,20 +475,8 @@ def check_quant_kernel(dev):
     rows = {}
     timed = [s for s in path if s[0] in (1, 4, 16, 64, 512)]
     for m, k, n in timed + list(served):
-        x = rand(m, k)
-        ws = rotating(lambda: rand(k, n), k * n)
-        ms = cuda_ms(lambda i: quant_matmul_int(x, ws[i % len(ws)]), 50)
-        plain = cuda_ms(lambda i: quant_matmul_int_ref(x, ws[i % len(ws)]),
-                        20)
-        # torch._int_mm refuses M <= 16: there it runs x zero-padded to 32
-        # rows, padded once here
-        xl = x if m > 16 else torch.cat(
-            [x, x.new_zeros(32 - m, k)]).contiguous()
-        lib = cuda_ms(lambda i: torch._int_mm(xl, ws[i % len(ws)]), 50)
-        nbytes = m * k + k * n + 4 * m * n
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * m * k * n / INT8_TENSOR_OPS_PER_S * 1e3
-        bound = max(t_bytes, t_ops)
+        x, ws, row = time_quant_gemm(m, k, n, rand, floor)
+        ms = row["ms"]
         p = plan(m, k, n)
         if p.splits == 1 and k == 1024:
             # the same call with K split 3 ways across blocks (192 blocks,
@@ -488,21 +491,48 @@ def check_quant_kernel(dev):
             say(f"[quant_matmul_int] M={m:3d} K={k:4d} N={n:4d}: "
                 f"{p.col_tiles}x1 blocks {ms * 1e3:6.2f} us | "
                 f"{p.col_tiles}x3 blocks {ms3 * 1e3:6.2f} us")
-        rows[(m, k, n)] = dict(
-            ms=ms, plain_ms=plain, library_ms=lib,
-            library="torch._int_mm" if m > 16
-            else "torch._int_mm, M padded to 32",
-            launch_floor_ms=floor, device_ops_per_call=n_ops,
-            device_ops_per_call_traced=traced,
-            bound_ms=bound, max_abs_err=err,
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        rows[(m, k, n)] = dict(row, device_ops_per_call=n_ops,
+                               device_ops_per_call_traced=traced,
+                               max_abs_err=err)
         say(f"[quant_matmul_int] M={m:3d} K={k:4d} N={n:4d} "
-            f"({p.col_tiles}x{p.splits} blocks): kernel {ms * 1e3:6.2f} us |"
-            f" plain {plain * 1e3:7.2f} us | {rows[(m, k, n)]['library']} "
-            f"{lib * 1e3:6.2f} us | launch floor {floor * 1e3:5.2f} us | "
-            f"bound {bound * 1e3:5.2f} us ({rows[(m, k, n)]['bound_by']}) | "
-            f"{bound / ms * 100:5.1f}% of bound")
+            f"({p.col_tiles}x{p.splits} blocks): " + gemm_line(row))
     return rows
+
+
+def time_quant_gemm(m, k, n, rand, floor):
+    """The GEMM at (m, k, n) timed on the card: the kernel, its plain
+    version and ``torch._int_mm`` (the weights rotated past the L2), beside
+    its bound and ``floor`` (an empty launch).  Returns (x, the weights,
+    the row)."""
+    from repro_torch.kernels.quant_matmul import (quant_matmul_int,
+                                                  quant_matmul_int_ref)
+
+    x = rand(m, k)
+    ws = rotating(lambda: rand(k, n), k * n)
+    ms = cuda_ms(lambda i: quant_matmul_int(x, ws[i % len(ws)]), 50)
+    plain = cuda_ms(lambda i: quant_matmul_int_ref(x, ws[i % len(ws)]), 20)
+    # torch._int_mm refuses M <= 16: there it runs x zero-padded to 32
+    # rows, padded once here
+    xl = x if m > 16 else torch.cat([x, x.new_zeros(32 - m, k)]).contiguous()
+    lib = cuda_ms(lambda i: torch._int_mm(xl, ws[i % len(ws)]), 50)
+    nbytes = m * k + k * n + 4 * m * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * k * n / INT8_TENSOR_OPS_PER_S * 1e3
+    return x, ws, dict(
+        ms=ms, plain_ms=plain, library_ms=lib,
+        library="torch._int_mm" if m > 16
+        else "torch._int_mm, M padded to 32",
+        launch_floor_ms=floor, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def gemm_line(row):
+    return (f"kernel {row['ms'] * 1e3:6.2f} us | plain "
+            f"{row['plain_ms'] * 1e3:7.2f} us | {row['library']} "
+            f"{row['library_ms'] * 1e3:6.2f} us | launch floor "
+            f"{row['launch_floor_ms'] * 1e3:5.2f} us | bound "
+            f"{row['bound_ms'] * 1e3:5.2f} us ({row['bound_by']}) | "
+            f"{row['bound_ms'] / row['ms'] * 100:5.1f}% of bound")
 
 
 # --------------------------------------------------------------------------
@@ -791,15 +821,16 @@ def counters():
     return quant_matmul_int.launches, crossbar_exec.launches
 
 
-def serve_requests(params, cfg, dev, trace, **kw):
+def serve_requests(params, cfg, dev, trace, arrival=None, **kw):
     """Serve ``trace`` [(prompt, new tokens)] through the scheduler with
-    ``ServingConfig(**kw)``; returns the tokens in submission order, the
-    metrics summary and the wall time."""
+    ``ServingConfig(**kw)``, every request arriving at ``arrival`` (on the
+    scheduler's clock; default now); returns the tokens in submission
+    order, the metrics summary and the wall time."""
     from repro_torch.launch.serve import serve_trace
     from repro_torch.serving import make_request
 
-    reqs = [make_request(p, n, arrival_time=time.monotonic())
-            for p, n in trace]
+    at = time.monotonic() if arrival is None else arrival
+    reqs = [make_request(p, n, arrival_time=at) for p, n in trace]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results, summary = serve_trace(params, cfg, reqs, device=dev, **kw)
@@ -819,10 +850,11 @@ def serve_requests(params, cfg, dev, trace, **kw):
 
 
 def serve(params, cfg, dev, *, n_requests, prompt_lens, max_new, max_batch,
-          seed, **kw):
-    """A synthetic trace through the paged scheduler with
-    ``ServingConfig(**kw)`` besides; returns the tokens in submission
-    order, the summary and the wall time (``serve_requests``)."""
+          seed, paged=True, arrival=None, **kw):
+    """A synthetic trace through the scheduler (paged unless ``paged`` is
+    False) with ``ServingConfig(**kw)`` besides; returns the tokens in
+    submission order, the summary and the wall time
+    (``serve_requests``)."""
     from repro_torch.serving import synthetic_requests
 
     reqs = synthetic_requests(n_requests, vocab_size=cfg.vocab_size,
@@ -832,7 +864,7 @@ def serve(params, cfg, dev, *, n_requests, prompt_lens, max_new, max_batch,
     bucket = 1 if cfg.has_recurrent_blocks else max(8, max(prompt_lens) // 4)
     return serve_requests(params, cfg, dev,
                           [(r.prompt, r.max_new_tokens) for r in reqs],
-                          max_batch=max_batch, paged=True,
+                          arrival=arrival, max_batch=max_batch, paged=paged,
                           prompt_bucket=bucket, **kw)
 
 
@@ -845,11 +877,24 @@ def prefill_logits(params, cfg, tokens):
     return logits
 
 
+# the quant phases' traces (``serve``'s arguments): qwen1.5-0.5b's and
+# granite-moe-1b-a400m's, served again by ``serve_tp``
+QUANT_TRACE = dict(n_requests=8, prompt_lens=(16, 32, 48, 64), max_new=16,
+                   max_batch=4, seed=4)
+MOE_QUANT_TRACE = dict(n_requests=8, prompt_lens=(16, 32, 48, 64), max_new=8,
+                       max_batch=4, seed=20)
+
+
+def trace_len(trace):
+    return max(trace["prompt_lens"]) + trace["max_new"]
+
+
 def serve_quant(params, base_cfg, dev):
     from repro_torch.kernels.quant_matmul import ops, quant_matmul_int_ref
 
-    plens, max_new = (16, 32, 48, 64), 16
-    cfg = base_cfg.scaled(pim_mode="quant", max_seq_len=max(plens) + max_new)
+    plens, max_new = QUANT_TRACE["prompt_lens"], QUANT_TRACE["max_new"]
+    cfg = base_cfg.scaled(pim_mode="quant",
+                          max_seq_len=trace_len(QUANT_TRACE))
     toks = torch.as_tensor(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (1, 64)), device=dev)
     reset_counters()
@@ -865,9 +910,7 @@ def serve_quant(params, base_cfg, dev):
         "launches in the prefill")
 
     reset_counters()
-    results, summary, wall = serve(params, cfg, dev, n_requests=8,
-                                   prompt_lens=plens, max_new=max_new,
-                                   max_batch=4, seed=4)
+    results, summary, wall = serve(params, cfg, dev, **QUANT_TRACE)
     q_launches, x_launches = counters()
     if q_launches <= 0:
         raise AssertionError("the quant serve never launched "
@@ -2704,7 +2747,7 @@ def serve_moe(dev):
     dispatch check (``check_moe_dispatch``), a profiled ``quant`` decode
     step with the host time and device span of its MoE blocks, and the
     release of the weights.  TF32 must be off.  Returns (quant launches,
-    crossbar launches, a summary)."""
+    crossbar launches, a summary, the quant tokens)."""
     from repro_torch import configs
     from repro_torch.kernels.quant_matmul import ops, quant_matmul_int_ref
     from repro_torch.models import model as model_mod
@@ -2729,8 +2772,9 @@ def serve_moe(dev):
     failures = []
 
     # quant: 8 requests, prompts 16-64, 8 new tokens, batch 4, paged
-    plens, max_new = (16, 32, 48, 64), 8
-    qcfg = base.scaled(pim_mode="quant", max_seq_len=max(plens) + max_new)
+    plens, max_new = MOE_QUANT_TRACE["prompt_lens"], MOE_QUANT_TRACE["max_new"]
+    qcfg = base.scaled(pim_mode="quant",
+                       max_seq_len=trace_len(MOE_QUANT_TRACE))
     toks = torch.as_tensor(np.random.default_rng(19).integers(
         0, base.vocab_size, (1, 64)), device=dev)
     got = prefill_logits(params, qcfg, toks)
@@ -2743,8 +2787,7 @@ def serve_moe(dev):
                         "the plain GEMM")
 
     def quant_serve():
-        return serve(params, qcfg, dev, n_requests=8, prompt_lens=plens,
-                     max_new=max_new, max_batch=4, seed=20)
+        return serve(params, qcfg, dev, **MOE_QUANT_TRACE)
 
     reset_counters()
     (tokens, summary, wall), steps = decode_records(quant_serve)
@@ -2859,7 +2902,7 @@ def serve_moe(dev):
         pim_prefill_s=t_prefill, resident_bytes=info2.resident_bytes,
         decode_wall_ms=prof["wall_ms"], decode_busy_ms=prof["busy_ms"],
         moe_host_ms=moe_host_ms, moe_span_ms=moe_span_ms, gemm_ms=gemm_ms,
-        dispatch=dispatch)
+        dispatch=dispatch), tokens
 
 
 # --------------------------------------------------------------------------
@@ -2944,8 +2987,9 @@ def serve_jamba(dev):
     failures = []
 
     # quant: 8 requests, prompts 16-64, 8 new tokens, batch 4, paged
-    plens, max_new = (16, 32, 48, 64), 8
-    qcfg = base.scaled(pim_mode="quant", max_seq_len=max(plens) + max_new)
+    plens, max_new = MOE_QUANT_TRACE["prompt_lens"], MOE_QUANT_TRACE["max_new"]
+    qcfg = base.scaled(pim_mode="quant",
+                       max_seq_len=trace_len(MOE_QUANT_TRACE))
     toks = torch.as_tensor(np.random.default_rng(31).integers(
         0, base.vocab_size, (1, 64)), device=dev)
     got = prefill_logits(params, qcfg, toks)
@@ -3648,6 +3692,630 @@ def serve_multimodal(dev):
 
 
 # --------------------------------------------------------------------------
+# quant_tp and expert parallelism: two ranks sharing the card
+# --------------------------------------------------------------------------
+
+# two processes on the one card: NCCL refuses two ranks on one device, so
+# the group is gloo, which moves each collective through host memory
+TP_WORLD = 2
+# the spawned ranks' deadline; gloo's collectives time out after it too
+TP_TIMEOUT_S = 600.0
+# the decode linears (name, M, K, N) whose per-rank tiles are held to
+# tp_quant_linear_ref and timed: qwen1.5-0.5b's wq (as wk, wv and wo),
+# w_in (as w_gate) and w_out; arctic-480b's wq, w_in and w_out
+TP_QWEN_LINEARS = (("wq", 4, 1024, 1024), ("w_in", 4, 1024, 2816),
+                   ("w_out", 4, 2816, 1024))
+TP_ARCTIC_LINEARS = (("wq", 4, 7168, 7168), ("w_in", 4, 7168, 4864),
+                     ("w_out", 4, 4864, 7168))
+TP_COLLECTIVE_REPS = 50
+# the expert-parallel MoE block against the meshless branch: the two
+# ranks' bf16 partials summed in bf16 vs one float32 sum cast once, a few
+# bf16 ulps of the largest entry (MOE_DISPATCH_TOL's reasoning)
+MOE_TP_TOL = MOE_DISPATCH_TOL
+# arctic's one-layer checks: the MoE block on 2 x 32 tokens, a 16-token
+# prefill (logits of quant_tp under the mesh vs quant without it)
+ARCTIC_MOE_SHAPE = (2, 32)
+ARCTIC_PREFILL = 16
+ARCTIC_LOGIT_TOL = 0.05
+
+
+def check_tp_world1(dev):
+    """World size 1: without a mesh ``tp_quant_linear`` is ``quant_linear``
+    bit for bit, one kernel launch, at qwen's three decode shapes."""
+    from repro_torch.kernels.quant_matmul import quant_linear, tp_quant_linear
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    ok = []
+    for name, m, k, n in TP_QWEN_LINEARS:
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=g, device=dev) / math.sqrt(k)).to(
+            torch.bfloat16)
+        reset_counters()
+        got = tp_quant_linear(x, w.float())
+        launches = counters()[0]
+        ok.append(torch.equal(got, quant_linear(x, w.float()))
+                  and launches == 1)
+    say(f"[tp] world size 1, no mesh: tp_quant_linear == quant_linear bit "
+        f"for bit with one launch at {[s[1:] for s in TP_QWEN_LINEARS]}: "
+        f"{ok}")
+    if not all(ok):
+        raise AssertionError(f"quant_tp at world size 1 differs from quant: "
+                             f"{ok}")
+
+
+def tp_say(mesh, *a):
+    say(f"[tp r{mesh.rank}]", *a)
+
+
+def tp_tiles(mesh, dev, layer, linears):
+    """Each linear of ``linears`` through ``linear(mode="quant_tp")`` under
+    ``mesh`` on a seeded (M, K) bf16 input: this rank's kernel output (its
+    int32 tile, before any collective) against ``tp_quant_linear_ref``'s
+    tile of this rank, the gathered result against the reference's and
+    against single-rank ``quant``, bit for bit."""
+    from repro_torch.dist import context as dctx
+    from repro_torch.kernels.quant_matmul import (ops, quant_linear,
+                                                  tp_quant_linear_ref)
+    from repro_torch.kernels.quant_matmul.tp import tp_split, tp_tile_shape
+    from repro_torch.models import layers
+
+    r, i = mesh.shape["model"], mesh.index("model")
+    g = torch.Generator(device=dev).manual_seed(37)
+    real = ops.quant_matmul_int
+    rows = []
+    for name, m, k, n in linears:
+        w = layer[name]
+        if tuple(w.shape) != (k, n):
+            raise AssertionError(f"{name} is {tuple(w.shape)}, not {(k, n)}")
+        x = torch.randn((m, k), generator=g, device=dev).to(w.dtype)
+        outs = []
+
+        def rec(a, b):
+            y = real(a, b)
+            outs.append(y.clone())
+            return y
+
+        with torch.no_grad():
+            with mock.patch.object(ops, "quant_matmul_int", rec), \
+                    dctx.use_mesh(mesh):
+                y = layers.linear(x, w, mode="quant_tp")
+            want, accs = tp_quant_linear_ref(x, w, r)
+            single = quant_linear(x, w.float())
+        exact = (len(outs) == 1 and torch.equal(outs[0], accs[i])
+                 and torch.equal(y, want) and torch.equal(y, single))
+        rows.append(dict(name=name, shape=[m, k, n],
+                         split=tp_split((k, n), r),
+                         tile=[m, *tp_tile_shape((k, n), r)],
+                         exact=bool(exact)))
+    tp_say(mesh, "tiles == tp_quant_linear_ref's, outputs == single-rank "
+           "quant: " + ", ".join(f"{t['name']} {tuple(t['tile'])} "
+                                 f"{t['split']} {t['exact']}" for t in rows))
+    return rows
+
+
+def tp_time(mesh, dev, linears):
+    """Rank 0 times the GEMM at each linear's tile shape (``time_quant_gemm``)
+    while the other ranks wait: the two processes share the card."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.quant_matmul.tp import tp_tile_shape
+
+    rows = []
+    if mesh.rank == 0:
+        g = torch.Generator(device=dev).manual_seed(0)
+
+        def rand(*shape):
+            return torch.randint(-128, 128, shape, dtype=torch.int8,
+                                 device=dev, generator=g)
+
+        floor = cuda_ms(lambda i: torch.cuda._sleep(0), 50)
+        for name, m, k, n in linears:
+            kl, nl = tp_tile_shape((k, n), mesh.shape["model"])
+            row = time_quant_gemm(m, kl, nl, rand, floor)[2]
+            rows.append(dict(name=name, shape=[m, kl, nl], **row))
+            tp_say(mesh, f"quant_matmul_int at {name}'s tile M={m} K={kl} "
+                   f"N={nl}: " + gemm_line(row))
+    dist.barrier()
+    return rows
+
+
+def tp_collectives(mesh, dev):
+    """Host ms of one all_gather of a (4, 512) float32 tile over the model
+    group and of one all_reduce of a (4, 1024) int32 accumulator: a column
+    and a row split's collective at qwen's decode size (gloo, one card)."""
+    from repro_torch.dist import context as dctx
+
+    y = torch.randn(4, 512, device=dev)
+    acc = torch.ones(4, 1024, dtype=torch.int32, device=dev)
+
+    def host_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TP_COLLECTIVE_REPS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / TP_COLLECTIVE_REPS * 1e3
+
+    out = dict(all_gather_ms=host_ms(
+        lambda: dctx.all_gather(y, "model", dim=1, mesh=mesh)),
+        all_reduce_ms=host_ms(
+        lambda: dctx.all_reduce(acc, "model", "sum", mesh)))
+    tp_say(mesh, f"all_gather (4, 512) float32 {out['all_gather_ms']:.3f} "
+           f"ms, all_reduce (4, 1024) int32 {out['all_reduce_ms']:.3f} ms "
+           f"(host clock, {TP_COLLECTIVE_REPS} reps; gloo, one card)")
+    return out
+
+
+def collective_s():
+    from repro_torch.dist import context as dctx
+
+    return sum(c["seconds"] for c in dctx.counts.values()), sum(
+        c["calls"] for c in dctx.counts.values())
+
+
+@contextlib.contextmanager
+def launch_shapes(seen):
+    """Append the weight tile (K, N) of every ``quant_matmul_int`` launch
+    made inside the block to ``seen``: a call is recorded where the
+    kernel's launch counter went up, at the call."""
+    from repro_torch.kernels.quant_matmul import ops, quant_matmul_int
+
+    real = ops.quant_matmul_int
+
+    def rec(a, b):
+        n0 = quant_matmul_int.launches
+        y = real(a, b)
+        if quant_matmul_int.launches > n0:
+            seen.append((int(b.shape[0]), int(b.shape[1])))
+        return y
+
+    with mock.patch.object(ops, "quant_matmul_int", rec):
+        yield seen
+
+
+def tile_counts(shapes):
+    """[[K, N, launches], ...] of a list of tile shapes, sorted."""
+    counts = {}
+    for kn in shapes:
+        counts[kn] = counts.get(kn, 0) + 1
+    return [[k, n, c] for (k, n), c in sorted(counts.items())]
+
+
+def tp_serve(mesh, dev, params, cfg, trace, paged, want):
+    """``trace`` served in ``cfg``'s mode under ``mesh`` (every request
+    arriving at rank 0's now) with the launches of each decode step, in
+    all and per weight tile shape (``launch_shapes``)."""
+    from repro_torch.dist import context as dctx
+    from repro_torch.serving import Scheduler
+
+    arrival = dctx.broadcast_float(time.monotonic(), mesh)
+    shapes, step_shapes = [], []
+
+    def run():
+        counted = Scheduler._plain_step     # decode_records' step
+
+        def step(self, active, emitted):
+            n = len(shapes)
+            counted(self, active, emitted)
+            step_shapes.append(tile_counts(shapes[n:]))
+
+        with mock.patch.object(Scheduler, "_plain_step", step):
+            return serve(params, cfg, dev, paged=paged, arrival=arrival,
+                         **trace)
+
+    c0, n0 = collective_s()
+    reset_counters()
+    with launch_shapes(shapes), dctx.use_mesh(mesh):
+        (tokens, summary, wall), steps = decode_records(run)
+    launches = counters()[0]
+    c1, n1 = collective_s()
+    out = dict(tokens=tokens, equal=tokens == want,
+               agree=sum(a == b for ta, tb in zip(tokens, want)
+                         for a, b in zip(ta, tb)),
+               total=sum(len(t) for t in want), launches=launches,
+               per_step=sorted({q for _, q, _ in steps}), steps=len(steps),
+               per_step_shapes=[list(map(list, c)) for c in sorted(
+                   {tuple(map(tuple, c)) for c in step_shapes})],
+               tokens_per_s=summary["tokens_per_s"],
+               tpot_ms=summary["mean_tpot_s"] * 1e3, wall_s=wall,
+               collective_s=c1 - c0, collective_calls=n1 - n0)
+    pool = "paged" if paged else "contiguous"
+    tp_say(mesh, f"{cfg.name} {cfg.pim_mode} served "
+           f"{summary['n_finished']} requests ({pool}) in {wall:.2f} s: "
+           f"{out['tokens_per_s']:.2f} tok/s | mean TPOT "
+           f"{out['tpot_ms']:.2f} ms | quant_matmul_int launches {launches}, "
+           f"per decode step {out['per_step']} over {len(steps)} steps "
+           f"(tiles [K, N, launches] {out['per_step_shapes']}) | "
+           f"{n1 - n0} collectives, {c1 - c0:.2f} s on the host | tokens == "
+           f"the single-rank quant serve's: {out['equal']} ({out['agree']} "
+           f"of {out['total']})")
+    return out
+
+
+def tp_profile(mesh, dev, params, cfg):
+    """One decode step of a warm quant_tp scheduler at batch 4 under
+    ``profile_call``, with its collectives' host time."""
+    from repro_torch.dist import context as dctx
+    from repro_torch.serving import (Scheduler, ServingConfig,
+                                     synthetic_requests)
+
+    start = dctx.broadcast_float(time.monotonic(), mesh)
+    with dctx.use_mesh(mesh):
+        sched = Scheduler(params, cfg, ServingConfig(
+            max_batch=4, paged=True, prompt_bucket=16), device=dev)
+        for r in synthetic_requests(4, vocab_size=cfg.vocab_size,
+                                    prompt_lens=(16,), max_new_tokens=4,
+                                    seed=7, start_time=start):
+            sched.submit_request(r)
+        sched.step()
+        c0, n0 = collective_s()
+        prof = profile_call(f"{cfg.name} quant_tp decode step, batch 4, "
+                            f"rank {mesh.rank}", sched.step)
+        c1, n1 = collective_s()
+    tp_say(mesh, f"profiled decode step: wall {prof['wall_ms']:.2f} ms, "
+           f"device busy {prof['busy_ms']:.2f} ms, {n1 - n0} collectives "
+           f"{(c1 - c0) * 1e3:.2f} ms on the host")
+    return dict(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"],
+                collective_ms=(c1 - c0) * 1e3, collectives=n1 - n0,
+                launches=prof["launches"][0])
+
+
+def tp_moe_layer(mesh, dev, cfg, layer, shape):
+    """One expert-parallel MoE block under ``mesh`` on seeded bf16 tokens
+    (a shared vector + noise, as ``check_moe_dispatch``): the top-k ids,
+    this rank's capacity and served (token, expert) pairs against
+    ``moe_routes_on_host``, this rank's partial against the expert loop
+    over its experts run without a mesh (bit for bit), and the summed
+    output against the meshless branch within ``MOE_TP_TOL``."""
+    from repro_torch.dist import context as dctx
+    from repro_torch.models import moe
+
+    b, s = shape
+    t, d, e = b * s, cfg.d_model, cfg.n_experts
+    e_loc = e // mesh.shape["model"]
+    e0 = mesh.index("model") * e_loc
+    g = torch.Generator(device=dev).manual_seed(23)
+    shared = torch.randn(d, generator=g, device=dev)
+    x = (shared + MOE_DISPATCH_NOISE * torch.randn(
+        (b, s, d), generator=g, device=dev)).to(cfg.compute_dtype)
+    cap = moe.expert_capacity(t, cfg.top_k, cfg.capacity_factor, e)
+    maps, routes, parts = [], [], []
+    real_map, real_top_k, real_local = (moe._slot_map, moe.router_top_k,
+                                        moe._local_moe)
+
+    def record_map(any_hit, tok, capacity):
+        maps.append(real_map(any_hit, tok, capacity))
+        return maps[-1]
+
+    def record_top_k(x2d, router, k):
+        w, ids = real_top_k(x2d, router, k)
+        routes.append(ids)
+        return w, ids
+
+    def record_local(*a, capacity, e_base=0, **kw):
+        y = real_local(*a, capacity=capacity, e_base=e_base, **kw)
+        parts.append((capacity, e_base, y.clone()))
+        return y
+
+    with torch.no_grad():
+        with mock.patch.object(moe, "_slot_map", record_map), \
+                mock.patch.object(moe, "router_top_k", record_top_k), \
+                mock.patch.object(moe, "_local_moe", record_local), \
+                dctx.use_mesh(mesh):
+            out = moe.moe_ffn(x, layer, cfg)
+        meshless = moe.moe_ffn(x, layer, cfg)
+        xf = x.reshape(t, d)
+        w, ids = real_top_k(xf, layer["router"], cfg.top_k)
+        own = slice(e0, e0 + e_loc)
+        plain = real_local(xf, ids, w, layer["w1"][own], layer["w2"][own],
+                           layer["w3"][own], capacity=cap,
+                           act_name=cfg.activation, e_base=e0)
+    torch.cuda.synchronize()
+    ids_np = routes[0].cpu().numpy()
+    want, dropped, _ = moe_routes_on_host(ids_np, t, cap, e)
+    want = {(i, ex) for i, ex in want if e0 <= ex < e0 + e_loc}
+    got = {(i, e0 + j) for j, m in enumerate(maps) for i in m.tolist()
+           if i < t and (ids_np[i] == e0 + j).any()}
+    scale = float(meshless.float().abs().max())
+    err = float((out.float() - meshless.float()).abs().max())
+    res = dict(capacity=cap, e_base=e0, experts=e_loc,
+               ids_equal=bool(torch.equal(routes[0], ids)),
+               routes_equal=len(maps) == e_loc and got == want,
+               capacity_equal=[(c, b) for c, b, _ in parts] == [(cap, e0)],
+               partial_equal=len(parts) == 1 and torch.equal(parts[0][2],
+                                                             plain),
+               served=len(want), dropped=len(dropped), max_abs_diff=err,
+               tol=MOE_TP_TOL * scale)
+    tp_say(mesh, f"{cfg.name} MoE block on {t} tokens, experts {e0}-"
+           f"{e0 + e_loc - 1}, capacity {cap}: ids == the meshless router's:"
+           f" {res['ids_equal']}; served pairs == host rule: "
+           f"{res['routes_equal']} ({len(want)} served here, {len(dropped)} "
+           f"dropped in all); capacity {res['capacity_equal']}; partial == "
+           f"the plain loop over these experts: {res['partial_equal']}; sum "
+           f"vs the meshless branch max abs diff {err:.6f} (tol "
+           f"{res['tol']:.6f})")
+    return res
+
+
+def tp_qwen(mesh, dev, want):
+    """qwen1.5-0.5b at full width and depth in quant_tp: tiles, their
+    times, the collectives, the serve_quant trace in both pools, a
+    profiled decode step and autotune_linear's pick."""
+    from repro_torch import configs
+    from repro_torch.dist import context as dctx
+    from repro_torch.models import model_lib as M
+    from repro_torch.pim import autotune
+
+    base = configs.get("qwen1.5-0.5b")
+    params = M.init_params(base, seed=0, device=dev)
+    cfg = base.scaled(pim_mode="quant_tp",
+                      max_seq_len=trace_len(QUANT_TRACE))
+    layer = {k: v[0] for k, v in params["blocks"]["0"].items()}
+    out = dict(tiles=tp_tiles(mesh, dev, layer, TP_QWEN_LINEARS),
+               times=tp_time(mesh, dev, TP_QWEN_LINEARS),
+               collectives=tp_collectives(mesh, dev))
+    out["serves"] = {paged: tp_serve(mesh, dev, params, cfg, QUANT_TRACE,
+                                     paged, want) for paged in (True, False)}
+    out["profile"] = tp_profile(mesh, dev, params, cfg)
+    with dctx.use_mesh(mesh):
+        plan = autotune.autotune_linear(4, base.d_model, base.d_model,
+                                        trials=5, device=dev)
+    out["pick"] = (plan.key, plan.model,
+                   [(c.model, c.trial_us) for c in plan.race])
+    tp_say(mesh, f"autotune_linear {plan.key}: picks {plan.model} ("
+           + ", ".join(f"{m} {us:.1f} us" for m, us in out["pick"][2])
+           + ", the max over the ranks)")
+    return out
+
+
+def tp_moe(mesh, dev, want):
+    """granite-moe-1b-a400m at full width and depth: one expert-parallel
+    block held as ``tp_moe_layer`` says, then serve_moe's quant trace in
+    quant_tp (attention in per-rank tiles, 16 experts per rank)."""
+    from repro_torch import configs
+    from repro_torch.models import model_lib as M
+
+    base = configs.get("granite-moe-1b-a400m")
+    params = M.init_params(base, seed=0, device=dev)
+    layer = {k: v[0] for k, v in params["blocks"]["0"].items()}
+    out = dict(layer=tp_moe_layer(mesh, dev, base, layer,
+                                  MOE_DISPATCH_SHAPE))
+    cfg = base.scaled(pim_mode="quant_tp",
+                      max_seq_len=trace_len(MOE_QUANT_TRACE))
+    out["serve"] = tp_serve(mesh, dev, params, cfg, MOE_QUANT_TRACE, True,
+                            want)
+    return out
+
+
+def tp_arctic(mesh, dev):
+    """One full-width arctic-480b layer (128 experts, 64 per rank), drawn
+    by ``init_params`` on rank 0, then on rank 1, with a barrier between
+    (a rank's draw never overlaps another's): its MoE block as
+    ``tp_moe_layer``, its wq (col), w_in (row) and w_out (col) tiles as
+    ``tp_tiles`` and timed, and a 16-token prefill in quant_tp under the
+    mesh against quant without it."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.dist import context as dctx
+    from repro_torch.models import model_lib as M
+
+    base = configs.get("arctic-480b").scaled(n_layers=1)
+    t0 = time.perf_counter()
+    params = None
+    for r in range(mesh.size):
+        if mesh.rank == r:
+            params = M.init_params(base, seed=0, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    draw_s = time.perf_counter() - t0
+    free, total = torch.cuda.mem_get_info()
+    nbytes = footprint(params)[0]
+    tp_say(mesh, f"arctic-480b, 1 of {configs.get('arctic-480b').n_layers} "
+           f"layers at full width: {M.param_count(base) / 1e9:.2f} G "
+           f"parameters, {nbytes} bytes on this rank "
+           f"({torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved); "
+           f"both ranks drawn in {draw_s:.2f} s; the card has "
+           f"{(total - free) / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB in "
+           f"use")
+    layer = {k: v[0] for k, v in params["blocks"]["0"].items()}
+    out = dict(param_bytes=nbytes, draw_s=draw_s,
+               card_used_bytes=total - free,
+               layer=tp_moe_layer(mesh, dev, base, layer, ARCTIC_MOE_SHAPE),
+               tiles=tp_tiles(mesh, dev, layer, TP_ARCTIC_LINEARS),
+               times=tp_time(mesh, dev, TP_ARCTIC_LINEARS))
+    toks = torch.as_tensor(np.random.default_rng(29).integers(
+        0, base.vocab_size, (1, ARCTIC_PREFILL)), device=dev)
+    qcfg = base.scaled(pim_mode="quant", max_seq_len=ARCTIC_PREFILL)
+    shapes = []
+    reset_counters()
+    with launch_shapes(shapes), dctx.use_mesh(mesh):
+        got = prefill_logits(params, qcfg.scaled(pim_mode="quant_tp"), toks)
+    launches = counters()[0]
+    want = prefill_logits(params, qcfg, toks)
+    scale = float(want.float().abs().max())
+    out.update(prefill_launches=launches,
+               prefill_shapes=tile_counts(shapes), prefill_finite=bool(
+        torch.isfinite(got).all()), prefill_max_abs_diff=float(
+        (got.float() - want.float()).abs().max()), prefill_scale=scale)
+    tp_say(mesh, f"arctic {ARCTIC_PREFILL}-token prefill, quant_tp under the "
+           f"mesh vs quant: max abs logit diff "
+           f"{out['prefill_max_abs_diff']:.5f} (largest {scale:.4f}, tol "
+           f"{ARCTIC_LOGIT_TOL}), {launches} quant_matmul_int launches "
+           f"(tiles [K, N, launches] {out['prefill_shapes']})")
+    del params, layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(mesh, q_tokens, moe_tokens):
+    """One rank of ``serve_tp``, in its own process: qwen, granite-moe and
+    arctic in turn.  Returns what the parent holds the ranks to."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tp_say(mesh, f"{mesh} on {torch.cuda.get_device_name(dev)}, gloo")
+    out = {}
+    for name, phase in (("qwen", lambda: tp_qwen(mesh, dev, q_tokens)),
+                        ("moe", lambda: tp_moe(mesh, dev, moe_tokens)),
+                        ("arctic", lambda: tp_arctic(mesh, dev))):
+        out[name] = phase()
+        # the phase's weights are dropped: give their blocks back to the
+        # card before the next draw (arctic's two ranks need 56 GB)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_failures(ranks, tiles):
+    """Every check of the ranks' results that failed.  ``tiles`` holds the
+    launches per weight tile shape that the configs call for
+    (``tile_counts``): ``"qwen"`` and ``"moe"`` per decode step,
+    ``"arctic"`` in the one-layer prefill."""
+    per_step = sum(c for _, _, c in tiles["qwen"])
+    moe_per_step = sum(c for _, _, c in tiles["moe"])
+    fails = []
+    for r, res in enumerate(ranks):
+        q, m, a = res["qwen"], res["moe"], res["arctic"]
+        for t in q["tiles"] + a["tiles"]:
+            if not t["exact"]:
+                fails.append(f"rank {r}: {t['name']} tile {t['tile']} "
+                             "differs")
+        for paged, sv in q["serves"].items():
+            if not sv["equal"]:
+                fails.append(f"rank {r}: qwen quant_tp tokens (paged "
+                             f"{paged}) differ from serve_quant's")
+            if sv["per_step"] != [per_step]:
+                fails.append(f"rank {r}: qwen decode steps launched "
+                             f"{sv['per_step']}, expected {per_step}")
+            if sv["per_step_shapes"] != [tiles["qwen"]]:
+                fails.append(f"rank {r}: qwen decode steps launched tiles "
+                             f"{sv['per_step_shapes']}, expected "
+                             f"{tiles['qwen']}")
+        if q["profile"]["launches"] != per_step:
+            fails.append(f"rank {r}: the profiled step launched "
+                         f"{q['profile']['launches']}")
+        for name, lay in (("granite-moe", m["layer"]),
+                          ("arctic", a["layer"])):
+            for key in ("ids_equal", "routes_equal", "capacity_equal",
+                        "partial_equal"):
+                if not lay[key]:
+                    fails.append(f"rank {r}: {name} MoE {key} is False")
+            if not lay["max_abs_diff"] <= lay["tol"]:
+                fails.append(f"rank {r}: {name} MoE sum off the meshless "
+                             f"branch by {lay['max_abs_diff']}")
+        if m["serve"]["per_step"] != [moe_per_step] or m["serve"][
+                "per_step_shapes"] != [tiles["moe"]]:
+            fails.append(f"rank {r}: granite-moe decode steps launched "
+                         f"{m['serve']['per_step']} "
+                         f"({m['serve']['per_step_shapes']}), expected "
+                         f"{moe_per_step} ({tiles['moe']})")
+        if a["prefill_shapes"] != tiles["arctic"]:
+            fails.append(f"rank {r}: arctic's prefill launched tiles "
+                         f"{a['prefill_shapes']}, expected "
+                         f"{tiles['arctic']}")
+        if not (a["prefill_finite"]
+                and a["prefill_max_abs_diff"] <= ARCTIC_LOGIT_TOL):
+            fails.append(f"rank {r}: arctic prefill off quant's by "
+                         f"{a['prefill_max_abs_diff']}")
+    picks = {(res["qwen"]["pick"][0], res["qwen"]["pick"][1],
+              tuple(res["qwen"]["pick"][2])) for res in ranks}
+    if len(picks) != 1:
+        fails.append(f"the ranks picked different lowerings: {picks}")
+    toks = [[res["qwen"]["serves"][p]["tokens"] for p in (True, False)]
+            + [res["moe"]["serve"]["tokens"]] for res in ranks]
+    if any(t != toks[0] for t in toks):
+        fails.append("the ranks served different tokens")
+    return fails
+
+
+def serve_tp(dev, q_tokens, moe_tokens):
+    """quant_tp and the expert-parallel MoE block at model parallel 2.
+
+    At world size 1 (this process, no mesh) ``tp_quant_linear`` is
+    ``quant_linear``.  Then ``TP_WORLD`` processes share the card
+    (``launch.mesh.spawn``, gloo) and each runs ``tp_rank``: qwen1.5-0.5b
+    at full width and depth in quant_tp (each rank's tiles == the plain
+    tiles, outputs == single-rank quant, the serve_quant trace's tokens
+    in both pools with 168 launches per decode step, a profiled step,
+    both ranks picking the same lowering in ``autotune_linear``),
+    granite-moe-1b-a400m (16 experts per rank: routes, capacity and
+    partials exact, the sum within ``MOE_TP_TOL`` of the meshless branch,
+    serve_moe's trace with how many tokens agree) and one arctic-480b
+    layer (64 experts per rank).  A rank's exception, a gloo failure or
+    the timeout fails the phase.  Returns (the launches of the qwen serve
+    per rank, the tile rows, a summary)."""
+    from repro_torch import configs
+    from repro_torch.kernels.quant_matmul.tp import tp_tile_shape
+    from repro_torch.launch.mesh import spawn
+
+    def tiles(linears):
+        return tile_counts([tp_tile_shape(kn, TP_WORLD) for kn in linears])
+
+    # the launches per weight tile shape that the configs call for
+    want = dict(qwen=tiles(step_linears(configs.get("qwen1.5-0.5b"))),
+                moe=tiles(step_linears(configs.get("granite-moe-1b-a400m"))),
+                arctic=tiles(prefill_linears(
+                    configs.get("arctic-480b").scaled(n_layers=1))))
+    t0 = time.perf_counter()
+    check_tp_world1(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    say(f"[tp] before the ranks start: this process holds "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved; the "
+        f"card has {(total - free) / 2 ** 30:.2f} of {total / 2 ** 30:.2f} "
+        f"GiB in use")
+    # the ranks' allocators map memory in expandable segments, so the pages
+    # a phase frees go back to the card (a small live tensor cannot pin a
+    # freed segment) before arctic's two 26.2 GiB draws
+    with mock.patch.dict(os.environ, {
+            "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}):
+        ranks = spawn(tp_rank, TP_WORLD, q_tokens, moe_tokens,
+                      device="cuda", timeout_s=TP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    fails = tp_failures(ranks, want)
+    q0 = ranks[0]["qwen"]
+    launches = [res["qwen"]["serves"][True]["launches"] for res in ranks]
+    equal = all(sv["equal"] for res in ranks
+                for sv in res["qwen"]["serves"].values())
+    say(f"[tp] {TP_WORLD} ranks on one card (gloo) in {wall:.1f} s: qwen "
+        f"quant_tp tokens == serve_quant's on every rank, both pools: "
+        f"{equal}; launches per rank {launches}; granite-moe quant_tp tokens "
+        f"agreeing "
+        f"with serve_moe's: {[res['moe']['serve']['agree'] for res in ranks]} "
+        f"of {ranks[0]['moe']['serve']['total']}; autotune_linear picks "
+        f"{[res['qwen']['pick'][1] for res in ranks]}")
+    if fails:
+        raise AssertionError("serve_tp: " + "; ".join(fails))
+    # each timed tile shape with its launches as rank 0 counted them: in
+    # one decode step of the qwen serve, in arctic's one-layer prefill
+    q_tiles = {(k, n): c for k, n, c in q0["serves"][True][
+        "per_step_shapes"][0]}
+    a_tiles = {(k, n): c for k, n, c in ranks[0]["arctic"]["prefill_shapes"]}
+    rows = [dict(row, model="qwen1.5-0.5b", launches_per_decode_step=q_tiles[
+        tuple(row["shape"][1:])]) for row in q0["times"]]
+    rows += [dict(row, model="arctic-480b", launches_per_prefill=a_tiles[
+        tuple(row["shape"][1:])], prefill_tokens=ARCTIC_PREFILL)
+        for row in ranks[0]["arctic"]["times"]]
+    summary = dict(
+        wall_s=wall, collectives=q0["collectives"],
+        qwen=[dict({k: v for k, v in sv.items() if k != "tokens"},
+                   pool="paged" if p else "contiguous")
+              for p, sv in q0["serves"].items()],
+        profile=[res["qwen"]["profile"] for res in ranks],
+        pick=q0["pick"],
+        moe=dict(layer=ranks[0]["moe"]["layer"],
+                 serve={k: v for k, v in ranks[0]["moe"]["serve"].items()
+                        if k != "tokens"}),
+        arctic={k: v for k, v in ranks[0]["arctic"].items()
+                if k not in ("tiles", "times")})
+    return launches, rows, summary
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3710,9 +4378,10 @@ def main() -> int:
     check_released(base.name, before)
     wide = {name: serve_wide(name, dev) for name in WIDE_LAYERS}
     win_q, win_x, win = serve_window(dev)
-    moe_q, moe_x, moe_run = serve_moe(dev)
+    moe_q, moe_x, moe_run, moe_tokens = serve_moe(dev)
     rec_q, rec_x, rec_run = serve_recurrent(dev)
     mm_q, mm_x, mm_run = serve_multimodal(dev)
+    mp_launches, mp_rows, mp_run = serve_tp(dev, q_tokens, moe_tokens)
     # training: fresh weights from the same seed; the serve phases' params
     # stay as they are
     tq_launches, tq = train_quant(base, dev, quant_rows)
@@ -3731,6 +4400,7 @@ def main() -> int:
              launches_wide_path={k: v[0] for k, v in wide.items()},
              launches_window_path=win_q, launches_moe_path=moe_q,
              launches_recurrent_path=rec_q, launches_multimodal_path=mm_q,
+             launches_tp_path=mp_launches,
              max_abs_err=qrow["max_abs_err"],
              exact=qrow["max_abs_err"] == 0,
              shape=[4, 1024, 2816], ms=qrow["ms"], plain_ms=qrow["plain_ms"],
@@ -3749,8 +4419,9 @@ def main() -> int:
                              "bound_ms", "bound_by")})
                  for shape in WIDE_QUANT_SHAPES + MOE_QUANT_SHAPES
                  + RECURRENT_QUANT_SHAPES + MULTIMODAL_QUANT_SHAPES],
+             tp_shapes=mp_rows,
              wide={k: v[2] for k, v in wide.items()}, window=win,
-             moe=moe_run, recurrent=rec_run, multimodal=mm_run,
+             moe=moe_run, recurrent=rec_run, multimodal=mm_run, tp=mp_run,
              train=tq, restart_drill=drill),
         dict(name="crossbar_exec", route="cuda",
              source="src/repro_torch/kernels/csrc/crossbar_exec.cu",

@@ -23,6 +23,14 @@ prefill.  ``--queue-policy sjf`` admits the shortest prompt first.
 serving mode verifies the whole run in one step; greedy acceptance keeps
 the tokens of plain decode, and the ``[spec]`` line echoes the measured
 acceptance.
+``--pim-mode quant_tp`` runs every linear in per-rank int8 tiles over the
+mesh's ``"model"`` axis (``kernels.quant_matmul.tp``): start the CLI under
+``torchrun --nproc-per-node R`` and it joins the process group torchrun
+set up (over gloo: ranks may share one card, which NCCL refuses) and
+builds a (data, model) mesh with ``--model-parallel`` ranks on
+``"model"``; every rank serves the same trace, rank 0's clock decides
+arrivals, and rank 0 prints.  Without a process group there is no mesh
+and ``quant_tp`` is ``quant``.  The ``[tp]`` lines echo the per-rank tiles.
 ``--autotune`` switches the ``repro_torch.pim.autotune`` planner on: under
 ``pim_sim`` the scheduler's warmup plans every linear shape at the decode
 batch bucket (partition model x crossbar geometry x chunking, scored by
@@ -31,9 +39,10 @@ and the default on the device) and decode runs the picks;
 ``--autotune-table PATH`` is loaded before the scheduler warms up (if it
 exists) and written back after the run, so the next run reloads the picks
 instead of re-searching.  The ``[autotune]`` line echoes table size,
-hit/miss/trial counters, and an example pick.  The reference's
-``quant``/``quant_tp`` lowering race waits for ``quant_tp``, so
-``--autotune`` with ``--pim-mode quant`` is an error.
+hit/miss/trial counters, and an example pick.  Under ``quant`` or
+``quant_tp``, ``--autotune`` races the two int8 lowerings after the
+serve instead (``autotune.autotune_linear`` at the decode batch and
+``(d_model, d_model)``; every rank picks the same) and echoes the pick.
 Weights are random, drawn from ``--seed``.  Runs on ``--device cuda``
 (the default; it raises without a card) or ``--device cpu`` with the
 kernels' plain versions, where ``--smoke`` keeps the model small.
@@ -49,15 +58,23 @@ kernels' plain versions, where ``--smoke`` keeps the model small.
     PYTHONPATH=src python -m repro_torch.launch.serve --pim-mode pim_sim \\
         --batch 2 --requests 2 --prompt-lens 16 --max-new-tokens 4 \\
         --paged --autotune --autotune-table picks.json
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+        --pim-mode quant_tp --model-parallel 2 --batch 4 --requests 8 \\
+        --prompt-lens 16,32,48,64 --max-new-tokens 16 --paged
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
+import torch
+
 from repro_torch import configs
 from repro_torch.device import resolve_device
+from repro_torch.dist import context as dctx
 from repro_torch.models import model_lib as M
 from repro_torch.pim import autotune, engine
 from repro_torch.serving import Scheduler, ServingConfig, synthetic_requests
@@ -104,7 +121,11 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced same-family config (CPU runs)")
     ap.add_argument("--pim-mode", choices=list(engine.MODES), default=None,
-                    help="linear lowering (quant_tp is not ported yet)")
+                    help="linear lowering; quant_tp splits per-rank int8 "
+                         "tiles over the mesh 'model' axis (run under "
+                         "torchrun with --model-parallel > 1)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks on the mesh's 'model' axis (under torchrun)")
     ap.add_argument("--batch", type=int, default=4,
                     help="decode slots (continuous-batching batch size)")
     ap.add_argument("--requests", type=int, default=8)
@@ -171,17 +192,57 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    mesh = _mesh_from_env(args)
     device = resolve_device(args.device)
-    if args.autotune and args.pim_mode in ("quant", "quant_tp"):
-        ap.error(
-            f"--autotune with --pim-mode {args.pim_mode}: the quant vs "
-            "quant_tp lowering race (the reference's autotune_linear) is not "
-            "ported; it waits for quant_tp (ROADMAP section 1, item 3)")
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    with dctx.use_mesh(mesh) if mesh is not None else \
+            contextlib.nullcontext():
+        return _serve(args, mesh, device)
+
+
+def _mesh_from_env(args):
+    """The (data, model) mesh over the process group ``torchrun`` set up
+    (``WORLD_SIZE`` in the environment), or None outside one."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    if not dist.is_initialized():
+        # gloo: ranks may share one card, which NCCL refuses
+        dist.init_process_group("gloo")
+    world = dist.get_world_size()
+    if world % args.model_parallel:
+        raise ValueError(f"--model-parallel {args.model_parallel} does not "
+                         f"divide the world of {world} ranks")
+    mesh = make_mesh((world // args.model_parallel, args.model_parallel),
+                     ("data", "model"))
+    if mesh.rank == 0:
+        print(f"[mesh] {mesh.shape} over {world} ranks "
+              f"({dist.get_backend()})")
+    return mesh
+
+
+def _start_time(mesh) -> float:
+    """The trace's start on the scheduler's clock: rank 0's, under a mesh
+    (the scheduler reads rank 0's clock there)."""
+    if mesh is None:
+        return time.monotonic()
+    return dctx.broadcast_float(time.monotonic(), mesh)
+
+
+def _serve(args, mesh, device):
+    # rank 0 prints; every rank serves
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
     # reload persisted tuner picks before any scheduler warms up: warmup
     # then *hits* the table (counted in [autotune]) instead of re-searching
     if args.autotune_table and os.path.exists(args.autotune_table):
         n = autotune.load_table(args.autotune_table, device=device)
-        print(f"[autotune] loaded {n} plan(s) from {args.autotune_table}")
+        say(f"[autotune] loaded {n} plan(s) from {args.autotune_table}")
     if args.autotune:
         autotune.enable(True)
     cfg = configs.get(args.arch)
@@ -197,7 +258,7 @@ def main(argv=None):
     requests = synthetic_requests(
         args.requests, vocab_size=cfg.vocab_size, prompt_lens=plens,
         max_new_tokens=args.max_new_tokens, seed=args.seed,
-        start_time=time.monotonic(), shared_prefix_len=args.shared_prefix)
+        start_time=_start_time(mesh), shared_prefix_len=args.shared_prefix)
     # recurrent blocks fold right-padding into their state: serve those
     # unbucketed (exact)
     bucket = 1 if cfg.has_recurrent_blocks else max(8, max(plens) // 4)
@@ -211,60 +272,78 @@ def main(argv=None):
         draft_mode=args.draft_mode, draft_k=args.draft_k,
         autotune=args.autotune, autotune_trials=args.autotune_trials,
         device=device)
-    print(f"served {summary['n_finished']}/{summary['n_requests']} "
-          f"requests, {summary['total_tokens']} tokens @ "
-          f"{summary['tokens_per_s']:.1f} tok/s "
-          f"(batch {args.batch}, {summary['decode_traces']} decode "
-          f"shapes, {device})")
-    print(f"TTFT {summary['mean_ttft_s'] * 1e3:.0f}ms mean | "
-          f"TPOT {summary['mean_tpot_s'] * 1e3:.1f}ms | "
-          f"queue wait {summary['mean_queue_wait_s'] * 1e3:.0f}ms | "
-          f"active slots {summary['mean_active_slots']:.1f}")
+    say(f"served {summary['n_finished']}/{summary['n_requests']} "
+        f"requests, {summary['total_tokens']} tokens @ "
+        f"{summary['tokens_per_s']:.1f} tok/s "
+        f"(batch {args.batch}, {summary['decode_traces']} decode "
+        f"shapes, {device})")
+    say(f"TTFT {summary['mean_ttft_s'] * 1e3:.0f}ms mean | "
+        f"TPOT {summary['mean_tpot_s'] * 1e3:.1f}ms | "
+        f"queue wait {summary['mean_queue_wait_s'] * 1e3:.0f}ms | "
+        f"active slots {summary['mean_active_slots']:.1f}")
     paged = (args.paged or args.prefix_cache or args.packed_prefill
              or args.prefill_chunk is not None or cfg.sliding_window)
     if paged:
-        print(f"[pool] peak KV {summary['peak_kv_bytes'] / 1e6:.2f}MB "
-              f"(peak {summary['peak_pool_blocks']:.0f} blocks, "
-              f"occupancy {summary['mean_block_occupancy'] * 100:.0f}%, "
-              f"internal frag {summary['mean_internal_frag'] * 100:.0f}%, "
-              f"{summary['deferred_admits']} deferred admits)")
+        say(f"[pool] peak KV {summary['peak_kv_bytes'] / 1e6:.2f}MB "
+            f"(peak {summary['peak_pool_blocks']:.0f} blocks, "
+            f"occupancy {summary['mean_block_occupancy'] * 100:.0f}%, "
+            f"internal frag {summary['mean_internal_frag'] * 100:.0f}%, "
+            f"{summary['deferred_admits']} deferred admits)")
     if args.prefix_cache:
-        print(f"[prefix] hit rate {summary['prefix_hit_rate'] * 100:.0f}% "
-              f"| {summary['prefix_tokens_reused']:.0f} prompt tokens "
-              f"served from the index | TTFT hit "
-              f"{summary['mean_ttft_hit_s'] * 1e3:.0f}ms vs miss "
-              f"{summary['mean_ttft_miss_s'] * 1e3:.0f}ms | "
-              f"{summary['peak_blocks_shared']:.0f} blocks shared, "
-              f"{summary['cow_copies']:.0f} COW copies")
+        say(f"[prefix] hit rate {summary['prefix_hit_rate'] * 100:.0f}% "
+            f"| {summary['prefix_tokens_reused']:.0f} prompt tokens "
+            f"served from the index | TTFT hit "
+            f"{summary['mean_ttft_hit_s'] * 1e3:.0f}ms vs miss "
+            f"{summary['mean_ttft_miss_s'] * 1e3:.0f}ms | "
+            f"{summary['peak_blocks_shared']:.0f} blocks shared, "
+            f"{summary['cow_copies']:.0f} COW copies")
     if (args.prefill_chunk or args.step_token_budget
             or args.packed_prefill):
-        print(f"[chunked] p99 TPOT {summary['p99_tpot_s'] * 1e3:.1f}ms | "
-              f"{summary['prefill_chunks']} prefill chunks, "
-              f"{summary['packed_prefills']} packed prefills (chunk "
-              f"{args.prefill_chunk}, budget {args.step_token_budget})")
+        say(f"[chunked] p99 TPOT {summary['p99_tpot_s'] * 1e3:.1f}ms | "
+            f"{summary['prefill_chunks']} prefill chunks, "
+            f"{summary['packed_prefills']} packed prefills (chunk "
+            f"{args.prefill_chunk}, budget {args.step_token_budget})")
     if args.speculative and summary.get("spec_rounds", 0):
-        print(f"[spec] draft {args.draft_mode} k={args.draft_k}: "
-              f"{summary['accepted_tokens']}/{summary['verified_tokens']} "
-              f"verified tokens accepted ({summary['drafted_tokens']} "
-              f"drafted) | mean accept len "
-              f"{summary['mean_accept_len']:.2f} | accept len histogram "
-              f"{summary['accept_len_hist']} | "
-              f"{summary['accepted_per_step']:.2f} tok/verify step | "
-              f"{summary['verify_steps']} verify steps")
+        say(f"[spec] draft {args.draft_mode} k={args.draft_k}: "
+            f"{summary['accepted_tokens']}/{summary['verified_tokens']} "
+            f"verified tokens accepted ({summary['drafted_tokens']} "
+            f"drafted) | mean accept len "
+            f"{summary['mean_accept_len']:.2f} | accept len histogram "
+            f"{summary['accept_len_hist']} | "
+            f"{summary['accepted_per_step']:.2f} tok/verify step | "
+            f"{summary['verify_steps']} verify steps")
     if args.pim_mode == "pim_sim":
         info = engine.cache_info()
-        print(f"[pim] crossbar uploads {info.exec_uploads}, "
-              f"weight-stationary session hits {info.exec_hits}, "
-              f"transient (prefill) states {info.exec_transient}, "
-              f"resident {info.resident_entries} states "
-              f"({info.resident_bytes / 2 ** 20:.1f} MiB)")
+        say(f"[pim] crossbar uploads {info.exec_uploads}, "
+            f"weight-stationary session hits {info.exec_hits}, "
+            f"transient (prefill) states {info.exec_transient}, "
+            f"resident {info.resident_entries} states "
+            f"({info.resident_bytes / 2 ** 20:.1f} MiB)")
+    if args.autotune and args.pim_mode in ("quant", "quant_tp"):
+        # the crossbar tuner has nothing to plan here; race the two int8
+        # linear lowerings instead (bit-identical, so a speed pick)
+        p = autotune.autotune_linear(args.batch, cfg.d_model, cfg.d_model,
+                                     trials=args.autotune_trials,
+                                     device=device)
+        say(f"[autotune] {p.key}: {p.model} "
+            + ", ".join(f"{c.model} {c.trial_us:.1f} us" for c in p.race))
     if args.autotune or args.autotune_table:
-        print(f"[autotune] {autotune.summary()}")
-    if args.autotune_table:
+        say(f"[autotune] {autotune.summary()}")
+    if args.autotune_table and (mesh is None or mesh.rank == 0):
         n = autotune.save_table(args.autotune_table)
-        print(f"[autotune] saved {n} plan(s) to {args.autotune_table}")
+        say(f"[autotune] saved {n} plan(s) to {args.autotune_table}")
+    if args.pim_mode == "quant_tp":
+        from repro_torch.kernels.quant_matmul.tp import tile_summary
+
+        r = mesh.shape.get("model", 1) if mesh is not None else 1
+        if r > 1:
+            for line in tile_summary(cfg, r):
+                say(f"[tp] {line} x{r} ranks")
+        else:
+            say("[tp] model axis is 1: quant_tp fell back to single-rank "
+                "quant (run under torchrun with --model-parallel > 1)")
     rid0 = min(results)
-    print("sample generation:", results[rid0][:16].tolist())
+    say("sample generation:", results[rid0][:16].tolist())
     return results
 
 

@@ -21,8 +21,9 @@ the kernels' plain versions.
         --ckpt-dir ckpt --ckpt-every 3 --resume
 
 Differences from the reference's CLI: one device only, so
-``--model-parallel`` above 1 and ``--pim-mode quant_tp`` raise (they wait
-for ``quant_tp`` and the multi-card runtime); ``--layers`` also cuts the
+``--model-parallel`` above 1 raises (the trainer's mesh branch waits for
+the sharded trainer, ROADMAP.md item D) and ``--pim-mode quant_tp`` trains
+without a mesh, where it is ``quant`` exactly; ``--layers`` also cuts the
 depth of the arch config without ``--preset`` (the reference reads it
 only with one); ``--device`` picks the device.
 """
@@ -138,13 +139,14 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="tensor-parallel degree; only 1 is ported")
+                    help="tensor-parallel degree; only 1 is ported (the "
+                         "mesh branch waits for the sharded trainer)")
     ap.add_argument("--pim-mode", choices=list(engine.MODES), default=None,
                     help="repro_torch.pim.engine lowering for every linear "
                          "(threaded through ModelConfig.pim_mode): quant on "
                          "the int8 GEMM kernel, pim_sim on the crossbar "
                          "kernel with a straight-through backward; "
-                         "quant_tp is not ported")
+                         "quant_tp is quant without a mesh")
     ap.add_argument("--autotune", action="store_true",
                     help="before training, print the partition autotuner's "
                          "cost-model report for every linear shape in the "
@@ -156,13 +158,8 @@ def main(argv=None):
 
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model-parallel > 1: the mesh path of the trainer waits for "
-            "quant_tp and the multi-card runtime (ROADMAP.md section 1, "
-            "items 3 and 4)")
-    if args.pim_mode == "quant_tp":
-        raise NotImplementedError(
-            "--pim-mode quant_tp is not ported yet (ROADMAP.md section 1, "
-            "items 3 and 4)")
+            "--model-parallel > 1: the mesh branch of the trainer waits for "
+            "the sharded trainer (ROADMAP.md section 1, item D)")
     device = resolve_device(args.device)
     cfg = build_cfg(args)
     if args.pim_mode:

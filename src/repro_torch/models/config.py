@@ -78,8 +78,8 @@ class ModelConfig:
     unembed_chunk: int = 0           # vocab-axis chunk for the loss-path
                                      # unembed (0: single full-width einsum)
     # PIM lowering for every linear in the stack: None inherits the ambient
-    # repro_torch.pim.engine.mode(...) context; "xla" | "quant" | "pim_sim"
-    # pin it ("quant_tp" is not ported yet and raises).
+    # repro_torch.pim.engine.mode(...) context; "xla" | "quant" |
+    # "quant_tp" | "pim_sim" pin it ("quant_tp" is "quant" without a mesh).
     pim_mode: Optional[str] = None
     # training
     max_seq_len: int = 8_192

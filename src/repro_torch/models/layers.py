@@ -11,7 +11,9 @@ through ``repro_torch.pim.engine`` — there is no process-wide global:
 * ``"pim_sim"``  — the actual MultPIM gate programs on the bit-accurate
   crossbar simulator, via ``engine.sim_linear`` (the crossbar kernel on
   CUDA tensors);
-* ``"quant_tp"`` — not ported yet: raises ``NotImplementedError``.
+* ``"quant_tp"`` — the int8 GEMM in per-rank tiles over the active mesh's
+  ``"model"`` axis (``engine.get_backend("quant_tp")``); ``"quant"``
+  exactly without a mesh.
 
 Selection is either ambient — ``with pim.engine.mode("quant"): ...`` — or
 threaded explicitly: ``linear(x, w, mode=...)``, normally fed from
@@ -84,9 +86,7 @@ def linear(x, w, b=None, *, mode: Optional[str] = None):
 
         y = quant_linear(x, w.to(torch.float32))
     elif mode == "quant_tp":
-        raise NotImplementedError(
-            "pim mode 'quant_tp' is not ported yet: see ROADMAP.md, queue 1 "
-            "('quant_tp' with torch.distributed)")
+        y = engine.get_backend("quant_tp")(x, w)
     elif mode == "pim_sim":
         y = engine.sim_linear(x, w)
     else:

@@ -309,10 +309,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     normal leaves draw std ``scale/sqrt(fan_in)``, ``"alog"`` leaves hold
     ``log(1..d_state)``).
 
-    Random leaf ``i``, in sorted-path order, draws ``torch.randn`` as
-    float32 on ``device`` from its own generator
-    (:func:`_leaf_generator`), is scaled and cast to the leaf dtype; no
-    host array is made.  The draw is deterministic for a given seed and
+    Random leaf ``i``, in sorted-path order, is drawn by ``normal_``
+    straight into its dtype on ``device`` from its own generator
+    (:func:`_leaf_generator`): no host array and no float32 temporary is
+    made, so the draw needs only the model's own bytes.  The draw is deterministic for a given seed and
     device type (on a card, for a given card model), but the CPU and CUDA
     generators differ: one seed gives other weights on the CPU than on a
     card.  Parity with the reference goes through :func:`from_reference`,
@@ -332,9 +332,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
             t = t.contiguous()
         else:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-            t = torch.randn(shape, dtype=torch.float32, device=dev,
-                            generator=_leaf_generator(seed, i, dev))
-            t = t.mul_(scale / math.sqrt(max(1, fan_in))).to(dt)
+            t = torch.empty(shape, dtype=dt, device=dev).normal_(
+                0.0, scale / math.sqrt(max(1, fan_in)),
+                generator=_leaf_generator(seed, i, dev))
             i += 1
         _set(out, path, t)
     return out

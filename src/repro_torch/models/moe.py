@@ -1,4 +1,4 @@
-"""Top-k MoE, run locally on one device.
+"""Top-k MoE, with expert parallelism over the "model" mesh axis.
 
 Each token's router logits are a float32 product; it picks its ``top_k``
 experts (ties to the lower expert index) and weighs them by a softmax
@@ -8,9 +8,20 @@ choices still serve them).  The experts are gather -> dense FFN in the
 compute dtype -> scatter-add into a float32 output, expert after expert;
 dispatch is a gather, not a one-hot product.
 
-The reference runs this same loop per rank of its mesh (shard_map with a
-``psum`` over the "model" axis); the port has no mesh yet (ROADMAP.md
-queue 1, C/D) and runs the reference's ``mesh is None`` branch.
+Without a mesh (or at model 1) one process runs every expert: the
+reference's ``mesh is None`` branch.  Under a mesh whose ``"model"`` axis
+has ``R > 1`` ranks each rank runs only its ``E / R`` experts, from
+``rank * E / R`` on: the reference's ``shard_map`` branch.  The tokens
+split over the data axes when those divide ``B * S`` (each data rank
+routes only its rows, with the capacity of its own row count, so
+capacities and drops differ from the meshless branch exactly as the
+reference's do), every rank's partial is summed over the model group in
+the compute dtype (the reference's ``psum``: with two ranks the bf16 sum
+of two bf16 partials, not the float32 sum of the meshless branch), and
+the rows are gathered back over the data group.  Every rank holds every
+expert's weights (the port's parameters are replicated); the reference's
+ZeRO-3 expert gathers (``moe_fsdp_gather``) wait for the sharded trainer
+(ROADMAP.md, item D) and raise.
 
 **The trash slot.** Every token that is not routed to an expert, or that
 overflows its capacity, lands in the expert's extra slot ``capacity``.
@@ -34,6 +45,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.dist import context as dctx
 from repro_torch.models.layers import activation
 
 __all__ = ["expert_capacity", "moe_ffn", "router_top_k"]
@@ -80,9 +92,10 @@ def _slot_map(any_hit, tok, capacity: int):
 
 
 def _local_moe(x, top_ids, top_w, w1, w2, w3, *, capacity: int,
-               act_name: str):
-    """The expert loop over (T, d) tokens; returns the (T, d) float32 sum
-    over the experts of each token's weighted expert outputs."""
+               act_name: str, e_base: int = 0):
+    """The expert loop over (T, d) tokens and the experts ``e_base`` to
+    ``e_base + len(w1) - 1``; returns the (T, d) float32 sum over those
+    experts of each token's weighted expert outputs."""
     t, d = x.shape
     dev = x.device
     out = torch.zeros((t + 1, d), dtype=torch.float32, device=dev)
@@ -91,7 +104,7 @@ def _local_moe(x, top_ids, top_w, w1, w2, w3, *, capacity: int,
     zero_row = torch.zeros((1, d), dtype=x.dtype, device=dev)
     zero_w = torch.zeros((1,), dtype=top_w.dtype, device=dev)
     for e in range(w1.shape[0]):
-        hit = top_ids == e                                 # (T, k)
+        hit = top_ids == e_base + e                        # (T, k)
         tok_w = (hit * top_w).sum(-1)                      # (T,)
         any_hit = hit.any(-1)
         tok_of_slot = _slot_map(any_hit, tok, capacity)    # (cap + 1,)
@@ -110,14 +123,52 @@ def _local_moe(x, top_ids, top_w, w1, w2, w3, *, capacity: int,
 
 def moe_ffn(x, params: Dict, cfg) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d).  params: router (d, E), w1/w3 (E, d, f),
-    w2 (E, f, d).  All ``B * S`` tokens route together: the capacity
-    counts them all."""
+    w2 (E, f, d).  Without a mesh all ``B * S`` tokens route together and
+    the capacity counts them all; under one, see the module docstring."""
     b, s, d = x.shape
+    e = cfg.n_experts
     k = cfg.top_k
     xf = x.reshape(b * s, d)
     top_w, top_ids = router_top_k(xf, params["router"], k)
-    cap = expert_capacity(b * s, k, cfg.capacity_factor, cfg.n_experts)
-    out = _local_moe(xf, top_ids, top_w, params["w1"], params["w2"],
-                     params.get("w3"), capacity=cap,
-                     act_name=cfg.activation)
-    return out.to(x.dtype).reshape(b, s, d)
+    mesh = dctx.current_mesh()
+    tp_ax = dctx.mesh_axes(mesh)[1] if mesh is not None else None
+    zero3 = (mesh is not None and cfg.moe_fsdp_gather
+             and "data" in mesh.axis_names and mesh.shape["data"] > 1)
+    if zero3:
+        raise NotImplementedError(
+            "moe_fsdp_gather (ZeRO-3 expert gathers over 'data') waits for "
+            "the sharded trainer: ROADMAP.md, item D")
+    if mesh is None or tp_ax is None or mesh.shape[tp_ax] == 1:
+        cap = expert_capacity(b * s, k, cfg.capacity_factor, e)
+        out = _local_moe(xf, top_ids, top_w, params["w1"], params["w2"],
+                         params.get("w3"), capacity=cap,
+                         act_name=cfg.activation)
+        return out.to(x.dtype).reshape(b, s, d)
+
+    if "w3" not in params:
+        raise ValueError("MoE experts are gated (SwiGLU) in all configs")
+    if e % mesh.shape[tp_ax]:
+        raise ValueError(f"{e} experts do not split over {tp_ax} = "
+                         f"{mesh.shape[tp_ax]} ranks")
+    dp = dctx.mesh_axes(mesh)[0]
+    dp_size = mesh.axis_size(dp) if dp else 1
+    if (b * s) % dp_size:
+        dp, dp_size = (), 1   # batch-1 decode: every data rank routes all
+    t_loc = (b * s) // dp_size
+    e_loc = e // mesh.shape[tp_ax]
+    e_base = mesh.index(tp_ax) * e_loc
+    rows = slice(mesh.index(dp) * t_loc, (mesh.index(dp) + 1) * t_loc) \
+        if dp else slice(None)
+    experts = slice(e_base, e_base + e_loc)
+    part = _local_moe(xf[rows], top_ids[rows], top_w[rows],
+                      params["w1"][experts], params["w2"][experts],
+                      params["w3"][experts],
+                      capacity=expert_capacity(t_loc, k, cfg.capacity_factor,
+                                               e),
+                      act_name=cfg.activation, e_base=e_base)
+    # the sum over the model group in the compute dtype, as the reference's
+    # psum (the float32 accumulation inside _local_moe took the long sums)
+    out = dctx.all_reduce(part.to(x.dtype), tp_ax, "sum")
+    if dp:
+        out = dctx.all_gather(out, dp, dim=0)
+    return out.reshape(b, s, d)

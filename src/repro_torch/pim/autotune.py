@@ -64,8 +64,12 @@ integer GEMM, so plans change speed, never results.
 ``engine.cache_info()`` exposes them (``tune_hits`` / ``tune_misses`` /
 ``tune_trials``).
 
-Not ported yet: the reference's ``autotune_linear`` (the ``quant`` vs
-``quant_tp`` race), which waits for ``quant_tp``.
+:func:`autotune_linear` races the two int8 linear lowerings, single-rank
+``quant`` and the per-rank ``quant_tp`` tiles, for one (tokens, d_in,
+d_out) shape (the reference's ``linear:t…d…o…`` key).  Under a mesh of
+more than one process every rank must pick the same lowering, so the
+trial times are reduced across the mesh (``all_reduce(MAX)``) before the
+pick.
 """
 from __future__ import annotations
 
@@ -95,6 +99,7 @@ __all__ = [
     "table_info",
     "summary",
     "plan_for_params",
+    "autotune_linear",
 ]
 
 # executable dot-program partition models (build_dot lowers these)
@@ -521,3 +526,73 @@ def plan_for_params(params, max_batch: int, *, bits: int = 7,
         autotune(k_dim, bits + 1, (max_batch, o), pim_mode, trials=trials,
                  device=dev)
     return len(shapes)
+
+
+# ==========================================================================
+# the quant vs quant_tp split rule
+# ==========================================================================
+
+def autotune_linear(tokens: int, d_in: int, d_out: int, *,
+                    trials: int = 2, force: bool = False,
+                    device="cuda") -> TunedPlan:
+    """Race the int8 linear lowerings — single-rank ``quant`` vs the
+    per-rank ``quant_tp`` tiles — for one (tokens, d_in, d_out) shape.
+
+    Both compute bit-identical results, so the pick is a speed decision:
+    ``quant_tp`` pays off only once the mesh's ``"model"`` axis is wide
+    enough to beat its collectives.  Without an active mesh ``quant_tp``
+    is ``quant`` and the race times the same call twice.  Each candidate
+    is warmed once, then timed ``trials`` times on ``device`` (synchronized
+    before each clock read; the median counts).  Under a mesh of more than
+    one process the medians are reduced with ``all_reduce(MAX)`` over the
+    whole mesh (every rank then sees the same times and picks the same
+    lowering: a rank that ran the other one would wait forever in its
+    collectives).  The pick's ``race`` holds both timed candidates.
+    """
+    global _hits, _misses, _trials
+    from repro_torch.dist import context as dctx
+    from repro_torch.models import layers
+
+    dev = resolve_device(device)
+    key = f"linear:t{_bucket_m(tokens)}d{d_in}o{d_out}"
+    with _lock:
+        plan = _table.get(key)
+        if plan is not None and not force:
+            _hits += 1
+            return plan
+        _misses += 1
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((tokens, d_in)).astype(
+        np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((d_in, d_out)).astype(
+        np.float32)).to(dev)
+    names = ("quant", "quant_tp")
+    medians = []
+    for mode_name in names:
+        layers.linear(x, w, mode=mode_name)  # warm
+        times = []
+        for _ in range(max(1, trials)):
+            _sync(dev)
+            t0 = _now()
+            layers.linear(x, w, mode=mode_name)
+            _sync(dev)
+            times.append((_now() - t0) * 1e6)
+        medians.append(float(np.median(times)))
+        with _lock:
+            _trials += 1
+    mesh = dctx.current_mesh()
+    if mesh is not None and mesh.size > 1:
+        t = torch.tensor(medians, dtype=torch.float64,
+                         device=mesh.comm_device)
+        medians = dctx.all_reduce(t, mesh.axis_names, "max", mesh).tolist()
+    t_best, best = min(zip(medians, names))
+    t_default = medians[0]
+    race = tuple(TunedPlan(key=key, kind="linear", model=nm, n_cols=0,
+                           chunk=0, backend=nm, predicted_us=0.0,
+                           trial_us=t, default_us=t_default, source="trial")
+                 for t, nm in zip(medians, names))
+    plan = dataclasses.replace(race[names.index(best)], race=race)
+    with _lock:
+        _table[key] = plan
+    return plan

@@ -11,9 +11,9 @@ The driving side of the partitioned crossbar, as one API:
 * :func:`execute` / :func:`execute_state` / :func:`build_multiplier` — one
   registry of backends, each tagged with its kind.  A ``"state"`` backend
   maps ``(crossbar_state, microcode) -> state``; a ``"mult"`` backend maps
-  ``(n_bits, n_cols) -> multiplier build``; ``"linear"`` is the kind of a
-  linear lowering (``quant_tp``, not registered yet).  Picking a name of
-  the wrong kind at a dispatch point is a clear error:
+  ``(n_bits, n_cols) -> multiplier build``; a ``"linear"`` backend maps
+  ``(x, w) -> y`` (``quant_tp``).  Picking a name of the wrong kind at a
+  dispatch point is a clear error:
 
   ============  ======  ===================================================
   backend       kind    what it runs
@@ -25,6 +25,9 @@ The driving side of the partitioned crossbar, as one API:
   unrolled      state   ``executor.execute_unrolled``, static indices
   numpy         state   a numpy interpreter over uint32 words
                         (these host oracles raise on a CUDA state)
+  quant_tp      linear  ``kernels.quant_matmul.tp.tp_quant_linear``: the
+                        int8 GEMM in per-rank tiles over the active
+                        mesh's ``"model"`` axis (``quant`` without one)
   serial        mult    the paper's optimized serial NOR multiplier
   serial_fast   mult    the 7-gate NAND/OR/AND full-adder variant
   compressor42  mult    the 4:2 two-rows-per-pass variant
@@ -230,12 +233,18 @@ def capture_context():
     and, for CUDA tensors, on autograd's device thread, which sees none of
     the caller's thread locals.  ``models.model`` hands the recompute this
     context (the checkpoint's ``context_fn``), so the recomputed linears
-    lower as the forward's did."""
+    lower as the forward's did.  The active mesh (``dist.context``) is a
+    thread local too and comes back with them."""
+    from repro_torch.dist import context as dctx
+
     m, ns, tr = current_mode(), current_session_ns(), _transient.depth > 0
+    mesh, dp = dctx.current_mesh(), dctx.dp_axes()
 
     @contextlib.contextmanager
     def reenter() -> Iterator[None]:
         with contextlib.ExitStack() as stack:
+            if mesh is not None:
+                stack.enter_context(dctx.use_mesh(mesh, dp_axes=dp))
             stack.enter_context(mode(m))
             if ns:
                 _ns_stack.frames.append(ns)
@@ -550,6 +559,16 @@ def _numpy_interpret(state, microcode, **kw):
     return torch.from_numpy(st.view(np.int32)).to(state.device)
 
 
+def _quant_tp(x, w, **kw):
+    """The tensor-parallel linear lowering: operands are (x, w) float
+    tensors, not crossbar state.  ``models.layers.linear`` dispatches mode
+    ``"quant_tp"`` here; the tiles split over the active mesh's
+    ``"model"`` axis at the call."""
+    from repro_torch.kernels.quant_matmul.tp import tp_quant_linear
+
+    return tp_quant_linear(x, w, **kw)
+
+
 def _ensure_default_backends() -> None:
     global _defaults_registered
     if _defaults_registered:
@@ -564,6 +583,7 @@ def _ensure_default_backends() -> None:
                              ("jnp", _scan, "state"),  # the reference's alias
                              ("unrolled", _unrolled, "state"),
                              ("numpy", _numpy_interpret, "state"),
+                             ("quant_tp", _quant_tp, "linear"),
                              ("serial", build_serial_multiplier, "mult"),
                              ("serial_fast", build_fast_serial_multiplier,
                               "mult"),

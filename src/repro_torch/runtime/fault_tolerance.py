@@ -10,7 +10,8 @@
 * :class:`StragglerMonitor` — EWMA step-time outlier detection.
 
 The reference's ``ElasticMesh`` (a mesh from the devices that survive)
-waits with the multi-card work: ``quant_tp`` and the router.
+waits for the router (ROADMAP.md, item D), which builds on the mesh of
+``repro_torch.dist``.
 """
 from __future__ import annotations
 

@@ -256,10 +256,31 @@ def _validate(cfg: ModelConfig, scfg: ServingConfig) -> None:
                 "(capacity dropping couples the verify run's positions)")
 
 
+def _rank0_clock(clock, mesh):
+    """``clock`` as rank 0 reads it, on every rank of ``mesh``.
+
+    Every rank must run the same sequence of linears, and so admit the
+    same requests on the same step; a rank that read its own clock could
+    admit on another step and wait forever in the next collective.  Each
+    reading is rank 0's, broadcast, so rank 0 decides which requests have
+    arrived and every later decision is the same on every rank (greedy
+    tokens come from bit-identical replicated logits)."""
+    from repro_torch.dist import context as dctx
+
+    def read() -> float:
+        return dctx.broadcast_float(clock(), mesh)
+
+    return read
+
+
 class Scheduler:
     """Continuous-batching scheduler over a persistent cache pool.
 
-    ``params`` must live on ``device`` (default ``"cuda"``)."""
+    ``params`` must live on ``device`` (default ``"cuda"``).  Run the
+    scheduler inside ``dist.context.use_mesh``: the steps' linears split
+    over the active mesh, as in the reference, and when the mesh active at
+    construction spans more than one process, every reading of ``clock``
+    is rank 0's (:func:`_rank0_clock`)."""
 
     def __init__(self, params, cfg: ModelConfig, scfg: ServingConfig, *,
                  clock=time.monotonic, device="cuda"):
@@ -277,7 +298,11 @@ class Scheduler:
         self.params = params
         self.cfg = cfg
         self.scfg = scfg
-        self.clock = clock
+        from repro_torch.dist import context as dctx
+
+        mesh = dctx.current_mesh()
+        self.clock = (_rank0_clock(clock, mesh) if mesh is not None
+                      and mesh.size > 1 else clock)
         self.queue = AdmissionQueue(policy=scfg.queue_policy)
         self.metrics = ServingMetrics()
         # autotune warmup: plan every linear shape at the decode batch

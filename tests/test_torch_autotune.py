@@ -493,9 +493,25 @@ def test_serve_cli_saves_and_reloads_the_table(tmp_path, capsys):
         [second[r].tolist() for r in sorted(second)]
 
 
-def test_serve_cli_refuses_autotune_for_quant():
+def test_serve_cli_refuses_autotune_for_quant(capsys):
+    """``--autotune`` under ``quant`` (refused before ``quant_tp`` was
+    ported) now races the two int8 lowerings after the serve, as the
+    reference's CLI does: one pick under the reference's key, both
+    candidates timed, two trials counted."""
     from repro_torch.launch import serve as serve_cli
 
-    with pytest.raises(SystemExit):
-        serve_cli.main(["--smoke", "--device", "cpu", "--pim-mode", "quant",
-                        "--autotune"])
+    engine.clear_cache()
+    serve_cli.main(["--smoke", "--device", "cpu", "--pim-mode", "quant",
+                    "--batch", "2", "--requests", "2", "--prompt-lens", "5",
+                    "--max-new-tokens", "2", "--autotune"])
+    out = capsys.readouterr().out
+    assert "[autotune] linear:t2d64o64: quant" in out
+    assert "quant_tp" in out
+    info = engine.cache_info()
+    assert info.tune_trials == 2 and info.tune_misses == 1
+    plan = autotune.autotune_linear(2, 64, 64, device="cpu")
+    assert plan.kind == "linear" and plan.key == "linear:t2d64o64"
+    assert [p.model for p in plan.race] == ["quant", "quant_tp"]
+    assert engine.cache_info().tune_hits == 1
+    rplan = RA.autotune_linear(2, 64, 64, trials=1, force=True)
+    assert (rplan.key, rplan.kind) == (plan.key, plan.kind)

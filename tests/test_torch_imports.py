@@ -37,7 +37,11 @@ missing = sorted({{"repro_torch.pim.cost_model", "repro_torch.pim.autotune",
                   "repro_torch.configs.jamba_v0_1_52b",
                   "repro_torch.configs.xlstm_1_3b",
                   "repro_torch.configs.seamless_m4t_medium",
-                  "repro_torch.configs.llama_3_2_vision_11b"}}
+                  "repro_torch.configs.llama_3_2_vision_11b",
+                  "repro_torch.dist.context",
+                  "repro_torch.dist.partitioning",
+                  "repro_torch.kernels.quant_matmul.tp",
+                  "repro_torch.launch.mesh"}}
                  - set(names))
 print(len(names), bad, missing)
 """

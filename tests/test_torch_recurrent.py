@@ -194,25 +194,30 @@ def test_alog_init_is_the_reference_exactly():
 
 
 def test_init_params_draws_each_leaf_on_the_device():
-    """Every random leaf is a ``torch.randn`` on the target device from
-    its own generator (no numpy draw), with std near ``scale /
-    sqrt(fan_in)``; one seed gives one tree, another seed another."""
+    """Every random leaf is a ``normal_`` on the target device, straight
+    into the leaf's dtype (no float32 temporary), from its own generator
+    (no numpy draw), with std near ``scale / sqrt(fan_in)``; one seed
+    gives one tree, another seed another."""
     cfg = TC.get("jamba-v0.1-52b").smoke()
     specs = dict(TM._leaves(TM.param_specs(cfg)))
     draws = []
-    real = torch.randn
+    real = torch.Tensor.normal_
 
-    def randn(*shape, dtype, device, generator):
-        draws.append((device, generator.device))
-        return real(*shape, dtype=dtype, device=device, generator=generator)
+    def normal_(self, mean=0.0, std=1.0, *, generator=None):
+        draws.append((self.device, generator.device, self.dtype))
+        return real(self, mean, std, generator=generator)
 
     host = AssertionError("a host draw")
     with mock.patch.object(np.random, "Generator", side_effect=host), \
             mock.patch.object(np.random, "default_rng", side_effect=host), \
-            mock.patch.object(TM.torch, "randn", randn):
+            mock.patch.object(TM.torch, "randn",
+                              side_effect=AssertionError("a float32 draw")), \
+            mock.patch.object(torch.Tensor, "normal_", normal_):
         a = dict(TM._leaves(TM.init_params(cfg, 3, "cpu")))
-    assert draws and all(d == (torch.device("cpu"), torch.device("cpu"))
+    assert draws and all(d[:2] == (torch.device("cpu"), torch.device("cpu"))
                          for d in draws)
+    assert sorted({str(d[2]) for d in draws}) == sorted(
+        {str(dt) for _, dt, init, _ in specs.values() if init == "normal"})
     b = dict(TM._leaves(TM.init_params(cfg, 3, "cpu")))
     c = dict(TM._leaves(TM.init_params(cfg, 4, "cpu")))
     n_random = 0

@@ -40,15 +40,16 @@ def _port_state(state):
 
 
 def test_backend_names_and_kinds():
-    """The reference registers pallas (its TPU kernel) and quant_tp (the
-    tensor-parallel linear, ROADMAP item 3); the port registers cuda (its
-    CUDA kernel) instead of pallas and no quant_tp yet.  Every shared name
-    has the reference's kind."""
+    """The reference registers pallas (its TPU kernel); the port registers
+    cuda (its CUDA kernel) instead, and the tensor-parallel linear
+    ``quant_tp`` as the reference does, of kind ``"linear"``.  Every shared
+    name has the reference's kind."""
     ported = set(engine.backends())
     ref = set(r_engine.backends())
-    assert ported == (ref - {"pallas", "quant_tp"}) | {"cuda"}
+    assert ported == (ref - {"pallas"}) | {"cuda"}
     assert ported == {"cuda", "scan", "jnp", "unrolled", "numpy", "serial",
-                      "serial_fast", "compressor42"}
+                      "serial_fast", "compressor42", "quant_tp"}
+    assert engine.backend_kind("quant_tp") == "linear"
     for name in ported - {"cuda"}:
         assert engine.backend_kind(name) == r_engine.backend_kind(name), name
     assert engine.backend_kind("cuda") == r_engine.backend_kind("pallas")

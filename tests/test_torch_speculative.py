@@ -1,6 +1,6 @@
 """The port's self-speculative decoding, held to ``repro`` on the cases of
-tests/test_speculative.py (the router kill waits with the router, and
-``quant_tp`` with its module).
+tests/test_speculative.py (the router kill waits with the router;
+``quant_tp`` without a mesh is ``quant``, tests/test_torch_tp.py).
 
 Each serving case runs one seeded trace with the same weights (the
 reference's ``init_params``, imported by ``from_reference``) on a tiny
