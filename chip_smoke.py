@@ -69,6 +69,22 @@ beside the per-gate plain version, its state held to the grouped plain
 version on its first and last crossbars; and
 a saved, reloaded table must make a fresh warmup run no trial.
 
+Then the serving router (``serve_fleet_phase``): two replicas of the same
+full-width qwen1.5-0.5b share the card (``Router(devices=None)``), each
+its own scheduler and paged pool.  ``quant`` serves the quant phase's
+trace with ``round_robin`` and ``least_loaded``, with a kill mid-trace
+and respawn and with a kill that retires the replica, and the prefix
+phase's shared-prefix trace with ``prefix_affinity`` and the prefix
+cache; ``pim_sim`` serves the pim_sim phase's trace least-loaded with a
+kill mid-trace.  Every fleet's tokens must equal the single scheduler's
+of those phases, a kill must rebalance requests and restart as planned,
+the dead pool must be freed (the allocation after a respawn at most half
+a pool above the one before the kill, after a retirement at least half a
+pool below it), every pim_sim decode step must launch the crossbar
+kernel once per linear and none after the first may upload crossbar
+state; fleet and per-replica tok/s, TTFT and TPOT on the fleet clock are
+printed.
+
 Then it drops the served model's parameters: the engine must report no
 derived, chunked or resident bytes, and the card's allocation must fall by
 at least the weights and what the engine held for them (``check_released``,
@@ -153,6 +169,22 @@ resume drill through the training CLI in subprocesses (2 layers at full
 width): the resumed steps' losses and the last checkpoint must equal an
 uninterrupted run's, held bit for bit when two uninterrupted runs agree bit
 for bit, else within their difference.
+
+``train_zero3`` trains sharded: two processes share the card over gloo,
+``ElasticMesh(1)`` lays (pod 1, data 2, model 1) over them, and each
+keeps only its ZeRO-3 shard of full-width, full-depth qwen1.5-0.5b in
+``quant`` (batch 4, seq 64, 3 steps; M = 128 rows per rank).  Each rank's
+at-rest parameter and AdamW bytes must equal the specs' host arithmetic,
+the gathered tree a whole draw of the same seed, layer 0's wq int32
+accumulator on the rank's rows the single-rank run's rows, and step 0's
+loss the single-rank loss within ``ZERO3_LOSS_TOL``; rank 0 writes the
+gathered tree after 2 steps, this process resumes the third step from it
+at world 1, and its loss must be within ``ZERO3_LOSS_TOL`` of the world-2
+step's.  Per-rank step wall, device busy (one profiled step), collective
+time and peak memory are printed.  Then granite-moe-1b-a400m (2 of its 24
+layers, full width) with ``moe_fsdp_gather`` at world 4, (data 2, model
+2), one step: every expert gather must be the rank's 16 of 32 experts.
+The GEMM is timed at the per-rank train shapes (M = 128).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it lists the card's name and power limit, and the one
@@ -473,7 +505,8 @@ def check_quant_kernel(dev):
     say(f"[quant_matmul_int] launch floor (an empty kernel, back to back): "
         f"{floor * 1e3:.2f} us")
     rows = {}
-    timed = [s for s in path if s[0] in (1, 4, 16, 64, 512)]
+    # M = 128: the ZeRO-3 trainer's per-rank rows
+    timed = [s for s in path if s[0] in (1, 4, 16, 64, 128, 512)]
     for m, k, n in timed + list(served):
         x, ws, row = time_quant_gemm(m, k, n, rand, floor)
         ms = row["ms"]
@@ -1238,7 +1271,8 @@ def check_fork_cow(params, cfg, dev, prompt):
 def serve_quant_prefix(params, base_cfg, dev):
     """The quant trace on the plain path and through the prefix cache,
     chunked and packed prefill: equal tokens, and every feature used.
-    Returns the feature path's quant_matmul_int launches."""
+    Returns the feature path's quant_matmul_int launches, the trace and
+    its tokens."""
     from repro_torch.serving import synthetic_requests
 
     max_new = 16
@@ -1304,7 +1338,7 @@ def serve_quant_prefix(params, base_cfg, dev):
         f"the paged pool: {cow} COW copy of the shared boundary block, the "
         f"index's {n_index} blocks unchanged, sibling {b} == its private "
         f"continuation (original {a})")
-    return q_launches
+    return q_launches, trace, plain
 
 
 def serve_pim_prefix(params, base_cfg, dev):
@@ -4316,6 +4350,846 @@ def serve_tp(dev, q_tokens, moe_tokens):
 
 
 # --------------------------------------------------------------------------
+# the serving router: a two-replica fleet of full-width qwen1.5-0.5b
+# --------------------------------------------------------------------------
+
+FLEET_REPLICAS = 2
+# the round at whose start the planned kill fires (after admits and a few
+# decode steps of the first round's requests)
+FLEET_KILL_STEP = 3
+FLEET_PIM_KILL_STEP = 2
+
+
+def fleet_pool_bytes(cfg, max_batch, block_size=16):
+    """One replica's paged pool at full parity (host arithmetic): the
+    attention KV of ``max_batch * ceil(max_seq_len / block_size) + 1``
+    blocks."""
+    from repro_torch.models import model_lib as M
+    from repro_torch.serving.cache import _kv_leaf_bytes
+
+    per_slot = -(-cfg.max_seq_len // block_size)
+    return _kv_leaf_bytes(M.paged_cache_specs(
+        cfg, max_batch, cfg.max_seq_len, max_batch * per_slot + 1,
+        block_size))
+
+
+def fleet_serve(params, cfg, dev, trace, *, policy, plan=None, **kw):
+    """``trace`` [(prompt, new tokens)] through ``serve_fleet`` with
+    ``FLEET_REPLICAS`` replicas on ``dev``, every request arriving at 0 on
+    the fleet clock.  Returns (tokens in submission order, the summary,
+    the wall time, the router's kills as (allocated before the drain,
+    allocated after the respawn or retirement))."""
+    from repro_torch.launch.serve import serve_fleet
+    from repro_torch.serving import Router, RouterConfig, ServingConfig
+    from repro_torch.serving import make_request
+
+    reqs = [make_request(p, n, arrival_time=0.0) for p, n in trace]
+    kills = []
+    real = Router._kill
+
+    def kill(self, rep, **k):
+        _sync(dev)
+        before = _allocated(dev)
+        real(self, rep, **k)
+        gc.collect()
+        _sync(dev)
+        kills.append((before, _allocated(dev)))
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    with mock.patch.object(Router, "_kill", kill):
+        results, summary = serve_fleet(
+            params, cfg, reqs, scfg=ServingConfig(**kw),
+            rcfg=RouterConfig(n_replicas=FLEET_REPLICAS, policy=policy),
+            failure_plan=plan, device=dev)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    if summary["n_finished"] != len(trace):
+        raise AssertionError(f"the fleet served {summary['n_finished']} of "
+                             f"{len(trace)} requests")
+    return [results[r.rid].tolist() for r in reqs], summary, wall, kills
+
+
+def fleet_line(tag, summary, wall):
+    per = ", ".join(f"r{r} {v:.2f}" for r, v in
+                    sorted(summary["per_replica_tok_s"].items()))
+    say(f"[fleet] {tag}: {summary['n_finished']} requests in {wall:.2f} s "
+        f"wall | fleet clock: {summary['tokens_per_s']:.2f} tok/s (per "
+        f"replica {per}) | mean TTFT {summary['mean_ttft_s'] * 1e3:.1f} ms |"
+        f" mean TPOT {summary['mean_tpot_s'] * 1e3:.2f} ms | "
+        f"{summary['rebalanced_requests']} rebalanced, "
+        f"{summary['replica_restarts']} restarts")
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _allocated(dev):
+    return torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+
+
+def serve_fleet_phase(params, base_cfg, dev, q_tokens, prefix_trace,
+                      prefix_tokens, pim_tokens):
+    """Two replicas of full-width qwen1.5-0.5b share the card
+    (``Router(devices=None)``), each its own scheduler and paged pool.
+    ``quant`` on the quant phases' trace with ``round_robin``,
+    ``least_loaded``, a kill mid-trace with respawn and one without;
+    ``prefix_affinity`` on the prefix phase's shared-prefix trace with the
+    prefix cache; ``pim_sim`` on the pim_sim phase's trace, least-loaded
+    with a kill mid-trace.  Every fleet's tokens must equal the single
+    scheduler's of those phases (``q_tokens``, ``prefix_tokens``,
+    ``pim_tokens``); a kill must rebalance requests and restart as
+    planned, free the dead pool (the allocation after a respawn at most
+    half a pool above the one before the kill, after a retirement at
+    least half a pool below it); every pim_sim decode step must launch
+    the crossbar kernel once per linear and no decode step after the
+    first may upload crossbar state.  Returns the phase's launches of
+    each kernel and a summary."""
+    from repro_torch.pim import engine
+    from repro_torch.serving import FailurePlan, synthetic_requests
+
+    t_phase = time.perf_counter()
+    out = {}
+    qcfg = base_cfg.scaled(pim_mode="quant",
+                           max_seq_len=trace_len(QUANT_TRACE))
+    reqs = synthetic_requests(
+        QUANT_TRACE["n_requests"], vocab_size=qcfg.vocab_size,
+        prompt_lens=QUANT_TRACE["prompt_lens"],
+        max_new_tokens=QUANT_TRACE["max_new"], seed=QUANT_TRACE["seed"])
+    trace = [(r.prompt, r.max_new_tokens) for r in reqs]
+    qkw = dict(max_batch=QUANT_TRACE["max_batch"], paged=True,
+               prompt_bucket=max(8, max(QUANT_TRACE["prompt_lens"]) // 4))
+    pool = fleet_pool_bytes(qcfg, qkw["max_batch"])
+    fails = []
+    reset_counters()
+    runs = (("round_robin", "round_robin", None),
+            ("least_loaded", "least_loaded", None),
+            ("kill + respawn", "least_loaded",
+             FailurePlan(kill_replica=0, at_step=FLEET_KILL_STEP)),
+            ("kill, no respawn", "round_robin",
+             FailurePlan(kill_replica=0, at_step=FLEET_KILL_STEP,
+                         respawn=False)))
+    for tag, policy, plan in runs:
+        toks, s, wall, kills = fleet_serve(params, qcfg, dev, trace,
+                                           policy=policy, plan=plan, **qkw)
+        fleet_line(f"quant {tag}", s, wall)
+        if toks != q_tokens:
+            fails.append(f"quant {tag}: tokens differ from serve_quant's")
+        want_restarts = int(plan is not None and plan.respawn)
+        if s["replica_restarts"] != want_restarts:
+            fails.append(f"quant {tag}: {s['replica_restarts']} restarts, "
+                         f"expected {want_restarts}")
+        if plan is not None:
+            if not s["rebalanced_requests"] > 0:
+                fails.append(f"quant {tag}: the kill rebalanced nothing")
+            (before, after), = kills
+            rise = after - before
+            say(f"[fleet] quant {tag}: allocated {before} B before the "
+                f"kill, {after} B after ({rise:+d} B; one pool is {pool} B,"
+                " host arithmetic)")
+            # memory_allocated is the card's; a CPU rehearsal skips these
+            if dev.type != "cuda":
+                pass
+            elif plan.respawn and rise > pool // 2:
+                fails.append(f"quant {tag}: the allocation rose {rise} B "
+                             f"over the kill (a pool is {pool} B): the dead "
+                             "pool was not freed")
+            elif not plan.respawn and rise > -(pool // 2):
+                fails.append(f"quant {tag}: retiring a replica freed "
+                             f"{-rise} B, less than half a pool ({pool} B)")
+        out[tag] = dict(policy=policy, wall_s=wall, **{
+            k: s[k] for k in ("tokens_per_s", "per_replica_tok_s",
+                              "mean_ttft_s", "mean_tpot_s",
+                              "rebalanced_requests", "replica_restarts")},
+            kill_alloc_delta=(kills[0][1] - kills[0][0]) if kills else None)
+
+    # prefix affinity on the prefix phase's shared-prefix trace
+    pcfg = base_cfg.scaled(pim_mode="quant", max_seq_len=32 + 48 + 16)
+    toks, s, wall, _ = fleet_serve(params, pcfg, dev, prefix_trace,
+                                   policy="prefix_affinity", max_batch=4,
+                                   prompt_bucket=16, paged=True,
+                                   prefix_cache=True)
+    fleet_line("quant prefix_affinity, prefix cache", s, wall)
+    say(f"[fleet] quant prefix_affinity: prefix hit rate "
+        f"{s['prefix_hit_rate']:.3f}, {s['prefix_tokens_reused']:.0f} "
+        "prompt tokens from the replicas' indexes")
+    if toks != prefix_tokens:
+        fails.append("quant prefix_affinity: tokens differ from the prefix "
+                     "phase's")
+    if not s["prefix_hit_rate"] > 0:
+        fails.append("quant prefix_affinity: no prefix hit")
+    out["prefix_affinity"] = dict(wall_s=wall, **{
+        k: s[k] for k in ("tokens_per_s", "per_replica_tok_s", "mean_ttft_s",
+                          "mean_tpot_s", "prefix_hit_rate")})
+    q_launches = counters()[0]
+
+    # pim_sim: least-loaded, a kill mid-trace, the respawned replica on the
+    # engine's resident state
+    xcfg = base_cfg.scaled(pim_mode="pim_sim", max_seq_len=16 + 4)
+    preqs = synthetic_requests(2, vocab_size=xcfg.vocab_size,
+                               prompt_lens=(16,), max_new_tokens=4, seed=6)
+    ptrace = [(r.prompt, r.max_new_tokens) for r in preqs]
+    reset_counters()
+    (toks, s, wall, kills), steps = decode_records(lambda: fleet_serve(
+        params, xcfg, dev, ptrace, policy="least_loaded",
+        plan=FailurePlan(kill_replica=0, at_step=FLEET_PIM_KILL_STEP),
+        max_batch=2, paged=True, prompt_bucket=8))
+    x_launches = counters()[1]
+    fleet_line("pim_sim least_loaded, kill + respawn", s, wall)
+    per_step = len(step_linears(xcfg))
+    uploads = [u for u, _, _ in steps]
+    say(f"[fleet] pim_sim: {len(steps)} decode steps over both replicas, "
+        f"crossbar_exec launches per step {sorted({x for _, _, x in steps})}"
+        f" ({per_step} linears), engine uploads after each step {uploads}; "
+        f"resident {engine.cache_info().resident_entries} states")
+    if toks != pim_tokens:
+        fails.append(f"pim_sim fleet tokens {toks} differ from serve_pim's "
+                     f"{pim_tokens}")
+    if any(x != per_step for _, _, x in steps):
+        fails.append(f"pim_sim decode steps launched "
+                     f"{[x for _, _, x in steps]}, expected {per_step} each")
+    if any(u != uploads[0] for u in uploads):
+        fails.append(f"pim_sim decode steps uploaded crossbar state after "
+                     f"the first: {uploads}")
+    if s["replica_restarts"] != 1 or not s["rebalanced_requests"] > 0:
+        fails.append(f"pim_sim kill: {s['replica_restarts']} restarts, "
+                     f"{s['rebalanced_requests']} rebalanced")
+    out["pim_sim"] = dict(wall_s=wall, decode_steps=len(steps), **{
+        k: s[k] for k in ("tokens_per_s", "per_replica_tok_s", "mean_ttft_s",
+                          "mean_tpot_s", "rebalanced_requests",
+                          "replica_restarts")})
+    if fails:
+        raise AssertionError("serve_fleet: " + "; ".join(fails))
+    wall = time.perf_counter() - t_phase
+    say(f"[fleet] every fleet's tokens == the single scheduler's; phase "
+        f"{wall:.1f} s")
+    out["wall_s"] = wall
+    return q_launches, x_launches, out
+
+
+# --------------------------------------------------------------------------
+# the ZeRO-3 trainer: two ranks share the card
+# --------------------------------------------------------------------------
+
+# (global batch, seq, steps): each of the 2 ranks trains 2 x 64 = 128 rows
+ZERO3_TRAIN = (4, 64, 3)
+ZERO3_WORLD = 2
+# the checkpoint is written after this many steps; the next step is then
+# resumed at world 1
+ZERO3_CKPT_AFTER = 2
+# granite-moe-1b-a400m at world 4, (data 2, model 2): 2 of its 24 layers
+ZERO3_MOE_WORLD = 4
+ZERO3_MOE_LAYERS = 2
+ZERO3_MOE_TRAIN = (4, 64)
+ZERO3_TIMEOUT_S = 600.0
+# The sharded run against single-rank train_step on the same weights and
+# global batch.  Losses: the same products, the token-sums added in
+# another order (float32 losses of about 12.0).  Gradients: a ZeRO-3 leaf's
+# is the bf16 sum of the two ranks' bf16 partials where one rank's is one
+# product over all rows, so an element may differ by about one bf16 step
+# (2^-8 relative): the norm's relative error, per leaf or whole, is below
+# that.  AdamW's float32 moments inherit the gradients' error; the bf16
+# parameters move by lr (3e-6, 6e-6 at steps 1-2) per step, so they may
+# differ by one bf16 step where a rounding tie flips, or by twice the
+# update where a near-zero gradient's sign does.  A wrong world sum, norm
+# grouping or shard gives errors of order 1.
+ZERO3_LOSS_TOL = 1e-4
+ZERO3_GNORM_RTOL = 1e-3
+ZERO3_GRAD_RTOL = 1e-2
+ZERO3_STATE_RTOL = 1e-2
+# granite-moe's world-1 reference routes each data rank's rows apart (the
+# capacity of the local count, as the sharded branch does) but sums the
+# experts' partials in float32 where the 4 ranks sum two bf16 partials
+# over "model": a near-tie in a top-k may then route a token elsewhere,
+# which changes that token's gradient through every layer below it (layer
+# 0's attention leaves came out 0.11-0.13 off on the H100, the loss and
+# the gradient norm within 6e-4).  A wrong expert block or world sum moves
+# them by about 1.
+ZERO3_MOE_LOSS_TOL = 2e-3
+ZERO3_MOE_GNORM_RTOL = 2e-2
+ZERO3_MOE_GRAD_RTOL = 0.25
+
+
+def _at_rest(params, opt_state, sharding, cfg):
+    """(this rank's parameter and optimizer bytes as held: the distinct
+    storages under the trees, the same from the specs: host
+    arithmetic)."""
+    from repro_torch.dist import zero
+    from repro_torch.models import model_lib as M
+    from repro_torch.tree import leaves, rebuild
+
+    storages = {}
+    for tree in (params, opt_state):
+        for _, t in leaves(tree):
+            st = t.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+    specs = M.param_specs(cfg)
+    psize = rebuild(specs, (torch.empty((), dtype=dt).element_size()
+                            for _, (_, dt, _, _) in leaves(specs)))
+    want = zero.shard_bytes(specs, sharding.params, sharding.mesh, psize)
+    # AdamW: float32 m and v mirror each leaf's spec; the step is an int32
+    f32 = rebuild(specs, (4 for _ in leaves(specs)))
+    want += 2 * zero.shard_bytes(specs, sharding.params, sharding.mesh, f32)
+    return sum(storages.values()), want + 4
+
+
+def _requested(dev):
+    """The caching allocator's live bytes as the callers asked for them
+    (``memory_allocated`` counts whole blocks: a block cut from a freed
+    one keeps a remainder of up to 1 MiB unsplit)."""
+    return torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+
+
+def _init_measured(cfg, ocfg, mesh, dev):
+    """``init_sharded`` with the memory it leaves behind: (params,
+    opt_state, sharding, {"requested", "allocated"} bytes after less
+    before); None on the CPU, which does not count them."""
+    from repro_torch.launch.train import init_sharded
+
+    _sync(dev)
+    cuda = dev.type == "cuda"
+    before = (_requested(dev), _allocated(dev)) if cuda else None
+    params, opt_state, sharding = init_sharded(cfg, ocfg, 0, mesh, dev)
+    _sync(dev)
+    delta = dict(requested=_requested(dev) - before[0],
+                 allocated=_allocated(dev) - before[1]) if cuda else None
+    return params, opt_state, sharding, delta
+
+
+def _check_at_rest(tag, res, fails):
+    """The rank's storages equal the specs' bytes, and so do the bytes
+    that init_sharded left requested from the allocator: a shard that kept
+    its whole leaf, or any other tensor left alive, would show here."""
+    got, want = res["at_rest"]
+    delta = res["alloc_delta"]
+    if got != want:
+        fails.append(f"{tag}: at-rest storages {got} B != {want} B from the "
+                     "specs")
+    if delta is not None and delta["requested"] != want:
+        fails.append(f"{tag}: init_sharded left {delta['requested']} B "
+                     f"requested, the specs say {want} B")
+
+
+def _grad_errors(grads, specs, mesh, ref_path):
+    """Per leaf, ``|g - ref| / |ref|`` (2-norms) of this rank's gradient
+    shards against the same shards of a whole gradient tree saved at
+    ``ref_path``."""
+    from repro_torch.dist import zero
+    from repro_torch.tree import leaves
+
+    ref = torch.load(ref_path, mmap=True)
+    out = {}
+    for (path, g), (_, sp) in zip(leaves(grads), leaves(specs)):
+        key = "/".join(path)
+        want = zero.shard_leaf(ref[key], sp, mesh).to(g.device, torch.float32)
+        err = torch.linalg.vector_norm(g.float() - want)
+        out[key] = float(err / torch.clamp(torch.linalg.vector_norm(want),
+                                           min=1e-30))
+    return out
+
+
+def _capture_grads(errors, specs, mesh, ref_path):
+    """A stand-in for ``launch.train.apply_updates`` that fills ``errors``
+    from the first call's gradients (against ``ref_path``; with ``specs``
+    None, it saves the whole gradient tree there) and then updates."""
+    from repro_torch.launch import train as T
+    from repro_torch.tree import leaves
+
+    real = T.apply_updates
+
+    def apply(ocfg, params, grads, state, *rest):
+        if not errors:
+            if specs is None:
+                torch.save({"/".join(p): g.detach().cpu()
+                            for p, g in leaves(grads)}, ref_path)
+                errors["saved"] = 1.0
+            else:
+                errors.update(_grad_errors(grads, specs, mesh, ref_path))
+        return real(ocfg, params, grads, state, *rest)
+
+    return mock.patch.object(T, "apply_updates", apply)
+
+
+def zero3_rank(_mesh, cfg, ocfg, batches, ckpt_dir, grads0, dev_type):
+    """One rank of ``train_zero3``'s qwen run, in its own process: the
+    (pod, data, model) mesh of ``ElasticMesh(1)`` over the world, ZeRO-3
+    init, the gathered tree against a whole draw of the same seed, then
+    ``ZERO3_TRAIN`` steps of ``train_step`` with the first GEMM's int32
+    accumulator of step 0 kept and step 0's gradient shards held to the
+    single-rank gradients at ``grads0``, a checkpoint of the gathered tree
+    after ``ZERO3_CKPT_AFTER`` steps (rank 0 writes it), one step
+    profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint.checkpoint import save_checkpoint
+    from repro_torch.dist import context as dctx
+    from repro_torch.dist import zero
+    from repro_torch.kernels.quant_matmul import ops
+    from repro_torch.launch.train import train_step
+    from repro_torch.models import model_lib as M
+    from repro_torch.runtime.fault_tolerance import ElasticMesh
+    from repro_torch.tree import leaves
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dev_type == "cuda" else torch.device("cpu"))
+    mesh = ElasticMesh(1).make()
+    out = dict(mesh=dict(mesh.shape), rank=mesh.rank)
+    with dctx.use_mesh(mesh):
+        t0 = time.perf_counter()
+        params, opt_state, sharding, delta = _init_measured(cfg, ocfg,
+                                                            mesh, dev)
+        out["init_s"] = time.perf_counter() - t0
+        out["at_rest"] = _at_rest(params, opt_state, sharding, cfg)
+        out["alloc_delta"] = delta
+        gathered = zero.gather_tree(params, sharding.params, mesh)
+        whole = M.init_params(cfg, 0, dev)
+        out["gathered_equal"] = all(
+            torch.equal(a, b) for (_, a), (_, b)
+            in zip(leaves(gathered), leaves(whole)))
+        del gathered, whole
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        accs = []
+        real = ops.quant_matmul_int
+
+        def first_acc(x, w):
+            y = real(x, w)
+            if not accs:
+                accs.append(y.cpu().numpy())
+            return y
+
+        grad_err: dict = {}
+        rows = []
+        for step, batch in enumerate(batches):
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            if step == ZERO3_CKPT_AFTER:
+                t0 = time.perf_counter()
+                tree = zero.gather_tree(
+                    {"p": params, "o": opt_state},
+                    {"p": sharding.params, "o": sharding.opt}, mesh,
+                    device="cpu")
+                if mesh.rank == 0:
+                    save_checkpoint(ckpt_dir, step, tree,
+                                    metadata={"arch": cfg.name})
+                del tree
+                out["ckpt_s"] = time.perf_counter() - t0
+                torch.distributed.barrier()
+            prof_ctx = (profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+                        if step == 1 and dev.type == "cuda"
+                        else contextlib.nullcontext())
+            patches = contextlib.ExitStack()
+            if step == 0:
+                patches.enter_context(
+                    mock.patch.object(ops, "quant_matmul_int", first_acc))
+                patches.enter_context(_capture_grads(
+                    grad_err, sharding.params, mesh, grads0))
+            dctx.counts.clear()
+            reset_counters()
+            _sync(dev)
+            with prof_ctx as prof, patches:
+                t0 = time.perf_counter()
+                params, opt_state, loss, metrics = train_step(
+                    params, opt_state, batch, cfg, ocfg, sharding)
+                _sync(dev)
+                wall = time.perf_counter() - t0
+            row = dict(step=step, loss=float(loss),
+                       grad_norm=float(metrics["grad_norm"]), wall_s=wall,
+                       launches=counters()[0],
+                       collectives={k: dict(v) for k, v
+                                    in dctx.counts.items()})
+            if prof is not None:
+                row["busy_ms"], _ = _busy(prof)
+            rows.append(row)
+        out["rows"] = rows
+        out["acc0"] = accs[0]
+        out["grad_err"] = grad_err
+        out["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                             if dev.type == "cuda" else 0)
+    return out
+
+
+def zero3_moe_rank(_mesh, cfg, ocfg, batch, grads0, dev_type):
+    """One rank of ``train_zero3``'s granite-moe run: ``ElasticMesh(2)``
+    over a world of 4, (pod 1, data 2, model 2), ZeRO-3 init, one step
+    with ``moe_fsdp_gather``, its gradient shards held to the world-1
+    gradients at ``grads0``; every expert gather's shape is kept."""
+    from repro_torch.dist import context as dctx
+    from repro_torch.launch.train import train_step
+    from repro_torch.models import moe
+    from repro_torch.runtime.fault_tolerance import ElasticMesh
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dev_type == "cuda" else torch.device("cpu"))
+    mesh = ElasticMesh(2).make()
+    shapes = []
+    real = moe.gather_experts
+
+    def rec(*a, **k):
+        y = real(*a, **k)
+        shapes.append(tuple(y.shape))
+        return y
+
+    grad_err: dict = {}
+    with dctx.use_mesh(mesh), mock.patch.object(moe, "gather_experts", rec):
+        params, opt_state, sharding, delta = _init_measured(cfg, ocfg,
+                                                            mesh, dev)
+        at_rest = _at_rest(params, opt_state, sharding, cfg)
+        reset_counters()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with _capture_grads(grad_err, sharding.params, mesh, grads0):
+            params, opt_state, loss, metrics = train_step(
+                params, opt_state, {k: v.to(dev) for k, v in batch.items()},
+                cfg, ocfg, sharding)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    return dict(mesh=dict(mesh.shape), loss=float(loss),
+                grad_norm=float(metrics["grad_norm"]), wall_s=wall,
+                launches=counters()[0], at_rest=at_rest, alloc_delta=delta,
+                grad_err=grad_err,
+                gather_shapes=sorted(set(shapes)), gathers=len(shapes))
+
+
+def _left(res):
+    """What init_sharded left on the allocator, as printed."""
+    d = res["alloc_delta"]
+    return ("not counted on the CPU" if d is None else
+            f"{d['requested']} B requested ({d['allocated']} B in blocks)")
+
+
+def _worst(errors):
+    """(leaf, error) of the largest of a rank's per-leaf errors."""
+    return max(errors.items(), key=lambda kv: kv[1])
+
+
+@torch.no_grad()
+def _state_errors(got, want, ocfg):
+    """The world-2 checkpoint's tree (``got``) against single-rank
+    ``train_step``'s after as many steps (``want``): relative 2-norm errors
+    of the AdamW moments over the whole tree, and the parameters' largest
+    excess over one bf16 step plus twice the steps' summed updates."""
+    from repro_torch.optim.adamw import cosine_schedule
+    from repro_torch.tree import leaves
+
+    step = int(want["o"]["step"])
+    lr_sum = sum(float(cosine_schedule(ocfg, s)) for s in range(1, step + 1))
+    diff = {"m": 0.0, "v": 0.0}
+    norm = {"m": 0.0, "v": 0.0}
+    excess, unequal, total = 0.0, 0, 0
+    for (path, a), (_, b) in zip(leaves(got["o"]["leaves"]),
+                                 leaves(want["o"]["leaves"])):
+        a, b = a.float(), b.float().to(a.device)
+        diff[path[-1]] += float(torch.sum(torch.square(a - b)))
+        norm[path[-1]] += float(torch.sum(torch.square(b)))
+    for (_, a), (_, b) in zip(leaves(got["p"]), leaves(want["p"])):
+        a, b = a.float(), b.float().to(a.device)
+        lim = 2.0 ** -7 * torch.abs(b) + 2 * lr_sum
+        excess = max(excess, float(torch.max(torch.abs(a - b) - lim)))
+        unequal += int(torch.count_nonzero(a != b))
+        total += b.numel()
+    return dict(step=step, step_equal=int(got["o"]["step"]) == step,
+                m=math.sqrt(diff["m"] / norm["m"]),
+                v=math.sqrt(diff["v"] / norm["v"]), param_excess=excess,
+                params_unequal=unequal, params=total, lr_sum=lr_sum)
+
+
+def _single_rank_qwen(cfg, ocfg, batches, dev, grads0):
+    """Single-rank ``train_step`` on the whole tree of seed 0 and the
+    global batches, for the steps before the checkpoint: layer 0's wq
+    accumulator and the gradients (saved at ``grads0``) of step 0, each
+    step's loss and gradient norm, and the trees after the last."""
+    from repro_torch.kernels.quant_matmul import ops
+    from repro_torch.launch.train import train_step
+    from repro_torch.models import model_lib as M
+    from repro_torch.optim.adamw import init_state
+
+    params = M.init_params(cfg, 0, dev)
+    opt = init_state(ocfg, params)
+    accs, saved, rows = [], {}, []
+    real = ops.quant_matmul_int
+
+    def first_acc(x, w):
+        y = real(x, w)
+        if not accs:
+            accs.append(y.cpu().numpy())
+        return y
+
+    for step in range(ZERO3_CKPT_AFTER):
+        patches = contextlib.ExitStack()
+        if step == 0:
+            patches.enter_context(
+                mock.patch.object(ops, "quant_matmul_int", first_acc))
+            patches.enter_context(_capture_grads(saved, None, None, grads0))
+        with patches:
+            params, opt, loss, met = train_step(
+                params, opt, {k: v.to(dev) for k, v
+                              in batches[step].items()}, cfg, ocfg)
+        rows.append(dict(loss=float(loss), grad_norm=float(met["grad_norm"])))
+    return accs[0], rows, {"p": params, "o": opt}
+
+
+def _single_rank_moe(cfg, batch, dev, grads0):
+    """granite-moe's world-1 reference for the (data 2, model 2) step:
+    the whole tree of seed 0, each data rank's rows routed apart (the
+    meshless branch at the local count's capacity), the token-sums added
+    over the global count.  Saves the gradients at ``grads0``; returns
+    (loss, gradient norm)."""
+    from repro_torch.models import model_lib as M
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.tree import leaves
+
+    params = M.init_params(cfg, 0, dev)
+    ps = [p.requires_grad_(True) for _, p in leaves(params)]
+    rows = batch["tokens"].shape[0] // 2
+    nll, n_tok = 0.0, 0
+    for h in range(2):
+        part = {k: v[h * rows:(h + 1) * rows].to(dev)
+                for k, v in batch.items()}
+        s, n = M.nll_sum(params, part, cfg)
+        nll, n_tok = nll + s, n_tok + n
+    loss = nll / n_tok
+    grads = torch.autograd.grad(loss, ps)
+    torch.save({"/".join(p): g.detach().cpu() for (p, _), g
+                in zip(leaves(params), grads)}, grads0)
+    return float(loss.detach()), float(global_norm(
+        {"/".join(p): g for (p, _), g in zip(leaves(params), grads)}))
+
+
+def train_zero3(dev):
+    """The ZeRO-3 trainer on the card: ``ZERO3_WORLD`` processes share it
+    (``launch.mesh.spawn``, gloo) and train full-width, full-depth
+    qwen1.5-0.5b in ``quant`` (``zero3_rank``).  This process first runs
+    single-rank ``train_step`` on the same weights and global batches
+    (``_single_rank_qwen``); the ranks hold their step-0 gradient shards
+    to its gradients, and here each rank's at-rest storage and allocation
+    are held to the specs' arithmetic, the gathered tree to a whole draw,
+    layer 0's wq accumulator on the rank's rows, the losses and gradient
+    norms of the steps before the checkpoint, and the checkpoint's
+    parameters and AdamW state to single-rank's, and the step after the
+    checkpoint, resumed here at world 1, to the uninterrupted world-2
+    step.  Then granite-moe-1b-a400m (2 of 24 layers) with
+    ``moe_fsdp_gather`` at world 4, one step, every rank gathering only
+    its 16 of 32 experts, held to a world-1 reference
+    (``_single_rank_moe``).  Returns the qwen run's quant_matmul_int
+    launches on rank 0 and a summary."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.train import _whole_like, train_step
+    from repro_torch.checkpoint.checkpoint import restore_checkpoint
+    from repro_torch.optim.adamw import AdamWConfig
+
+    t_phase = time.perf_counter()
+    batch, seq, steps = ZERO3_TRAIN
+    cfg = configs.get("qwen1.5-0.5b").scaled(pim_mode="quant")
+    ocfg = AdamWConfig()
+    batches = [{k: v.cpu() for k, v in b.items()}
+               for b in _train_batches(cfg, torch.device("cpu"), batch, seq,
+                                       steps)]
+    fails = []
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="zero3_") as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        grads0 = os.path.join(tmp, "grads0.pt")
+        t0 = time.perf_counter()
+        acc_single, single, single_tree = _single_rank_qwen(
+            cfg, ocfg, batches, dev, grads0)
+        single_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn(zero3_rank, ZERO3_WORLD, cfg, ocfg, batches, ckpt,
+                      grads0, dev.type, device=dev.type,
+                      timeout_s=ZERO3_TIMEOUT_S)
+        spawn_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree, _ = restore_checkpoint(ckpt, ZERO3_CKPT_AFTER,
+                                     _whole_like(cfg, ocfg), device=dev)
+        restore_s = time.perf_counter() - t0
+        state = _state_errors(tree, single_tree, ocfg)
+        del single_tree
+        # the step after the checkpoint, resumed at world 1
+        _, _, resumed, _ = train_step(
+            tree["p"], tree["o"], {k: v.to(dev) for k, v
+                                   in batches[ZERO3_CKPT_AFTER].items()},
+            cfg, ocfg)
+        resumed = float(resumed)
+        del tree
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rows_per_rank = batch // ZERO3_WORLD * seq
+    for r, res in enumerate(ranks):
+        got, want = res["at_rest"]
+        leaf, gerr = _worst(res["grad_err"])
+        say(f"[zero3] rank {r} {res['mesh']}: at-rest parameter + AdamW "
+            f"storages {got} B, {want} B from the specs (host arithmetic), "
+            f"init_sharded left {_left(res)}; ZeRO-3 "
+            f"init {res['init_s']:.3f} s; gathered tree == whole draw of "
+            f"seed 0: {res['gathered_equal']}; step-0 gradient shards vs "
+            f"single rank: largest |g - g1|/|g1| {gerr:.3g} ({leaf}); "
+            f"checkpoint gather{' + write' if r == 0 else ''} "
+            f"{res['ckpt_s']:.2f} s; peak allocated "
+            f"{res['peak_bytes'] / 2 ** 30:.2f} GiB")
+        for row in res["rows"]:
+            coll = row["collectives"]
+            say(f"[zero3] rank {r} step {row['step']}: loss "
+                f"{row['loss']:.6f} | grad norm {row['grad_norm']:.4f} | "
+                f"wall {row['wall_s'] * 1e3:.1f} ms"
+                + (f" | device busy {row['busy_ms']:.2f} ms (profiled)"
+                   if "busy_ms" in row else "")
+                + f" | quant_matmul_int launches {row['launches']} | "
+                + ", ".join(f"{k} {v['calls']} calls {v['bytes'] / 2 ** 20:.1f}"
+                            f" MiB {v['seconds'] * 1e3:.1f} ms"
+                            for k, v in sorted(coll.items())))
+        _check_at_rest(f"rank {r}", res, fails)
+        if not res["gathered_equal"]:
+            fails.append(f"rank {r}: the gathered tree differs from a whole "
+                         "draw")
+        if not gerr <= ZERO3_GRAD_RTOL:
+            fails.append(f"rank {r}: step-0 gradient of {leaf} off the "
+                         f"single rank's by {gerr} > {ZERO3_GRAD_RTOL}")
+        acc = acc_single[r * rows_per_rank:(r + 1) * rows_per_rank]
+        if res["acc0"].shape != acc.shape or not np.array_equal(
+                res["acc0"], acc):
+            fails.append(f"rank {r}: layer 0's wq accumulator "
+                         f"{res['acc0'].shape} differs from the single-rank "
+                         f"rows {acc.shape}")
+        for one, row in zip(single, res["rows"]):
+            d = abs(row["loss"] - one["loss"])
+            g = abs(row["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+            if not d <= ZERO3_LOSS_TOL:
+                fails.append(f"rank {r}: step {row['step']} loss "
+                             f"{row['loss']} vs single-rank {one['loss']} "
+                             f"({d} > {ZERO3_LOSS_TOL})")
+            if not g <= ZERO3_GNORM_RTOL:
+                fails.append(f"rank {r}: step {row['step']} grad norm "
+                             f"{row['grad_norm']} vs single-rank "
+                             f"{one['grad_norm']} ({g} > {ZERO3_GNORM_RTOL})")
+        if not all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
+                   for x in res["rows"]):
+            fails.append(f"rank {r}: a loss or grad norm is not finite")
+    world2 = ranks[0]["rows"][ZERO3_CKPT_AFTER]["loss"]
+    d_res = abs(resumed - world2)
+    say(f"[zero3] single-rank train_step in this process "
+        f"({single_s:.1f} s): losses "
+        + ", ".join(f"{one['loss']!r}" for one in single) + "; grad norms "
+        + ", ".join(f"{one['grad_norm']!r}" for one in single)
+        + f"; sharded rank 0: losses "
+        + ", ".join(f"{row['loss']!r}" for row in ranks[0]["rows"]
+                    [:ZERO3_CKPT_AFTER]) + "; grad norms "
+        + ", ".join(f"{row['grad_norm']!r}" for row in ranks[0]["rows"]
+                    [:ZERO3_CKPT_AFTER])
+        + f" (tolerances {ZERO3_LOSS_TOL} absolute, {ZERO3_GNORM_RTOL} "
+        f"relative)")
+    say(f"[zero3] layer 0's wq int32 accumulator on each rank's "
+        f"{rows_per_rank} rows == the single-rank run's rows: "
+        f"{not any('accumulator' in f for f in fails)}; the world-2 "
+        f"checkpoint after {state['step']} steps vs single rank: AdamW m "
+        f"{state['m']:.3g}, v {state['v']:.3g} relative (tolerance "
+        f"{ZERO3_STATE_RTOL}), parameters {state['params_unequal']} of "
+        f"{state['params']} unequal, largest excess over one bf16 step + "
+        f"2 x {state['lr_sum']:.3g} {state['param_excess']:.3g} (<= 0); "
+        f"step {ZERO3_CKPT_AFTER} resumed at world 1 from the checkpoint "
+        f"(restored in {restore_s:.2f} s): {resumed!r} vs {world2!r} "
+        f"uninterrupted at world 2 ({d_res:.3g})")
+    if not (state["step_equal"] and state["m"] <= ZERO3_STATE_RTOL
+            and state["v"] <= ZERO3_STATE_RTOL
+            and state["param_excess"] <= 0):
+        fails.append(f"the world-2 checkpoint differs from single rank's "
+                     f"tree: {state}")
+    if not d_res <= ZERO3_LOSS_TOL:
+        fails.append(f"the resumed step's loss {resumed} is {d_res} off the "
+                     f"world-2 step's {world2}")
+
+    # granite-moe-1b-a400m: 2 layers at full width, world 4
+    mcfg = configs.get("granite-moe-1b-a400m").scaled(
+        n_layers=ZERO3_MOE_LAYERS, pim_mode="quant", moe_fsdp_gather=True)
+    mb = [{k: v.cpu() for k, v in b.items()} for b in _train_batches(
+        mcfg, torch.device("cpu"), *ZERO3_MOE_TRAIN, 1)][0]
+    with tempfile.TemporaryDirectory(prefix="zero3_moe_") as tmp:
+        grads0 = os.path.join(tmp, "grads0.pt")
+        m_loss, m_gnorm = _single_rank_moe(mcfg, mb, dev, grads0)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mranks = spawn(zero3_moe_rank, ZERO3_MOE_WORLD, mcfg, ocfg, mb,
+                       grads0, dev.type, device=dev.type,
+                       timeout_s=ZERO3_TIMEOUT_S)
+        moe_wall = time.perf_counter() - t0
+    e_loc = mcfg.n_experts // 2
+    say(f"[zero3] granite-moe world-1 reference (each data rank's rows "
+        f"routed apart): loss {m_loss!r}, grad norm {m_gnorm!r}")
+    for r, res in enumerate(mranks):
+        got, want = res["at_rest"]
+        leaf, gerr = _worst(res["grad_err"])
+        d = abs(res["loss"] - m_loss)
+        g = abs(res["grad_norm"] - m_gnorm) / m_gnorm
+        say(f"[zero3] granite-moe rank {r} {res['mesh']}: loss "
+            f"{res['loss']!r} ({d:.3g} off) | grad norm "
+            f"{res['grad_norm']!r} ({g:.3g} relative) | gradient shards: "
+            f"largest |g - g1|/|g1| {gerr:.3g} ({leaf}) | wall "
+            f"{res['wall_s'] * 1e3:.1f} ms | {res['gathers']} expert gathers"
+            f" of shapes {res['gather_shapes']} | at-rest storages {got} B, "
+            f"{want} B from the specs, init_sharded left {_left(res)}")
+        _check_at_rest(f"granite-moe rank {r}", res, fails)
+        if not (res["gathers"] and all(s[0] == e_loc
+                                       for s in res["gather_shapes"])):
+            fails.append(f"granite-moe rank {r}: expert gathers "
+                         f"{res['gather_shapes']}, expected {e_loc} experts "
+                         "each")
+        if not d <= ZERO3_MOE_LOSS_TOL:
+            fails.append(f"granite-moe rank {r}: loss {res['loss']} vs "
+                         f"world 1's {m_loss} ({d} > {ZERO3_MOE_LOSS_TOL})")
+        if not g <= ZERO3_MOE_GNORM_RTOL:
+            fails.append(f"granite-moe rank {r}: grad norm "
+                         f"{res['grad_norm']} vs world 1's {m_gnorm} ({g} > "
+                         f"{ZERO3_MOE_GNORM_RTOL})")
+        if not gerr <= ZERO3_MOE_GRAD_RTOL:
+            fails.append(f"granite-moe rank {r}: gradient of {leaf} off "
+                         f"world 1's by {gerr} > {ZERO3_MOE_GRAD_RTOL}")
+    if len({res["loss"] for res in mranks}) != 1:
+        fails.append(f"granite-moe ranks report different losses "
+                     f"{[res['loss'] for res in mranks]}")
+    if fails:
+        raise AssertionError("train_zero3: " + "; ".join(fails))
+    wall = time.perf_counter() - t_phase
+    say(f"[zero3] qwen world {ZERO3_WORLD} in {spawn_wall:.1f} s, "
+        f"granite-moe world {ZERO3_MOE_WORLD} in {moe_wall:.1f} s; phase "
+        f"{wall:.1f} s")
+    r0 = ranks[0]
+    return sum(row["launches"] for row in r0["rows"]), dict(
+        batch=batch, seq=seq, steps=steps, world=ZERO3_WORLD,
+        losses=[row["loss"] for row in r0["rows"]],
+        single_rank=single, resumed_loss=resumed, state_vs_single=state,
+        grad_err=[_worst(res["grad_err"]) for res in ranks],
+        wall_ms=[[row["wall_s"] * 1e3 for row in res["rows"]]
+                 for res in ranks],
+        busy_ms=[row.get("busy_ms") for row in r0["rows"]],
+        collective_s=[[sum(v["seconds"] for v in row["collectives"].values())
+                       for row in res["rows"]] for res in ranks],
+        at_rest_bytes=[res["at_rest"][0] for res in ranks],
+        alloc_delta=[res["alloc_delta"] for res in ranks],
+        peak_bytes=[res["peak_bytes"] for res in ranks],
+        launches_per_step=r0["rows"][0]["launches"],
+        moe=dict(world=ZERO3_MOE_WORLD, layers=ZERO3_MOE_LAYERS,
+                 losses=[res["loss"] for res in mranks],
+                 grad_norms=[res["grad_norm"] for res in mranks],
+                 world1=dict(loss=m_loss, grad_norm=m_gnorm),
+                 grad_err=[_worst(res["grad_err"]) for res in mranks],
+                 wall_ms=[res["wall_s"] * 1e3 for res in mranks],
+                 gather_shapes=mranks[0]["gather_shapes"]),
+        wall_s=wall)
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4362,7 +5236,7 @@ def main() -> int:
 
     q_launches, qcfg, q_tokens = serve_quant(params, base, dev)
     x_launches, pcfg, pim_tokens = serve_pim(params, base, dev)
-    qp_launches = serve_quant_prefix(params, base, dev)
+    qp_launches, qp_trace, qp_tokens = serve_quant_prefix(params, base, dev)
     xp_launches = serve_pim_prefix(params, base, dev)
     qs_launches = serve_quant_spec(params, qcfg, dev, q_tokens)
     ps_launches = serve_pim_spec(params, base, dev)
@@ -4372,6 +5246,8 @@ def main() -> int:
                    speculative=True, draft_mode="quant", draft_k=3)
     at_launches, at_warm_s, race_rows, geo_rows = serve_pim_autotune(
         params, base, dev, pim_tokens)
+    fl_q, fl_x, fleet = serve_fleet_phase(params, base, dev, q_tokens,
+                                          qp_trace, qp_tokens, pim_tokens)
     # the serve phases' model is dropped: the engine may keep nothing of it
     before = footprint(params)
     del params
@@ -4387,7 +5263,9 @@ def main() -> int:
     tq_launches, tq = train_quant(base, dev, quant_rows)
     tp_launches, tp = train_pim(base, dev)
     drill = train_restart()
+    z_launches, zero3 = train_zero3(dev)
     m_train = TRAIN_QUANT[0] * TRAIN_QUANT[1]
+    m_zero3 = ZERO3_TRAIN[0] // ZERO3_WORLD * ZERO3_TRAIN[1]
 
     qrow = quant_rows[(4, 1024, 2816)]
     kernels = [
@@ -4400,7 +5278,8 @@ def main() -> int:
              launches_wide_path={k: v[0] for k, v in wide.items()},
              launches_window_path=win_q, launches_moe_path=moe_q,
              launches_recurrent_path=rec_q, launches_multimodal_path=mm_q,
-             launches_tp_path=mp_launches,
+             launches_tp_path=mp_launches, launches_fleet_path=fl_q,
+             launches_zero3_path=z_launches,
              max_abs_err=qrow["max_abs_err"],
              exact=qrow["max_abs_err"] == 0,
              shape=[4, 1024, 2816], ms=qrow["ms"], plain_ms=qrow["plain_ms"],
@@ -4413,6 +5292,10 @@ def main() -> int:
                  key: quant_rows[(m_train, k, n)][key]
                  for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                              "bound_by")}) for k, n in QUANT_SHAPES_KN],
+             zero3_shapes=[dict(shape=[m_zero3, k, n], **{
+                 key: quant_rows[(m_zero3, k, n)][key]
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                             "bound_by")}) for k, n in QUANT_SHAPES_KN],
              wide_shapes=[dict(shape=list(shape), **{
                  key: quant_rows[shape][key]
                  for key in ("ms", "plain_ms", "library_ms", "library",
@@ -4422,7 +5305,7 @@ def main() -> int:
              tp_shapes=mp_rows,
              wide={k: v[2] for k, v in wide.items()}, window=win,
              moe=moe_run, recurrent=rec_run, multimodal=mm_run, tp=mp_run,
-             train=tq, restart_drill=drill),
+             train=tq, restart_drill=drill, fleet=fleet, zero3=zero3),
         dict(name="crossbar_exec", route="cuda",
              source="src/repro_torch/kernels/csrc/crossbar_exec.cu",
              replaces="src/repro/kernels/crossbar_exec/crossbar_exec.py:66",
@@ -4434,6 +5317,7 @@ def main() -> int:
              launches_wide_path={k: v[1] for k, v in wide.items()},
              launches_window_path=win_x, launches_moe_path=moe_x,
              launches_recurrent_path=rec_x, launches_multimodal_path=mm_x,
+             launches_fleet_path=fl_x,
              max_abs_err=xbar_row["max_abs_err"],
              exact=xbar_row["max_abs_err"] == 0,
              shape=xbar_row["shape"], ms=xbar_row["ms"],

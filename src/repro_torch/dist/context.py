@@ -10,16 +10,18 @@ data-parallel, ``"model"`` is the tensor- and expert-parallel axis, and
 
 The port's mesh is SPMD over processes, not one controller over devices:
 a :class:`Mesh` names a grid over the ranks of an initialised
-``torch.distributed`` world, and every rank runs the same program.  Every
-rank holds the whole (replicated) parameter tree and replicated
-activations, and a sharded op takes its rank's tile as a slice at the call
-and meets the other ranks in an explicit collective (:func:`all_gather`,
-:func:`all_reduce`).  So :func:`shard` and :func:`shard_batch_dim`, which
-in the reference place a sharding constraint for GSPMD, are the identity
-here: there is no compiler to constrain, and a tensor is whole on every
-rank.  Every rank must run the same sequence of collectives, so a host
-decision that reads a clock is made once and broadcast
-(:func:`broadcast_float`).
+``torch.distributed`` world, and every rank runs the same program.  A
+served model's ranks hold the whole (replicated) parameter tree and
+replicated activations, and a sharded op takes its rank's tile as a slice
+at the call and meets the other ranks in an explicit collective
+(:func:`all_gather`, :func:`all_reduce`).  The sharded trainer keeps each
+rank's ZeRO-3 shard of the tree instead (``dist.zero``) and its rows of
+the batch (``launch.train``).  So :func:`shard` and
+:func:`shard_batch_dim`, which in the reference place a sharding
+constraint for GSPMD, are the identity here: there is no compiler to
+constrain, and every layout is explicit.  Every rank must run the same
+sequence of collectives, so a host decision that reads a clock is made
+once and broadcast (:func:`broadcast_float`).
 
 The collectives hand ``torch.distributed`` the tensor on its own device;
 the backend (gloo on one card, where two ranks share the device) moves it
@@ -40,7 +42,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "use_mesh", "current_mesh", "mesh_axes", "dp_axes",
-           "tp_axis", "shard", "shard_batch_dim", "all_gather",
+           "tp_axis", "pspec_for", "shard", "shard_batch_dim", "all_gather",
            "all_reduce", "broadcast_float", "counts", "TP_AXIS"]
 
 TP_AXIS = "model"
@@ -230,6 +232,17 @@ def _normalize_entry(mesh, dim_size: int, entry: AxisEntry):
     return axes[0] if len(axes) == 1 else axes
 
 
+def pspec_for(mesh, shape: Sequence[int], *entries: AxisEntry
+              ) -> Tuple[AxisEntry, ...]:
+    """A spec for ``shape`` keeping only valid, dividing entries (missing
+    trailing entries replicate)."""
+    if len(entries) > len(shape):
+        raise ValueError(f"{len(entries)} spec entries for rank-{len(shape)} "
+                         f"array")
+    return tuple(_normalize_entry(mesh, d, e) for d, e in zip(
+        shape, tuple(entries) + (None,) * (len(shape) - len(entries))))
+
+
 def shard(x, *entries: AxisEntry):
     """The identity.  In the reference this constrains ``x``'s sharding
     for GSPMD; the port's tensors are replicated on every rank and a
@@ -247,7 +260,9 @@ def shard_batch_dim(x, dim: int = 0):
 # collectives
 # --------------------------------------------------------------------------
 
-# per collective kind: calls, bytes sent, host seconds
+# per collective kind: calls, bytes, host seconds.  The bytes are the
+# rank's input, or, for a floating-point sum (an all-gather, see
+# all_reduce), the world's copies of it that land on the rank
 counts: Dict[str, Dict[str, float]] = {}
 
 
@@ -280,15 +295,25 @@ def all_reduce(x: torch.Tensor, axes, op: str = "sum",
                mesh: Optional[Mesh] = None) -> torch.Tensor:
     """``x`` reduced (``"sum"`` or ``"max"``) over this rank's slice along
     ``axes``, in place, and returned.  An integer sum is exact; a max is
-    exact in any dtype."""
+    exact in any dtype.  A floating-point sum gathers every rank's ``x``
+    and adds them in the slice's order, so every rank gets the same bits:
+    gloo's all-reduce may round a sum of more than two ranks differently
+    on different ranks, and replicated state must not drift apart."""
     mesh = mesh or current_mesh()
     g = mesh.group(axes)
     if g is None:
         return x
     t0 = time.perf_counter()
-    dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM,
-                           "max": dist.ReduceOp.MAX}[op], group=g)
-    _tally(f"all_reduce_{op}", x.numel() * x.element_size(), t0)
+    if op == "sum" and x.is_floating_point():
+        parts = [torch.empty_like(x) for _ in range(mesh.axis_size(axes))]
+        dist.all_gather(parts, x.contiguous(), group=g)
+        x.copy_(torch.stack(parts).sum(0))
+        nbytes = len(parts) * x.numel() * x.element_size()
+    else:
+        dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM,
+                               "max": dist.ReduceOp.MAX}[op], group=g)
+        nbytes = x.numel() * x.element_size()
+    _tally(f"all_reduce_{op}", nbytes, t0)
     return x
 
 

@@ -54,6 +54,9 @@ def _rank_main(fn, args, rank: int, world: int, store_path: str,
     try:
         if device == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())
+        else:
+            # the ranks share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
         store = dist.FileStore(store_path, world)
         dist.init_process_group(
             "gloo", store=store, rank=rank, world_size=world,
@@ -81,7 +84,8 @@ def spawn(fn: Callable[..., Any], world: int, *args,
     (default: every rank on ``"model"``).  ``fn`` must be importable by
     name and its result picklable (numpy arrays, numbers, lists).  With
     ``device="cuda"`` rank r sets device ``r % device_count()``: on one
-    card every rank shares it.  Raises if any rank raises, dies, or has
+    card every rank shares it; on the CPU each rank takes an equal share
+    of the host's cores.  Raises if any rank raises, dies, or has
     not answered within ``timeout_s`` seconds of the start (the group's
     own collectives time out after ``timeout_s`` as well); every process
     is ended before it returns or raises."""

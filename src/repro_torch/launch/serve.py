@@ -27,10 +27,27 @@ acceptance.
 mesh's ``"model"`` axis (``kernels.quant_matmul.tp``): start the CLI under
 ``torchrun --nproc-per-node R`` and it joins the process group torchrun
 set up (over gloo: ranks may share one card, which NCCL refuses) and
-builds a (data, model) mesh with ``--model-parallel`` ranks on
-``"model"``; every rank serves the same trace, rank 0's clock decides
-arrivals, and rank 0 prints.  Without a process group there is no mesh
-and ``quant_tp`` is ``quant``.  The ``[tp]`` lines echo the per-rank tiles.
+builds the (pod, data, model) mesh of ``runtime.ElasticMesh`` with
+``--model-parallel`` ranks on ``"model"``, halved until it divides the
+world (the reference's rule); every rank serves the same trace, rank 0's
+clock decides arrivals, and rank 0 prints.  Without a process group there
+is no mesh and ``quant_tp`` is ``quant``.  The ``[tp]`` lines echo the
+per-rank tiles.
+
+**Multi-replica router** (``--replicas N``): instead of one scheduler,
+``N`` independent engines — each its own KV pool and prefix trie, all on
+the one device — behind one ``serving.Router`` that owns the global
+admission queue (``--queue-policy``) and dispatches per request with
+``--router-policy``: ``round_robin``, ``least_loaded`` or
+``prefix_affinity``.  ``--kill-replica R:S`` kills replica ``R`` after
+router step ``S``: its in-flight requests drain back to the front of the
+global queue and it respawns; migrated requests restart from their
+prompt, so the tokens are those of an undisturbed run.  The trace starts
+at 0 on the fleet clock (a round costs its slowest replica), and the
+``[router]`` line echoes the policy, per-replica tok/s, rebalanced
+requests and restarts.  A fleet builds no mesh, as in the reference; a
+replica with its own model axis (``--model-parallel`` above 1) waits
+for the router over ranks and is refused (ROADMAP.md, item D3).
 ``--autotune`` switches the ``repro_torch.pim.autotune`` planner on: under
 ``pim_sim`` the scheduler's warmup plans every linear shape at the decode
 batch bucket (partition model x crossbar geometry x chunking, scored by
@@ -62,6 +79,10 @@ kernels' plain versions, where ``--smoke`` keeps the model small.
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
         --pim-mode quant_tp --model-parallel 2 --batch 4 --requests 8 \\
         --prompt-lens 16,32,48,64 --max-new-tokens 16 --paged
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --pim-mode quant \\
+        --batch 2 --requests 8 --prompt-lens 16,32 --max-new-tokens 8 \\
+        --paged --replicas 2 --router-policy least_loaded --kill-replica 0:2
 """
 from __future__ import annotations
 
@@ -77,7 +98,10 @@ from repro_torch.device import resolve_device
 from repro_torch.dist import context as dctx
 from repro_torch.models import model_lib as M
 from repro_torch.pim import autotune, engine
-from repro_torch.serving import Scheduler, ServingConfig, synthetic_requests
+from repro_torch.runtime.fault_tolerance import ElasticMesh
+from repro_torch.serving import (FailurePlan, Router, RouterConfig, Scheduler,
+                                 ServingConfig, synthetic_requests)
+from repro_torch.serving.router import _D3, ROUTER_POLICIES
 
 
 def serve_trace(params, cfg, requests, *, max_batch: int, prompt_bucket: int,
@@ -111,6 +135,24 @@ def serve_trace(params, cfg, requests, *, max_batch: int, prompt_bucket: int,
     summary["draft_traces"] = sched.draft_traces
     summary["verify_traces"] = sched.verify_traces
     summary["verify_steps"] = sched.verify_steps
+    return results, summary
+
+
+def serve_fleet(params, cfg, requests, *, scfg: ServingConfig,
+                rcfg: RouterConfig, devices=None, failure_plan=None,
+                device="cuda"):
+    """Run a trace through the multi-replica router on the fleet clock;
+    returns (results, summary).  Request arrival times must be on the
+    fleet clock (start at 0), not ``time.monotonic``.  ``devices`` must be
+    None (every replica on ``device``; ROADMAP.md, item D3)."""
+    router = Router(params, cfg, scfg, rcfg, devices=devices,
+                    failure_plan=failure_plan, device=device)
+    for req in requests:
+        router.submit_request(req)
+    results = router.run()
+    summary = router.metrics().summary()
+    summary["decode_traces"] = sum(
+        r.sched.decode_traces for r in router.replicas if r.alive)
     return results, summary
 
 
@@ -187,12 +229,26 @@ def main(argv=None):
     ap.add_argument("--queue-policy", choices=["fifo", "sjf"],
                     default="fifo",
                     help="admission order (sjf: shortest prompt first)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serving replicas behind the router, each with its "
+                         "own KV pool and prefix trie (1: single scheduler, "
+                         "no router)")
+    ap.add_argument("--router-policy", choices=list(ROUTER_POLICIES),
+                    default="least_loaded",
+                    help="per-request dispatch policy (--replicas > 1)")
+    ap.add_argument("--kill-replica", default=None, metavar="R:S",
+                    help="inject a failure: kill replica R after router "
+                         "step S (drain-and-requeue, then respawn)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.replicas > 1 and args.model_parallel > 1:
+        # the router refuses a per-replica model axis (D3): before the
+        # weights are drawn
+        raise NotImplementedError(_D3)
 
-    mesh = _mesh_from_env(args)
+    mesh = _mesh_from_env(args) if args.replicas <= 1 else None
     device = resolve_device(args.device)
     if mesh is not None and device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
@@ -204,25 +260,19 @@ def main(argv=None):
 
 
 def _mesh_from_env(args):
-    """The (data, model) mesh over the process group ``torchrun`` set up
-    (``WORLD_SIZE`` in the environment), or None outside one."""
+    """The (pod, data, model) mesh of ``ElasticMesh(--model-parallel)``
+    over the process group ``torchrun`` set up (``WORLD_SIZE`` in the
+    environment), or None outside one."""
     if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
         return None
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import make_mesh
-
     if not dist.is_initialized():
         # gloo: ranks may share one card, which NCCL refuses
         dist.init_process_group("gloo")
-    world = dist.get_world_size()
-    if world % args.model_parallel:
-        raise ValueError(f"--model-parallel {args.model_parallel} does not "
-                         f"divide the world of {world} ranks")
-    mesh = make_mesh((world // args.model_parallel, args.model_parallel),
-                     ("data", "model"))
+    mesh = ElasticMesh(model_parallel=args.model_parallel).make()
     if mesh.rank == 0:
-        print(f"[mesh] {mesh.shape} over {world} ranks "
+        print(f"[mesh] {mesh.shape} over {mesh.size} ranks "
               f"({dist.get_backend()})")
     return mesh
 
@@ -255,23 +305,42 @@ def _serve(args, mesh, device):
     cfg = cfg.scaled(max_seq_len=args.shared_prefix + max(plens)
                      + args.max_new_tokens)
     params = M.init_params(cfg, args.seed, device)
+    fleet = args.replicas > 1
     requests = synthetic_requests(
         args.requests, vocab_size=cfg.vocab_size, prompt_lens=plens,
         max_new_tokens=args.max_new_tokens, seed=args.seed,
-        start_time=_start_time(mesh), shared_prefix_len=args.shared_prefix)
+        # the router's FleetClock starts at 0; the plain scheduler runs
+        # on time.monotonic
+        start_time=0.0 if fleet else _start_time(mesh),
+        shared_prefix_len=args.shared_prefix)
     # recurrent blocks fold right-padding into their state: serve those
     # unbucketed (exact)
     bucket = 1 if cfg.has_recurrent_blocks else max(8, max(plens) // 4)
-    results, summary = serve_trace(
-        params, cfg, requests, max_batch=args.batch, prompt_bucket=bucket,
+    knobs = dict(
         paged=args.paged, block_size=args.block_size,
         num_blocks=args.num_blocks, prefix_cache=args.prefix_cache,
         queue_policy=args.queue_policy, prefill_chunk=args.prefill_chunk,
         step_token_budget=args.step_token_budget,
         packed_prefill=args.packed_prefill, speculative=args.speculative,
         draft_mode=args.draft_mode, draft_k=args.draft_k,
-        autotune=args.autotune, autotune_trials=args.autotune_trials,
-        device=device)
+        autotune=args.autotune, autotune_trials=args.autotune_trials)
+    if fleet:
+        plan = None
+        if args.kill_replica:
+            r, s = args.kill_replica.split(":")
+            plan = FailurePlan(kill_replica=int(r), at_step=int(s))
+        results, summary = serve_fleet(
+            params, cfg, requests,
+            scfg=ServingConfig(max_batch=args.batch, prompt_bucket=bucket,
+                               **knobs),
+            rcfg=RouterConfig(n_replicas=args.replicas,
+                              policy=args.router_policy,
+                              model_parallel=args.model_parallel),
+            failure_plan=plan, device=device)
+    else:
+        results, summary = serve_trace(
+            params, cfg, requests, max_batch=args.batch,
+            prompt_bucket=bucket, device=device, **knobs)
     say(f"served {summary['n_finished']}/{summary['n_requests']} "
         f"requests, {summary['total_tokens']} tokens @ "
         f"{summary['tokens_per_s']:.1f} tok/s "
@@ -303,6 +372,15 @@ def _serve(args, mesh, device):
             f"{summary['prefill_chunks']} prefill chunks, "
             f"{summary['packed_prefills']} packed prefills (chunk "
             f"{args.prefill_chunk}, budget {args.step_token_budget})")
+    if fleet:
+        per = ", ".join(f"r{r}: {v:.1f}" for r, v in
+                        sorted(summary["per_replica_tok_s"].items()))
+        say(f"[router] {summary['router_policy']} over {args.replicas} "
+            f"replicas | per-replica tok/s {{{per}}} | "
+            f"{summary['rebalanced_requests']} rebalanced, "
+            f"{summary['replica_restarts']} restarts | queue "
+            f"{args.queue_policy}, p50 wait "
+            f"{summary['p50_queue_wait_s'] * 1e3:.0f}ms")
     if args.speculative and summary.get("spec_rounds", 0):
         say(f"[spec] draft {args.draft_mode} k={args.draft_k}: "
             f"{summary['accepted_tokens']}/{summary['verified_tokens']} "
@@ -311,7 +389,7 @@ def _serve(args, mesh, device):
             f"{summary['mean_accept_len']:.2f} | accept len histogram "
             f"{summary['accept_len_hist']} | "
             f"{summary['accepted_per_step']:.2f} tok/verify step | "
-            f"{summary['verify_steps']} verify steps")
+            f"{summary.get('verify_steps', 0)} verify steps")
     if args.pim_mode == "pim_sim":
         info = engine.cache_info()
         say(f"[pim] crossbar uploads {info.exec_uploads}, "

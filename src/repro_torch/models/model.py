@@ -82,6 +82,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.zero import Gathered
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (activation, apply_rope, embed_lookup,
@@ -304,21 +305,12 @@ def _leaf_generator(seed: int, i: int, dev) -> torch.Generator:
     return g
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
-    """Random parameters drawn on ``device`` (the reference's init rule:
-    normal leaves draw std ``scale/sqrt(fan_in)``, ``"alog"`` leaves hold
-    ``log(1..d_state)``).
-
-    Random leaf ``i``, in sorted-path order, is drawn by ``normal_``
-    straight into its dtype on ``device`` from its own generator
-    (:func:`_leaf_generator`): no host array and no float32 temporary is
-    made, so the draw needs only the model's own bytes.  The draw is deterministic for a given seed and
-    device type (on a card, for a given card model), but the CPU and CUDA
-    generators differ: one seed gives other weights on the CPU than on a
-    card.  Parity with the reference goes through :func:`from_reference`,
-    not through this draw."""
+def draw_leaves(cfg: ModelConfig, seed: int = 0, device="cuda"):
+    """``(path, leaf)`` of every parameter, drawn one after another on
+    ``device`` as :func:`init_params` draws them, in sorted-path order: a
+    caller that keeps only a shard of each leaf (the sharded trainer)
+    holds one whole leaf at a time."""
     dev = resolve_device(device)
-    out: Params = {}
     i = 0
     for path, (shape, dt, init, scale) in _leaves(param_specs(cfg)):
         if init == "zeros":
@@ -336,6 +328,25 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                 0.0, scale / math.sqrt(max(1, fan_in)),
                 generator=_leaf_generator(seed, i, dev))
             i += 1
+        yield path, t
+        del t  # the next leaf is drawn with this one gone
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
+    """Random parameters drawn on ``device`` (the reference's init rule:
+    normal leaves draw std ``scale/sqrt(fan_in)``, ``"alog"`` leaves hold
+    ``log(1..d_state)``).
+
+    Random leaf ``i``, in sorted-path order, is drawn by ``normal_``
+    straight into its dtype on ``device`` from its own generator
+    (:func:`_leaf_generator`): no host array and no float32 temporary is
+    made, so the draw needs only the model's own bytes.  The draw is deterministic for a given seed and
+    device type (on a card, for a given card model), but the CPU and CUDA
+    generators differ: one seed gives other weights on the CPU than on a
+    card.  Parity with the reference goes through :func:`from_reference`,
+    not through this draw."""
+    out: Params = {}
+    for path, t in draw_leaves(cfg, seed, device):
         _set(out, path, t)
     return out
 
@@ -752,9 +763,21 @@ def _recompute_ctx():
 def _unbound(stacks):
     """Per-layer views of stacked block weights, unbound once: unbind's
     backward stacks the per-layer gradients in one op, where indexing
-    would build a zero-filled stack per layer."""
+    would build a zero-filled stack per layer.  A sharded tree's stacks
+    (``dist.zero.Gathered``) unbind their shards themselves."""
+    if isinstance(stacks, Gathered):
+        return {i: stacks[i] for i in stacks}
     return {i: {k: v.unbind(0) for k, v in b.items()}
             for i, b in stacks.items()}
+
+
+def _layer(stack, layer: int):
+    """Layer ``layer``'s block weights: per-layer views, or a sharded
+    stack's layer view, which gathers each weight where the block reads
+    it."""
+    if isinstance(stack, Gathered):
+        return stack.layer(layer)
+    return {k: v[layer] for k, v in stack.items()}
 
 
 def _train_stack(params, x, cfg: ModelConfig, positions, memory=None):
@@ -765,9 +788,9 @@ def _train_stack(params, x, cfg: ModelConfig, positions, memory=None):
 
     def body(x, layer, memory):
         for i, kind in enumerate(cfg.pattern):
-            p = {k: v[layer] for k, v in blocks[str(i)].items()}
-            x, _ = apply_block(kind, x, p, cfg, positions=positions,
-                               mode="train", memory=memory)
+            x, _ = apply_block(kind, x, _layer(blocks[str(i)], layer), cfg,
+                               positions=positions, mode="train",
+                               memory=memory)
         return x
 
     for layer in range(cfg.n_super):
@@ -788,9 +811,8 @@ def _encode(params, frames, cfg: ModelConfig):
     positions = torch.arange(x.shape[1], device=x.device)
     blocks = _unbound(params["encoder"]["blocks"])["0"]
     for layer in range(cfg.n_encoder_layers):
-        p = {k: v[layer] for k, v in blocks.items()}
-        x, _ = apply_block("enc", x, p, cfg, positions=positions,
-                           mode="train")
+        x, _ = apply_block("enc", x, _layer(blocks, layer), cfg,
+                           positions=positions, mode="train")
     return rms_norm(x, params["encoder"]["enc_norm"], cfg.norm_eps)
 
 
@@ -820,7 +842,7 @@ def _embed_in(params, tokens, cfg: ModelConfig):
 
 
 def _unembed_table(params, cfg):
-    return params.get("lm_head", params["embed"])
+    return params["lm_head"] if "lm_head" in params else params["embed"]
 
 
 def _pim_ctx(cfg: ModelConfig):
@@ -853,12 +875,23 @@ def loss_fn(params, batch, cfg: ModelConfig):
     ``"patches"`` (B, n_patches, vision_dim) for a vision one.  The
     linears lower per ``cfg.pim_mode`` on transient crossbar state; with
     ``cfg.remat`` each super-block is recomputed in ``backward()``."""
+    nll, n_tok = nll_sum(params, batch, cfg)
+    return nll / n_tok
+
+
+def nll_sum(params, batch, cfg: ModelConfig):
+    """``(sum of the tokens' NLL, token count)`` of ``batch``: what
+    :func:`loss_fn` divides.  ``params`` may be a sharded tree
+    (``dist.zero.Gathered``), whose leaves are gathered where they are
+    read; the sharded trainer (``launch.train``) adds the ranks' sums into
+    the global mean."""
     _check_supported(cfg)
     with _transient_ctx(cfg):
         return _loss_fn(params, batch, cfg)
 
 
 def _loss_fn(params, batch, cfg: ModelConfig):
+    """(sum of the tokens' NLL, the token count) of ``batch``."""
     tokens = batch["tokens"]
     labels = batch["labels"]
     x = _embed_in(params, tokens, cfg)
@@ -888,7 +921,7 @@ def _loss_fn(params, batch, cfg: ModelConfig):
         checkpoint(chunk_nll, flat_x[i:i + chunk], flat_y[i:i + chunk],
                    use_reentrant=False, preserve_rng_state=False)
         for i in range(0, n_tok, chunk)])
-    return nll.sum() / n_tok
+    return nll.sum(), n_tok
 
 
 def prefill(params, batch, cfg: ModelConfig, last_index=None, prefix=None):
@@ -1139,8 +1172,8 @@ def param_count(cfg: ModelConfig) -> int:
                    for _, (shape, *_) in _leaves(param_specs(cfg))))
 
 
-__all__ = ["PAGED_KV_KEYS", "param_specs", "init_params", "from_reference",
-           "apply_block", "loss_fn", "prefill", "prefill_packed", "decode_step",
-           "decode_step_slots", "decode_run_slots", "ring_slot_positions",
-           "cache_specs", "paged_cache_specs", "zeros_like_specs",
-           "param_count"]
+__all__ = ["PAGED_KV_KEYS", "param_specs", "draw_leaves", "init_params",
+           "from_reference", "apply_block", "loss_fn", "nll_sum", "prefill",
+           "prefill_packed", "decode_step", "decode_step_slots",
+           "decode_run_slots", "ring_slot_positions", "cache_specs",
+           "paged_cache_specs", "zeros_like_specs", "param_count"]

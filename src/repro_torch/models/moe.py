@@ -18,10 +18,20 @@ capacities and drops differ from the meshless branch exactly as the
 reference's do), every rank's partial is summed over the model group in
 the compute dtype (the reference's ``psum``: with two ranks the bf16 sum
 of two bf16 partials, not the float32 sum of the meshless branch), and
-the rows are gathered back over the data group.  Every rank holds every
-expert's weights (the port's parameters are replicated); the reference's
-ZeRO-3 expert gathers (``moe_fsdp_gather``) wait for the sharded trainer
-(ROADMAP.md, item D) and raise.
+the rows are gathered back over the data group.  In the sharded trainer
+the rows a rank holds are already its block of the batch (the tree's
+``dist.zero.Gathered`` view says so in ``row_axes``), so they are routed
+as they are and not gathered back.  The sum and the gather are autograd functions
+(``dist.zero.psum``, ``gather_rows``), so the block trains.
+
+With ``moe_fsdp_gather`` on a ``"data"`` axis larger than 1 the
+reference's ZeRO-3 branch runs: the expert-parallel path even at model 1
+(tokens split over the data axes, the capacity of the local count), and,
+on a sharded tree (``dist.zero.Gathered``), each rank gathers only its
+``E / R`` experts of ``w1``/``w3``/``w2`` over ``"data"``
+(``dist.zero.gather_experts``), never all ``E`` whole.  On a replicated
+tree the rank slices its experts from the whole leaves, which is the
+same arithmetic.
 
 **The trash slot.** Every token that is not routed to an expert, or that
 overflows its capacity, lands in the expert's extra slot ``capacity``.
@@ -46,6 +56,7 @@ from typing import Dict
 import torch
 
 from repro_torch.dist import context as dctx
+from repro_torch.dist.zero import Gathered, gather_experts, gather_rows, psum
 from repro_torch.models.layers import activation
 
 __all__ = ["expert_capacity", "moe_ffn", "router_top_k"]
@@ -132,13 +143,12 @@ def moe_ffn(x, params: Dict, cfg) -> torch.Tensor:
     top_w, top_ids = router_top_k(xf, params["router"], k)
     mesh = dctx.current_mesh()
     tp_ax = dctx.mesh_axes(mesh)[1] if mesh is not None else None
+    # ZeRO-3 expert weights keep the expert-parallel path even at model 1,
+    # as the reference's shard_map branch does
     zero3 = (mesh is not None and cfg.moe_fsdp_gather
              and "data" in mesh.axis_names and mesh.shape["data"] > 1)
-    if zero3:
-        raise NotImplementedError(
-            "moe_fsdp_gather (ZeRO-3 expert gathers over 'data') waits for "
-            "the sharded trainer: ROADMAP.md, item D")
-    if mesh is None or tp_ax is None or mesh.shape[tp_ax] == 1:
+    if mesh is None or tp_ax is None or (mesh.shape[tp_ax] == 1
+                                         and not zero3):
         cap = expert_capacity(b * s, k, cfg.capacity_factor, e)
         out = _local_moe(xf, top_ids, top_w, params["w1"], params["w2"],
                          params.get("w3"), capacity=cap,
@@ -150,25 +160,33 @@ def moe_ffn(x, params: Dict, cfg) -> torch.Tensor:
     if e % mesh.shape[tp_ax]:
         raise ValueError(f"{e} experts do not split over {tp_ax} = "
                          f"{mesh.shape[tp_ax]} ranks")
-    dp = dctx.mesh_axes(mesh)[0]
-    dp_size = mesh.axis_size(dp) if dp else 1
-    if (b * s) % dp_size:
-        dp, dp_size = (), 1   # batch-1 decode: every data rank routes all
+    if isinstance(params, Gathered) and params.row_axes:
+        # the sharded trainer's local batch: these rows are this rank's
+        # block of the tokens already
+        dp, dp_size = (), 1
+    else:
+        dp = dctx.mesh_axes(mesh)[0]
+        dp_size = mesh.axis_size(dp) if dp else 1
+        if (b * s) % dp_size:
+            dp, dp_size = (), 1   # batch-1 decode: every data rank routes all
     t_loc = (b * s) // dp_size
     e_loc = e // mesh.shape[tp_ax]
     e_base = mesh.index(tp_ax) * e_loc
     rows = slice(mesh.index(dp) * t_loc, (mesh.index(dp) + 1) * t_loc) \
         if dp else slice(None)
-    experts = slice(e_base, e_base + e_loc)
-    part = _local_moe(xf[rows], top_ids[rows], top_w[rows],
-                      params["w1"][experts], params["w2"][experts],
-                      params["w3"][experts],
+    if zero3 and isinstance(params, Gathered):
+        w1, w2, w3 = (gather_experts(params.shard(n), params.spec(n), mesh,
+                                     e_loc, tp_ax) for n in ("w1", "w2", "w3"))
+    else:
+        experts = slice(e_base, e_base + e_loc)
+        w1, w2, w3 = (params[n][experts] for n in ("w1", "w2", "w3"))
+    part = _local_moe(xf[rows], top_ids[rows], top_w[rows], w1, w2, w3,
                       capacity=expert_capacity(t_loc, k, cfg.capacity_factor,
                                                e),
                       act_name=cfg.activation, e_base=e_base)
     # the sum over the model group in the compute dtype, as the reference's
     # psum (the float32 accumulation inside _local_moe took the long sums)
-    out = dctx.all_reduce(part.to(x.dtype), tp_ax, "sum")
+    out = psum(part.to(x.dtype), tp_ax, mesh)
     if dp:
-        out = dctx.all_gather(out, dp, dim=0)
+        out = gather_rows(out, dp, mesh)
     return out.reshape(b, s, d)

@@ -11,6 +11,15 @@ updates the parameters and the state **in place** (under
 copies of its state, as the reference's buffer donation avoids.  The
 learning rate and the gradient norm come back as device tensors, so a
 training loop synchronizes only where it reads them.
+
+On a ZeRO-3 tree (``dist.zero``) the parameters, gradients and moments
+are this rank's shards: every update is elementwise, so it runs on the
+shards as it would on the whole leaves.  Given the spec tree and the
+mesh, :func:`global_norm` counts every element once (each rank's sum of
+squares, all-reduced over the axes its leaf is sharded on only, so a
+leaf replicated on ``"model"`` is not counted twice), and clipping scales
+every shard alike.  Factored moments reduce over whole rows and columns
+and are refused on a sharded tree.
 """
 from __future__ import annotations
 
@@ -91,21 +100,48 @@ def init_state(cfg: AdamWConfig, params) -> Dict[str, Any]:
             "leaves": rebuild(params, map(leaf_state, ps))}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for _, x in leaves(tree)))
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32.  With
+    ``specs`` (a spec tree) and ``mesh`` the leaves are this rank's
+    shards: the squares of leaves sharded on the same axes are summed and
+    all-reduced over those axes, once per distinct set of axes."""
+    sq = [torch.sum(torch.square(x.to(torch.float32)))
+          for _, x in leaves(tree)]
+    if specs is None:
+        return torch.sqrt(sum(sq))
+    from repro_torch.dist import context as dctx
+
+    by_axes: Dict[tuple, Any] = {}
+    for v, (_, sp) in zip(sq, leaves(specs)):
+        axes = tuple(a for a in mesh.axis_names if any(
+            e == a or (isinstance(e, tuple) and a in e) for e in sp))
+        by_axes[axes] = by_axes.get(axes, 0) + v
+    total = 0
+    for axes in sorted(by_axes):
+        v = by_axes[axes]
+        if axes:
+            v = dctx.all_reduce(v.reshape(1).to(mesh.comm_device, copy=True),
+                                axes, "sum", mesh).to(v.device)[0]
+        total = total + v
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state):
+def apply_updates(cfg: AdamWConfig, params, grads, state, specs=None,
+                  mesh=None):
     """One AdamW step with clip-by-global-norm, bias correction and weight
     decay on every leaf (norms and biases too, as the reference does).
     Updates ``params`` and ``state`` in place; returns ``(params, state,
-    {"lr", "grad_norm"})``."""
+    {"lr", "grad_norm"})``.  ``specs`` and ``mesh``: the leaves are shards
+    under those specs (see the module docstring)."""
+    if specs is not None and any(path[-1] == "vr" for path, _
+                                 in leaves(state["leaves"])):
+        raise NotImplementedError(
+            "factored second moments on a sharded tree: their row and "
+            "column means span shards")
     step = state["step"] + 1
     lr = cosine_schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     stepf = step.to(torch.float32)

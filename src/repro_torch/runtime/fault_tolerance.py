@@ -1,4 +1,4 @@
-"""Fault tolerance for long-running jobs: the single-card parts.
+"""Fault tolerance and elasticity for long-running jobs.
 
 * :class:`CheckpointManager` — cadence + retention + auto-resume around
   ``repro_torch.checkpoint``; the data pipeline is stateless-indexed, so
@@ -7,11 +7,11 @@
   the latest checkpoint and continue (bounded retries).  On a real cluster
   the restart comes from the scheduler re-launching the job; the logic is
   the same because all state lives in (checkpoint, step).
+* :class:`ElasticMesh` — the largest valid (pod, data, model) mesh over
+  however many ranks the ``torch.distributed`` world has, shrinking the
+  model axis before the data axis (model shards must stay intact to
+  reshard checkpoints cheaply).
 * :class:`StragglerMonitor` — EWMA step-time outlier detection.
-
-The reference's ``ElasticMesh`` (a mesh from the devices that survive)
-waits for the router (ROADMAP.md, item D), which builds on the mesh of
-``repro_torch.dist``.
 """
 from __future__ import annotations
 
@@ -24,7 +24,8 @@ from repro_torch.checkpoint.checkpoint import (available_steps, latest_step,
                                                restore_checkpoint,
                                                save_checkpoint)
 
-__all__ = ["CheckpointManager", "run_with_restarts", "StragglerMonitor"]
+__all__ = ["CheckpointManager", "run_with_restarts", "ElasticMesh",
+           "StragglerMonitor"]
 
 
 @dataclasses.dataclass
@@ -82,6 +83,39 @@ def run_with_restarts(worker: Callable[[Optional[int]], int],
             if restarts > max_restarts:
                 raise
             time.sleep(0.01)
+
+
+class ElasticMesh:
+    """Build the largest valid (pod, data, model) mesh over the world.
+
+    The reference lays its mesh over a list of live devices.  A port mesh
+    (``dist.context.Mesh``) spans every rank of the initialised
+    ``torch.distributed`` world, so the world is the device list: a
+    restart at a smaller world builds the smaller mesh.  ``model_parallel``
+    halves until it divides the world, and ``pods`` falls back to 1 when
+    it does not divide the data-parallel count, as the reference's do."""
+
+    def __init__(self, model_parallel: int, pods: int = 1):
+        self.model_parallel = model_parallel
+        self.pods = pods
+
+    def shape(self, n: int) -> Tuple[int, int, int]:
+        """(pods, data, model) over ``n`` ranks."""
+        tp = self.model_parallel
+        while tp > 1 and n % tp:
+            tp //= 2  # degrade model parallelism if ranks don't divide
+        dp_total = n // tp
+        pods = self.pods if dp_total % self.pods == 0 else 1
+        return pods, dp_total // pods, tp
+
+    def make(self):
+        """The mesh over the initialised world (every rank calls it)."""
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_mesh
+
+        return make_mesh(self.shape(dist.get_world_size()),
+                         ("pod", "data", "model"))
 
 
 @dataclasses.dataclass

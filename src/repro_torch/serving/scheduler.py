@@ -81,7 +81,9 @@ linear shape of the parameter tree at the decode batch bucket
 ambient plan lookup on, so the decode loop's GEMMs run the tuned
 configuration from the first token; tokens are those of an untuned serve.
 
-Not ported yet (ROADMAP queue 1): ``drain`` and the router.
+:meth:`Scheduler.drain` empties a scheduler for the fleet router
+(:mod:`repro_torch.serving.router`): every in-flight request comes back
+for requeueing and nothing of it stays in the pool.
 """
 from __future__ import annotations
 
@@ -884,8 +886,39 @@ class Scheduler:
                 self._finish(int(slot), now)
 
     def output(self, rid: int) -> np.ndarray:
-        """Generated tokens recorded so far for ``rid``."""
+        """Generated tokens recorded so far for ``rid`` (router harvest)."""
         return np.asarray(self._outputs[rid], np.int32)
+
+    def drain(self) -> List[Request]:
+        """Evict every in-flight request and empty the queue; returns the
+        unfinished :class:`Request`s (original ``arrival_time`` intact) so
+        a router can requeue them elsewhere.  Partial outputs are
+        discarded — a migrated request restarts from its prompt, and
+        greedy decode makes the rerun bit-identical.
+
+        Nothing of a drained request stays behind: a mid-prefill slot
+        (chunked prefill) loses its ``_prefilling`` mark and its progress,
+        every slot's blocks go back through ``pool.evict`` (a mapped
+        prefix block drops only this slot's reference, so the prefix
+        index's refcounts are those of the prompts it cached) and its
+        recurrent leaves are zeroed, and the deferral marks and the local
+        queue are cleared.  A speculative round runs within one step, so
+        a slot killed mid-verify holds no draft state beyond its KV rows,
+        which the eviction returns."""
+        out: List[Request] = []
+        for slot in np.flatnonzero(self.active_slots):
+            rid = int(self._slot_rid[slot])
+            req = self._active_req.pop(rid)
+            self._outputs.pop(rid, None)
+            self._slot_rid[slot] = -1
+            self._remaining[slot] = 0
+            self._prefilling[slot] = False   # a mid-prefill slot drains
+            self._prefill_done[slot] = 0     # like any other: full restart
+            self.pool.evict(int(slot))
+            out.append(req)
+        self._deferred_rids.clear()
+        out.extend(self.queue.clear())
+        return out
 
     def _tokens_live(self) -> float:
         """Positions actually written across active slots (for the

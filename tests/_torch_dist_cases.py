@@ -265,3 +265,117 @@ def run_jobs(mesh, jobs):
     """Each ``(name, args)`` of ``jobs`` run as ``name(mesh, *args)`` on
     this rank, in order: one spawn serves a whole test file's cases."""
     return [globals()[name](mesh, *args) for name, args in jobs]
+
+
+# ---------------------------------------------------------------------------
+# ElasticMesh, the ZeRO-3 trainer and the CLIs under a world
+# (tests/test_torch_zero3.py, tests/test_torch_train_cli.py,
+# tests/test_torch_router.py)
+# ---------------------------------------------------------------------------
+
+def elastic_case(mesh, combos):
+    """``ElasticMesh(model_parallel, pods).make()`` over this world for
+    each ``(model_parallel, pods)``: its shape and axis names."""
+    from repro_torch.runtime.fault_tolerance import ElasticMesh
+
+    out = []
+    for mp, pods in combos:
+        m = ElasticMesh(mp, pods).make()
+        out.append((dict(m.shape), m.axis_names))
+    return out
+
+
+def zero3_case(mesh, name, overrides, model_parallel, params_np, batches):
+    """The sharded trainer on one smoke config: the mesh of
+    ``ElasticMesh(model_parallel)``, the reference's weights sharded under
+    ``param_pspecs(..., fsdp=True)``, then one ``train_step`` per global
+    batch of ``batches``.  Returns the mesh, this rank's first shards, and
+    each step's loss, grad norm and gathered parameters."""
+    from repro_torch.dist import zero
+    from repro_torch.dist.partitioning import opt_state_pspecs, param_pspecs
+    from repro_torch.launch.train import Sharding, train_step
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.runtime.fault_tolerance import ElasticMesh
+
+    cfg = _cfg(name, **overrides)
+    m = ElasticMesh(model_parallel).make()
+    whole = TM.from_reference(params_np, cfg, device="cpu")
+    pspecs = param_pspecs(TM.param_specs(cfg), m, fsdp=True)
+    params = zero.shard_tree(whole, pspecs, m)
+    del whole
+    first = {k: v.clone().numpy() for k, v in _flat(params)}
+    ocfg = AdamWConfig(warmup_steps=1, total_steps=len(batches))
+    opt = init_state(ocfg, params)
+    sharding = Sharding(m, pspecs, opt_state_pspecs(TM.param_specs(cfg),
+                                                    pspecs, opt, m))
+    steps = []
+    with dctx.use_mesh(m):
+        for b in batches:
+            b = {k: torch.from_numpy(v) for k, v in b.items()}
+            params, opt, loss, met = train_step(params, opt, b, cfg, ocfg,
+                                                sharding)
+            g = zero.gather_tree(params, pspecs, m)
+            steps.append(dict(loss=float(loss),
+                              grad_norm=float(met["grad_norm"]),
+                              params={k: v.numpy() for k, v in _flat(g)}))
+    return dict(mesh=dict(m.shape), rank=m.rank, first=first, steps=steps,
+                specs={k: v for k, v in _flat(pspecs)})
+
+
+def cli_case(mesh, module, argv):
+    """``repro_torch.launch.<module>.main(argv)`` on this rank as if
+    ``torchrun`` had started it (``WORLD_SIZE`` set; the group is the
+    spawn's); returns the CLI's result and what it printed."""
+    import io
+    import os
+    from contextlib import redirect_stdout
+
+    import importlib
+
+    import torch.distributed as dist
+
+    os.environ["WORLD_SIZE"] = str(dist.get_world_size())
+    os.environ["RANK"] = str(dist.get_rank())
+    cli = importlib.import_module(f"repro_torch.launch.{module}")
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        out = cli.main(argv)
+    if isinstance(out, dict):
+        out = {k: v.tolist() for k, v in out.items()}
+    return out, buf.getvalue()
+
+
+def moe_zero3_case(mesh, layer_np, x, cot):
+    """``moe_ffn`` with ``moe_fsdp_gather`` on a ZeRO-3 sharded smoke
+    layer of granite-moe under ``mesh``: the leaves stacked as one layer,
+    sharded under ``param_pspecs(fsdp=True)`` and read through a
+    ``Gathered`` layer view.  Returns the output, the shards' gradients
+    of ``sum(y * cot) / world`` (each rank's contribution), the expert
+    gathers' shapes and the specs."""
+    from repro_torch.dist import zero
+    from repro_torch.dist.partitioning import param_pspecs
+
+    cfg = _cfg("granite-moe-1b-a400m", moe_fsdp_gather=True)
+    whole = {k: TM._from_numpy(v)[None] for k, v in layer_np.items()}
+    specs = param_pspecs(whole, mesh, fsdp=True)
+    shards = zero.shard_tree(whole, specs, mesh)
+    for v in shards.values():
+        v.requires_grad_(True)
+    seen = []
+    real = t_moe.gather_experts
+
+    def rec(*a, **k):
+        y = real(*a, **k)
+        seen.append(tuple(y.shape))
+        return y
+
+    with mock.patch.object(t_moe, "gather_experts", rec), \
+            dctx.use_mesh(mesh):
+        y = t_moe.moe_ffn(torch.from_numpy(x),
+                          zero.Gathered(shards, specs, mesh).layer(0), cfg)
+        loss = (y * torch.from_numpy(cot)).sum() / mesh.size
+        names = sorted(shards)
+        grads = torch.autograd.grad(loss, [shards[k] for k in names])
+    return dict(y=y.detach().numpy(), gathers=seen, specs=specs,
+                grads={k: g[0].numpy() for k, g in zip(names, grads)},
+                coords=mesh.coords)

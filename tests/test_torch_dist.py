@@ -86,6 +86,9 @@ def world2(layers_np):
 @pytest.fixture(scope="module")
 def world2x2(layers_np):
     jobs = [("context_case", ())] + _moe_jobs(layers_np, ("float32",))
+    cfg = RC.get("granite-moe-1b-a400m").smoke()
+    jobs.append(("moe_zero3_case", (layers_np["granite-moe-1b-a400m"],
+                                    *_zero3_inputs(cfg))))
     return spawn(C.run_jobs, 4, jobs, mesh_shape=(2, 2),
                  axes=("data", "model"), timeout_s=SPAWN_TIMEOUT_S)
 
@@ -255,21 +258,58 @@ def test_moe_expert_parallel_data2_model2(world2x2, layers_np):
                _ref_mesh((2, 2), ("data", "model")), 2)
 
 
-def test_moe_fsdp_gather_waits_for_the_sharded_trainer(world2x2):
-    """ZeRO-3 expert gathers (``moe_fsdp_gather`` on a data axis > 1)
-    raise, naming the roadmap item; the meshless branch ignores the flag,
-    as the reference's does."""
+def test_moe_zero3_expert_gathers_match_reference(world2x2, layers_np):
+    """ZeRO-3 expert gathers (``moe_fsdp_gather`` at data 2 x model 2): on
+    a layer sharded under ``param_pspecs(fsdp=True)`` each rank gathers
+    only its 2 of the smoke config's 4 experts; the output and each
+    shard's gradient equal the reference's ``shard_map`` branch (its
+    ``all_gather`` over ``"data"``, whose transpose is a reduce-scatter)
+    and ``jax.grad``, sliced to the rank's shard.  The meshless branch
+    ignores the flag, as the reference's does."""
     import repro_torch.configs as TC
     from repro_torch.models import moe as t_moe
 
-    cfg = TC.get("granite-moe-1b-a400m").smoke().scaled(moe_fsdp_gather=True)
-    g = torch.Generator().manual_seed(0)
-    p = {"router": torch.randn(64, 4, generator=g),
-         "w1": torch.randn(4, 64, 32, generator=g),
-         "w3": torch.randn(4, 64, 32, generator=g),
-         "w2": torch.randn(4, 32, 64, generator=g)}
-    x = torch.randn(1, 4, 64, generator=g)
-    assert t_moe.moe_ffn(x, p, cfg).shape == (1, 4, 64)
-    with dctx.use_mesh(_fake_mesh(data=2, model=2)):
-        with pytest.raises(NotImplementedError, match="item D"):
-            t_moe.moe_ffn(x, p, cfg)
+    cfg = RC.get("granite-moe-1b-a400m").smoke().scaled(moe_fsdp_gather=True)
+    p = layers_np["granite-moe-1b-a400m"]
+    x, cot = _zero3_inputs(cfg)
+    mesh = _ref_mesh((2, 2), ("data", "model"))
+
+    def f(q):
+        return jnp.sum(r_moe.moe_ffn(jnp.asarray(x), q, cfg)
+                       * jnp.asarray(cot))
+
+    with r_dctx.use_mesh(mesh):
+        y = jax.jit(lambda q: r_moe.moe_ffn(jnp.asarray(x), q, cfg))(
+            {k: jnp.asarray(v) for k, v in p.items()})
+        g = jax.jit(jax.grad(f))({k: jnp.asarray(v) for k, v in p.items()})
+    want_y = np.asarray(y)
+    for rank in world2x2:
+        got = rank[-1]
+        np.testing.assert_allclose(got["y"], want_y, rtol=0, atol=MOE_TOL)
+        assert got["gathers"] and {s[0] for s in got["gathers"]} == {2}
+        d, m = got["coords"]["data"], got["coords"]["model"]
+        idx = {"data": d, "model": m}
+        for k, spec in got["specs"].items():
+            want = np.asarray(g[k])
+            for dim, entry in enumerate(spec[1:]):
+                if entry is not None:
+                    n = want.shape[dim] // 2
+                    want = np.take(want, np.arange(idx[entry] * n,
+                                                   (idx[entry] + 1) * n),
+                                   axis=dim)
+            np.testing.assert_allclose(got["grads"][k], want, rtol=0,
+                                       atol=MOE_TOL * max(
+                                           1.0, float(np.abs(want).max())),
+                                       err_msg=k)
+    tcfg = TC.get("granite-moe-1b-a400m").smoke().scaled(moe_fsdp_gather=True)
+    q = {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
+    xt = torch.from_numpy(x)
+    assert torch.equal(t_moe.moe_ffn(xt, q, tcfg),
+                       t_moe.moe_ffn(xt, q, tcfg.scaled(
+                           moe_fsdp_gather=False)))
+
+
+def _zero3_inputs(cfg):
+    rng = np.random.default_rng(11)
+    return (rng.standard_normal((2, 9, cfg.d_model), dtype=np.float32),
+            rng.standard_normal((2, 9, cfg.d_model), dtype=np.float32))

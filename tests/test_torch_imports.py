@@ -41,7 +41,9 @@ missing = sorted({{"repro_torch.pim.cost_model", "repro_torch.pim.autotune",
                   "repro_torch.dist.context",
                   "repro_torch.dist.partitioning",
                   "repro_torch.kernels.quant_matmul.tp",
-                  "repro_torch.launch.mesh"}}
+                  "repro_torch.launch.mesh",
+                  "repro_torch.dist.zero",
+                  "repro_torch.serving.router"}}
                  - set(names))
 print(len(names), bad, missing)
 """

@@ -286,5 +286,14 @@ def test_straggler_monitor():
     assert m.flagged == 1
 
 
-def test_no_elastic_mesh_in_the_port():
-    assert not hasattr(TFT, "ElasticMesh")
+def test_elastic_mesh_layout_matches_reference():
+    """The port's ``ElasticMesh`` layout rule, (pods, data, model) over a
+    world of ``n`` ranks, is the reference's over ``n`` devices, for every
+    world the host's devices allow (``tests/test_torch_zero3.py`` builds
+    the meshes over spawned worlds)."""
+    for n in range(1, len(jax.devices()) + 1):
+        for mp in (1, 2, 3, 4, 8):
+            for pods in (1, 2, 3):
+                m = RFT.ElasticMesh(mp, pods).make(jax.devices()[:n])
+                assert TFT.ElasticMesh(mp, pods).shape(n) == tuple(
+                    m.shape[a] for a in ("pod", "data", "model"))

@@ -1,8 +1,9 @@
 """The training CLI (``repro_torch.launch.train``) on the CPU: the smoke
 config, the crash-and-resume drill through ``--fail-at-step`` and
-``--resume``, and the flags the port refuses.  The drill's resumed steps
-must give the uninterrupted run's losses and final weights bit for bit:
-both runs take the same ops on the same data in one process."""
+``--resume``, the parallel flags at one rank, and the mesh branch at two
+ranks.  The drill's resumed steps must give the uninterrupted run's
+losses and final weights bit for bit: both runs take the same ops on the
+same data in one process."""
 import json
 
 import numpy as np
@@ -88,19 +89,35 @@ def test_layers_cuts_the_depth():
 
 @pytest.mark.parametrize("argv", [["--model-parallel", "2"],
                                   ["--pim-mode", "quant_tp"]])
-def test_unported_flags_raise(argv):
-    """``--model-parallel 2`` still raises: the trainer's mesh branch waits
-    for the sharded trainer (ROADMAP item D).  ``--pim-mode quant_tp`` is
-    ported: without a mesh it trains as ``quant``, step for step."""
+def test_parallel_flags_train_at_one_rank(argv):
+    """At one rank there is no mesh: ``--model-parallel 2`` is ignored, as
+    in the reference, and ``--pim-mode quant_tp`` trains as ``quant``;
+    both step for step."""
     base = ["--smoke", "--device", "cpu", "--steps", "2", "--batch", "2",
             "--seq", "8"]
-    if argv[0] == "--model-parallel":
-        with pytest.raises(NotImplementedError, match="item D"):
-            train.main(base + argv)
-        return
     losses = train.main(base + argv)
     assert len(losses) == 2 and all(np.isfinite(losses))
-    assert losses == train.main(base + ["--pim-mode", "quant"])
+    plain = ["--pim-mode", "quant"] if "quant_tp" in argv else []
+    assert losses == train.main(base + plain)
+
+
+def test_two_rank_cli_trains_under_the_mesh_branch():
+    """A 2-rank world (what ``torchrun --nproc-per-node 2`` starts) trains
+    under the mesh branch: ``[mesh]`` (pod 1, data 2, model 1), a ZeRO-3
+    sharded tree, rank 0 printing, and the single rank's losses within
+    float32 summation order."""
+    import _torch_dist_cases as C
+    from repro_torch.launch.mesh import spawn
+
+    argv = ["--smoke", "--device", "cpu", "--steps", "3", "--batch", "4",
+            "--seq", "8", "--log-every", "1", "--pim-mode", "quant"]
+    ranks = spawn(C.run_jobs, 2, [("cli_case", ("train", argv))],
+                  timeout_s=120.0)
+    (losses, out), (losses1, out1) = ranks[0][0], ranks[1][0]
+    assert "[mesh] {'pod': 1, 'data': 2, 'model': 1} over 2 ranks" in out
+    assert "final loss" in out and out1 == ""
+    assert losses == losses1
+    np.testing.assert_allclose(losses, train.main(argv), rtol=0, atol=1e-5)
 
 
 def test_default_device_needs_a_card():
