@@ -88,8 +88,8 @@ printed.
 Then it drops the served model's parameters: the engine must report no
 derived, chunked or resident bytes, and the card's allocation must fall by
 at least the weights and what the engine held for them (``check_released``,
-after each model below too).  ``serve_wide`` serves gemma-7b (4 of 28
-layers) and granite-20b (3 of 52) at full width on fresh weights: in
+after each model below too).  ``serve_wide`` serves gemma-7b (2 of 28
+layers) and granite-20b (2 of 52) at full width on fresh weights: in
 ``quant`` (4 requests, prompts 16-64, batch 4) the prefill logits and
 tokens must equal the plain GEMM's; in ``pim_sim`` (2 requests of 8
 tokens, batch 2) the logits and tokens must equal the exact integer
@@ -154,9 +154,33 @@ and its agreement with the ``quant`` tokens printed) and one full-width
 arctic-480b layer (64 experts per rank, 28 GB per rank, the ranks drawn
 one after the other).
 
+``serve_fleet_ranks`` runs the router over ranks: four gloo processes
+share the card, each draws full-width qwen1.5-0.5b from seed 0 and runs
+the router (``Router(devices=[0, 1, 2, 3])``): two ``quant_tp``
+replicas of model 2, each a sub-mesh of two ranks, serve the ``quant``
+phase's trace least-loaded, and replica 0 is killed at round
+``FLEET_RANKS_KILL_STEP`` losing rank 0, so it respawns over rank 1 alone
+at model 1 (``quant``).  Every rank's tokens must equal the ``quant``
+phase's; replica 0 must go from ranks [0, 1] to [1] and restart once;
+each decode step must launch the GEMM per weight tile as its replica's
+model axis calls for (``tile_counts``; 168 at model 1); the lost rank's
+allocation must fall by at least half a pool.  Then a ``pim_sim`` fleet
+of two one-rank replicas over ranks 0 and 1 serves the ``pim_sim``
+phase's trace with a kill and no rank lost: tokens equal to that
+phase's, 168 crossbar launches per decode step, no upload after the
+first.  Each rank prints the fleet's tok/s, TTFT and TPOT on the fleet
+clock and the world exchanges' calls and host ms per round.
+``dryrun_roofline`` runs the dry-run and roofline tools on the host:
+qwen1.5-0.5b x decode_32k and x train_4k on rank 0 of the 16x16 virtual
+mesh at full width, then the ``quant`` decode step that
+``profile_decode`` measured (batch 4) on a one-rank virtual mesh, whose
+FLOPs on fake tensors must equal ``FlopCounterMode``'s on the card (the
+GEMM is one PyTorch operator with a FLOP formula); its roofline time is
+printed against the measured busy and wall time.
+
 Last it trains full-width qwen1.5-0.5b on fresh weights from the same seed.  ``train_quant``: 4 steps of
 ``launch.train.train_step`` at batch 4, seq 128 (every linear on the GEMM
-kernel at M = 512); ``train_pim``: 2 steps at batch 2, seq 32 (every linear
+kernel at M = 512); ``train_pim``: 1 step at batch 2, seq 32 (every linear
 on the crossbar kernel at M = 64, on transient state).  In both, every loss
 and gradient norm must be finite, step 0's must equal those through the
 plain GEMM or the exact integer product, and each step must make one launch
@@ -186,9 +210,12 @@ layers, full width) with ``moe_fsdp_gather`` at world 4, (data 2, model
 2), one step: every expert gather must be the rank's 16 of 32 experts.
 The GEMM is timed at the per-rank train shapes (M = 128).
 
-The last line of standard output is ``{"ok": true, "device": {...}}``;
-the line before it lists the card's name and power limit, and the one
-before that the per-kernel JSON.  Any failure raises and exits
+Each phase's seconds are printed on a line of their own (``[phase]``),
+and all of them together after the kernels line (``[phases]``).  The
+last line of standard output is ``{"ok": true, "device": {...}}``;
+the line before it lists the card's name and power limit, the one
+before that the phases' seconds, and the one before that the per-kernel
+JSON.  Any failure raises and exits
 non-zero before those lines.  Without a CUDA device it exits non-zero at
 once.
 """
@@ -244,7 +271,7 @@ PREFIX_LOGIT_TOL = 0.02
 PIM_PEAK_BYTES = 16 << 30
 # the train phases: (batch, seq, steps) of train_quant and train_pim
 TRAIN_QUANT = (4, 128, 4)
-TRAIN_PIM = (2, 32, 2)
+TRAIN_PIM = (2, 32, 1)
 # the pim_sim train phase's peak allocation above its start (PERF.md
 # predicts 10-12 GiB: grads, AdamW state and its temporaries, and one
 # M = 64 linear's transient crossbar state)
@@ -364,7 +391,8 @@ def check_quant_kernel(dev):
     from repro_torch.kernels.quant_matmul import (quant_matmul_int,
                                                   quant_matmul_int_ref,
                                                   quantize_sym)
-    from repro_torch.kernels.quant_matmul.quant_matmul import _launch, plan
+    from repro_torch.kernels.quant_matmul.quant_matmul import (
+        _launch, _launch_checked, plan)
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -494,6 +522,25 @@ def check_quant_kernel(dev):
         + (f"{traced:g} (trace {attempt})" if traced is not None else
            "not measured (all 3 traces lost events; none showed another "
            "operation)"))
+    # the host's cost of a call through the PyTorch operator (the
+    # wrapper's checks, the dispatcher, the launch) against the launch
+    # called directly, without the dispatcher; each the best of 3 rounds
+    # of 500 calls, the two interleaved
+    host = {"operator": float("inf"), "direct": float("inf")}
+    for _ in range(3):
+        for key, fn in (("operator", lambda: quant_matmul_int(x, w)),
+                        ("direct", lambda: _launch_checked(x, w))):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(500):
+                fn()
+            host[key] = min(host[key], (time.perf_counter() - t) / 500)
+    torch.cuda.synchronize()
+    say(f"[quant_matmul_int] host time per call at (4, 1024, 2816): "
+        f"{host['operator'] * 1e6:.2f} us through the operator, "
+        f"{host['direct'] * 1e6:.2f} us launched directly; "
+        f"{(host['operator'] - host['direct']) * 168e3:.3f} ms for a qwen "
+        f"decode step's 168 calls")
     # the rest of a quant linear: the per-column quantization of a weight
     wf = torch.randn(1024, 2816, device=dev, dtype=torch.bfloat16)
     q_ops = device_ops(lambda: quantize_sym(wf.float(), axis=0))
@@ -526,7 +573,9 @@ def check_quant_kernel(dev):
                 f"{p.col_tiles}x3 blocks {ms3 * 1e3:6.2f} us")
         rows[(m, k, n)] = dict(row, device_ops_per_call=n_ops,
                                device_ops_per_call_traced=traced,
-                               max_abs_err=err)
+                               max_abs_err=err,
+                               host_us_operator=host["operator"] * 1e6,
+                               host_us_direct=host["direct"] * 1e6)
         say(f"[quant_matmul_int] M={m:3d} K={k:4d} N={n:4d} "
             f"({p.col_tiles}x{p.splits} blocks): " + gemm_line(row))
     return rows
@@ -1412,11 +1461,16 @@ def serve_pim_prefix(params, base_cfg, dev):
     return x_launches
 
 
-def profile_decode(params, cfg, dev, max_batch, top=6, max_new=4, **kw):
+def profile_decode(params, cfg, dev, max_batch, top=6, max_new=4,
+                   flops=False, **kw):
     """Profile one decode step of a warm scheduler (``ServingConfig(**kw)``
     besides; a speculative scheduler's step is one round) with
     ``profile_call``; it must make one launch of its mode's kernel per
-    linear."""
+    linear.  With ``flops`` the next step (the same shapes) runs under
+    ``FlopCounterMode``: ``prof["flops"]`` is its count and
+    ``prof["decode_args"]`` the ``(shape, dtype)`` tree of its
+    ``decode_step_slots`` call (``dryrun_roofline`` runs that call on fake
+    tensors)."""
     from repro_torch.serving import (Scheduler, ServingConfig,
                                      synthetic_requests)
 
@@ -1436,7 +1490,41 @@ def profile_decode(params, cfg, dev, max_batch, top=6, max_new=4, **kw):
                 f"{kw['draft_mode']}, k {kw['draft_k']}), batch {max_batch}")
     prof = profile_call(name, sched.step, top)
     check_step_launches(cfg, prof["launches"], len(step_linears(cfg)))
+    if flops:
+        prof.update(step_flops(sched))
     return prof
+
+
+def step_flops(sched):
+    """One more step of ``sched`` under ``FlopCounterMode``: its count, and
+    the ``(shape, dtype)`` tree of the ``decode_step_slots`` call in it."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import model_lib as M
+    from repro_torch.tree import leaves, rebuild
+
+    real = M.decode_step_slots
+    seen = []
+
+    def rec(params, tokens, pos, active, caches, cfg, block_tables=None):
+        seen.append(rebuild(
+            {"params": params, "caches": caches, "tokens": tokens,
+             "pos": pos, "active": active, "block_tables": block_tables},
+            ((tuple(t.shape), t.dtype) for _, t in leaves(
+                {"params": params, "caches": caches, "tokens": tokens,
+                 "pos": pos, "active": active,
+                 "block_tables": block_tables}))))
+        return real(params, tokens, pos, active, caches, cfg,
+                    block_tables=block_tables)
+
+    counter = FlopCounterMode(display=False)
+    with mock.patch.object(M, "decode_step_slots", rec), counter:
+        sched.step()
+    torch.cuda.synchronize()
+    if len(seen) != 1:
+        raise AssertionError(f"the counted step made {len(seen)} decode "
+                             "calls, expected 1")
+    return dict(flops=int(counter.get_total_flops()), decode_args=seen[0])
 
 
 def check_step_launches(cfg, launches, per_step):
@@ -2033,7 +2121,7 @@ def time_crossbar_at(dev, m, k, o):
 
 
 def train_pim(base_cfg, dev):
-    """Full-width qwen1.5-0.5b in ``pim_sim``, 2 steps at batch 2, seq 32:
+    """Full-width qwen1.5-0.5b in ``pim_sim``, 1 step at batch 2, seq 32:
     every linear on ``crossbar_exec`` at M = 64, on transient state."""
     from repro_torch.models import model_lib as M
     from repro_torch.optim.adamw import AdamWConfig
@@ -2199,8 +2287,9 @@ def train_restart():
 # depths of the full-width wide serves: a pim_sim decode state at batch 2
 # takes about 1.8 GiB per gemma-7b layer and 2.45 GiB per granite-20b layer
 # (host arithmetic, printed), so these depths keep one model's states under
-# the engine's 8 GiB resident bound
-WIDE_LAYERS = {"gemma-7b": 4, "granite-20b": 3}
+# the engine's 8 GiB resident bound; two layers each serve every wide
+# linear at full width within the run's time
+WIDE_LAYERS = {"gemma-7b": 2, "granite-20b": 2}
 # h2o-danube-1.8b's windowed serve (window 4096): a cold prompt past the
 # window, and one inside it whose decode wraps the ring; then three short
 # prompts through packing and chunking
@@ -5191,6 +5280,344 @@ def train_zero3(dev):
 
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# the router over ranks: a four-rank fleet of two quant_tp replicas
+# --------------------------------------------------------------------------
+
+FLEET_RANKS_WORLD = 4
+FLEET_RANKS_MODEL = 2
+# the round at whose start replica 0 is killed and loses its first rank
+FLEET_RANKS_KILL_STEP = 2
+FLEET_RANKS_TIMEOUT_S = 600.0
+
+
+def fleet_rank_serve(dev, params, cfg, trace, devices, plan, model_parallel,
+                     policy, **kw):
+    """One rank's part of a fleet over the world ranks ``devices``: every
+    request arriving at 0 on the fleet clock.  Returns its tokens in
+    submission order, the summary, the wall time, each decode step this
+    rank ran (its replica's model axis, weight tiles, launches and the
+    engine's uploads after it), the allocation around each kill, each
+    replica's ranks before and after, the rounds and the world
+    exchanges' calls and host seconds."""
+    from repro_torch.dist import context as dctx
+    from repro_torch.pim import engine
+    from repro_torch.serving import (Router, RouterConfig, Scheduler,
+                                     ServingConfig, make_request)
+
+    reqs = [make_request(p, n, arrival_time=0.0) for p, n in trace]
+    shapes, steps, kills = [], [], []
+    real_step, real_kill = Scheduler._plain_step, Router._kill
+
+    def step(self, active, emitted):
+        n = len(shapes)
+        q0, x0 = counters()
+        real_step(self, active, emitted)
+        q1, x1 = counters()
+        m = dctx.current_mesh()
+        steps.append(dict(model=m.shape["model"] if m is not None else 1,
+                          tiles=tile_counts(shapes[n:]), quant=q1 - q0,
+                          crossbar=x1 - x0,
+                          uploads=engine.cache_info().exec_uploads))
+
+    def kill(self, rep, **k):
+        _sync(dev)
+        before = _allocated(dev)
+        real_kill(self, rep, **k)
+        gc.collect()
+        _sync(dev)
+        kills.append((before, _allocated(dev)))
+
+    names = ("world_broadcast", "world_gather")
+    c0 = {k: dict(dctx.counts.get(k, {"calls": 0, "seconds": 0.0}))
+          for k in names}
+    reset_counters()
+    _sync(dev)
+    t0 = time.perf_counter()
+    with launch_shapes(shapes), \
+            mock.patch.object(Scheduler, "_plain_step", step), \
+            mock.patch.object(Router, "_kill", kill):
+        router = Router(params, cfg, ServingConfig(**kw), RouterConfig(
+            n_replicas=2, policy=policy, model_parallel=model_parallel),
+            devices=devices, failure_plan=plan, device=dev)
+        before = [list(r.ranks) for r in router.replicas]
+        for r in reqs:
+            router.submit_request(r)
+        results = router.run()
+        summary = router.metrics().summary()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    exchanges = {k: dict(
+        calls=dctx.counts.get(k, {}).get("calls", 0) - c0[k]["calls"],
+        seconds=dctx.counts.get(k, {}).get("seconds", 0.0) - c0[k]["seconds"])
+        for k in names}
+    return dict(
+        tokens=[results[r.rid].tolist() for r in reqs], wall_s=wall,
+        summary={k: summary[k] for k in (
+            "n_finished", "tokens_per_s", "mean_ttft_s", "mean_tpot_s",
+            "rebalanced_requests", "replica_restarts", "per_replica_tok_s")},
+        steps=steps, kills=kills, before=before,
+        after=[(list(r.ranks), r.alive) for r in router.replicas],
+        rounds=router.step_count, exchanges=exchanges,
+        launches=list(counters()))
+
+
+def fleet_rank(mesh, base, q_tokens, pim_tokens, dev_type="cuda"):
+    """One rank of ``serve_fleet_ranks``, in its own process: ``base``
+    (full-width qwen1.5-0.5b) drawn on the card from seed 0, then a
+    ``quant_tp`` fleet
+    of two replicas of model 2 over the four ranks (replica 0 killed at
+    round ``FLEET_RANKS_KILL_STEP``, losing its first rank), then a
+    ``pim_sim`` fleet of two one-rank replicas over ranks 0 and 1 (one
+    kill, no rank lost)."""
+    from repro_torch.models import model_lib as M
+    from repro_torch.serving import FailurePlan, synthetic_requests
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dev_type == "cuda" else torch.device("cpu"))
+    t0 = time.perf_counter()
+    params = M.init_params(base, seed=0, device=dev)
+    qcfg = base.scaled(pim_mode="quant_tp",
+                       max_seq_len=trace_len(QUANT_TRACE))
+    reqs = synthetic_requests(
+        QUANT_TRACE["n_requests"], vocab_size=qcfg.vocab_size,
+        prompt_lens=QUANT_TRACE["prompt_lens"],
+        max_new_tokens=QUANT_TRACE["max_new"], seed=QUANT_TRACE["seed"])
+    quant = fleet_rank_serve(
+        dev, params, qcfg, [(r.prompt, r.max_new_tokens) for r in reqs],
+        list(range(mesh.size)),
+        FailurePlan(kill_replica=0, at_step=FLEET_RANKS_KILL_STEP,
+                    lose_devices=1), FLEET_RANKS_MODEL, "least_loaded",
+        max_batch=QUANT_TRACE["max_batch"], paged=True,
+        prompt_bucket=max(8, max(QUANT_TRACE["prompt_lens"]) // 4))
+    xcfg = base.scaled(pim_mode="pim_sim", max_seq_len=16 + 4)
+    preqs = synthetic_requests(2, vocab_size=xcfg.vocab_size,
+                               prompt_lens=(16,), max_new_tokens=4, seed=6)
+    pim = fleet_rank_serve(
+        dev, params, xcfg, [(r.prompt, r.max_new_tokens) for r in preqs],
+        [0, 1], FailurePlan(kill_replica=0, at_step=FLEET_PIM_KILL_STEP),
+        1, "least_loaded", max_batch=2, paged=True, prompt_bucket=8)
+    return dict(rank=mesh.rank, quant=quant, pim=pim,
+                seconds=time.perf_counter() - t0)
+
+
+def fleet_rank_failures(ranks, want_tp, want_q, per_step, pool, q_tokens,
+                        pim_tokens):
+    """Every check of ``serve_fleet_ranks``' results that failed."""
+    fails = []
+    for res in ranks:
+        r, q, x = res["rank"], res["quant"], res["pim"]
+        if q["tokens"] != q_tokens:
+            fails.append(f"rank {r}: quant_tp fleet tokens differ from "
+                         "serve_quant's")
+        if q["before"][0] != [0, 1] or q["after"][0] != ([1], True):
+            fails.append(f"rank {r}: replica 0 over {q['before'][0]} -> "
+                         f"{q['after'][0]}, expected [0, 1] -> [1], alive")
+        if q["summary"]["replica_restarts"] != 1:
+            fails.append(f"rank {r}: {q['summary']['replica_restarts']} "
+                         "restarts, expected 1")
+        for st in q["steps"]:
+            want = want_tp if st["model"] == FLEET_RANKS_MODEL else want_q
+            if st["tiles"] != want:
+                fails.append(f"rank {r}: a model-{st['model']} decode step "
+                             f"launched tiles {st['tiles']}, expected {want}")
+        models = [st["model"] for st in q["steps"]]
+        if r == 1 and not (FLEET_RANKS_MODEL in models and 1 in models):
+            fails.append(f"rank 1 stepped at model {sorted(set(models))}, "
+                         f"expected {FLEET_RANKS_MODEL} then 1")
+        if r == 0:
+            (before, after), = q["kills"]
+            if after - before > -(pool // 2):
+                fails.append(f"rank 0 (lost) freed {before - after} B at "
+                             f"the kill, less than half a pool ({pool} B)")
+        if x["tokens"] != pim_tokens:
+            fails.append(f"rank {r}: pim_sim fleet tokens {x['tokens']} "
+                         f"differ from serve_pim's {pim_tokens}")
+        if any(st["crossbar"] != per_step for st in x["steps"]):
+            fails.append(f"rank {r}: pim_sim decode steps launched "
+                         f"{[st['crossbar'] for st in x['steps']]}, "
+                         f"expected {per_step} each")
+        ups = [st["uploads"] for st in x["steps"]]
+        if any(u != ups[0] for u in ups):
+            fails.append(f"rank {r}: pim_sim decode steps uploaded after "
+                         f"the first: {ups}")
+        if (x["summary"]["replica_restarts"] != 1
+                or not x["summary"]["rebalanced_requests"] > 0):
+            fails.append(f"rank {r}: pim_sim kill restarted "
+                         f"{x['summary']['replica_restarts']}, rebalanced "
+                         f"{x['summary']['rebalanced_requests']}")
+    if not any(res["pim"]["steps"] for res in ranks[:2]):
+        fails.append("the pim_sim fleet's ranks ran no decode step")
+    return fails
+
+
+def serve_fleet_ranks(dev, q_tokens, pim_tokens):
+    """The router over ranks: ``FLEET_RANKS_WORLD`` gloo processes share
+    the card (``launch.mesh.spawn``) and run ``fleet_rank``.  Every rank's
+    tokens must equal ``serve_quant``'s (``quant_tp`` tiles are exact, and
+    replica 0 runs ``quant`` at model 1 after losing rank 0) and
+    ``serve_pim``'s; replica 0 must go from ranks [0, 1] to [1] and
+    restart once; every decode step must launch the GEMM per tile as
+    ``tile_counts`` says for its replica's model axis (168 at model 1) and
+    the crossbar kernel once per linear, with no upload after the first
+    step; the lost rank's allocation must fall by at least half a pool.
+    Returns each kernel's launches per rank and a summary."""
+    from repro_torch import configs
+    from repro_torch.kernels.quant_matmul.tp import tp_tile_shape
+    from repro_torch.launch.mesh import spawn
+
+    t0 = time.perf_counter()
+    base = configs.get("qwen1.5-0.5b")
+    qcfg = base.scaled(pim_mode="quant_tp",
+                       max_seq_len=trace_len(QUANT_TRACE))
+    lin = step_linears(qcfg)
+    want_tp = tile_counts([tp_tile_shape(kn, FLEET_RANKS_MODEL)
+                           for kn in lin])
+    want_q = tile_counts(lin)
+    pool = fleet_pool_bytes(qcfg, QUANT_TRACE["max_batch"])
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ranks = spawn(fleet_rank, FLEET_RANKS_WORLD, base, q_tokens, pim_tokens,
+                  dev.type, device=dev.type,
+                  timeout_s=FLEET_RANKS_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for res in ranks:
+        for tag in ("quant", "pim"):
+            f = res[tag]
+            s = f["summary"]
+            ex = f["exchanges"]
+            calls = sum(e["calls"] for e in ex.values())
+            secs = sum(e["seconds"] for e in ex.values())
+            say(f"[fleet-ranks] rank {res['rank']} {tag}: "
+                f"{s['n_finished']} requests in {f['wall_s']:.2f} s wall, "
+                f"{f['rounds']} rounds | fleet clock: "
+                f"{s['tokens_per_s']:.2f} tok/s, mean TTFT "
+                f"{s['mean_ttft_s'] * 1e3:.1f} ms, mean TPOT "
+                f"{s['mean_tpot_s'] * 1e3:.2f} ms | world exchanges "
+                f"{calls} ({calls / max(f['rounds'], 1):.2f} a round), "
+                f"{secs * 1e3:.1f} ms on the host "
+                f"({secs * 1e3 / max(f['rounds'], 1):.2f} ms a round) | "
+                f"replicas {f['before']} -> {f['after']} | decode steps "
+                f"at model {sorted({st['model'] for st in f['steps']})}, "
+                f"launches (quant_matmul_int, crossbar_exec) "
+                f"{f['launches']}")
+        (before, after), = res["quant"]["kills"]
+        say(f"[fleet-ranks] rank {res['rank']}: allocated {before} B before "
+            f"the kill, {after} B after ({after - before:+d} B; a pool is "
+            f"{pool} B, host arithmetic); rank seconds "
+            f"{res['seconds']:.1f}")
+    fails = fleet_rank_failures(ranks, want_tp, want_q, len(lin), pool,
+                                q_tokens, pim_tokens)
+    if fails:
+        raise AssertionError("serve_fleet_ranks: " + "; ".join(fails))
+    say(f"[fleet-ranks] {FLEET_RANKS_WORLD} ranks, 2 replicas x model "
+        f"{FLEET_RANKS_MODEL}: tokens == serve_quant's and serve_pim's on "
+        f"every rank; replica 0 [0, 1] -> [1]; phase {wall:.1f} s")
+    q_launches = [res["quant"]["launches"][0] for res in ranks]
+    x_launches = [res["pim"]["launches"][1] for res in ranks]
+    summary = dict(wall_s=wall, **{f"rank{res['rank']}": {
+        tag: {k: v for k, v in res[tag].items()
+              if k not in ("tokens", "steps")}
+        for tag in ("quant", "pim")} for res in ranks},
+        tiles_model2=want_tp)
+    return q_launches, x_launches, summary
+
+
+# --------------------------------------------------------------------------
+# the dry run and the roofline, on the host
+# --------------------------------------------------------------------------
+
+def _fake_like(shapes):
+    from repro_torch.tree import leaves, rebuild
+
+    return rebuild(shapes, (torch.zeros(shp, dtype=dt)
+                            for _, (shp, dt) in leaves(shapes)))
+
+
+def dryrun_roofline(qcfg, prof):
+    """The dry-run and roofline tools at full width, on the host:
+    qwen1.5-0.5b x decode_32k and x train_4k on rank 0 of the 16x16
+    virtual mesh (argument and temp bytes, FLOPs, wire bytes, roofline
+    terms at the H100's published peaks); then, on a world-1 virtual mesh,
+    the decode step ``profile_decode(params, qcfg, dev, 4)`` measured (its
+    ``decode_step_slots`` call at the shapes it ran): the FLOPs counted on
+    fake tensors must equal ``FlopCounterMode`` on the real step on the
+    card, and its roofline time is printed against the measured busy and
+    wall time.  Returns a summary."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.dist.context import VirtualMesh
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import model_lib as M
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    out = {}
+    for shape in ("decode_32k", "train_4k"):
+        r = dryrun.run_cell("qwen1.5-0.5b", shape, multi_pod=False)
+        if r["status"] != "ok":
+            raise AssertionError(f"dry run of qwen x {shape}: {r}")
+        t = roofline.terms(r)
+        say(f"[dryrun] qwen1.5-0.5b x {shape} on rank 0 of 16x16 "
+            f"(virtual, fake tensors; {r['seconds']} s): argument "
+            f"{r['mem']['argument_bytes']} B, temp {r['mem']['temp_bytes']} "
+            f"B ({r['mem']['temp_pass']} pass), {r['flops_per_dev']:.4g} "
+            f"FLOPs ({r['int_flops_per_dev']:.4g} int8), wire "
+            f"{r['wire_bytes_per_dev']:.4g} B ({r['cross_pod_bytes_per_dev']:.4g}"
+            f" B across nodes) | roofline at H100 SXM published peaks "
+            f"(host arithmetic): compute {t['compute'] * 1e3:.3f} ms, memory "
+            f"{t['memory'] * 1e3:.3f} ms (lb {t['memory_lb'] * 1e3:.3f}), "
+            f"collective {t['collective'] * 1e3:.3f} ms")
+        out[shape] = dict({k: v for k, v in r.items()
+                           if k not in ("collectives",)}, terms=t)
+    args = prof["decode_args"]
+    mesh = VirtualMesh((1,), ("data",))
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = _fake_like(args)
+        tables = fake.pop("block_tables")
+
+        def step(params, tokens, pos, active, caches):
+            return M.decode_step_slots(params, tokens, pos, active, caches,
+                                       qcfg, block_tables=tables)
+
+        m = dryrun.measure_step(step, (fake["params"], fake["tokens"],
+                                       fake["pos"], fake["active"],
+                                       fake["caches"]), mesh)
+    arg_bytes = sum(math.prod(shp) * torch.empty((), dtype=dt).element_size()
+                    for _, (shp, dt) in leaves(args))
+    cell = dict(flops_per_dev=m["flops_per_dev"],
+                int_flops_per_dev=m["int_flops_per_dev"],
+                bytes_per_dev=m["bytes_per_dev"], wire_bytes_per_dev=0.0,
+                mem=dict(argument_bytes=arg_bytes))
+    t = roofline.terms(cell)
+    bound = max(t["compute"], t["memory_lb"])
+    say(f"[dryrun] the measured qwen quant decode step (batch 4, "
+        f"max_seq_len {qcfg.max_seq_len}): FLOPs counted on fake tensors "
+        f"{int(m['flops_per_dev'])} ({int(m['int_flops_per_dev'])} int8), "
+        f"FlopCounterMode on the card {prof['flops']}: equal "
+        f"{int(m['flops_per_dev']) == prof['flops']}")
+    say(f"[dryrun] its roofline at H100 SXM published peaks (host "
+        f"arithmetic): compute {t['compute'] * 1e6:.2f} us, memory lb "
+        f"{t['memory_lb'] * 1e6:.2f} us ({arg_bytes} B read once), bound "
+        f"{bound * 1e6:.2f} us; the bound is "
+        f"{bound * 1e3 / prof['busy_ms'] * 100:.2f} % of the measured busy "
+        f"{prof['busy_ms']:.3f} ms and "
+        f"{bound * 1e3 / prof['wall_ms'] * 100:.3f} % of the wall "
+        f"{prof['wall_ms']:.3f} ms")
+    if int(m["flops_per_dev"]) != prof["flops"]:
+        raise AssertionError(f"dry-run FLOPs {m['flops_per_dev']} != the "
+                             f"card's FlopCounterMode {prof['flops']}")
+    wall = time.perf_counter() - t0
+    say(f"[dryrun] phase {wall:.1f} s")
+    out["step"] = dict(flops=prof["flops"], int_flops=m["int_flops_per_dev"],
+                       argument_bytes=arg_bytes, terms=t, bound_s=bound,
+                       busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
+                       share_of_busy=bound * 1e3 / prof["busy_ms"])
+    out["wall_s"] = wall
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -5220,9 +5647,20 @@ def main() -> int:
         for ln in info.ptxas_lines:
             say(f"[ptxas {name}] {ln}")
 
-    quant_rows = check_quant_kernel(dev)
-    xbar_row = check_crossbar_kernel(dev)
-    mult_launches, mult_table = check_multipliers(dev)
+    phase_s = {}
+
+    def phase(name, fn, *a, **kw):
+        """``fn(*a, **kw)``, its seconds printed on a line of their own."""
+        t = time.perf_counter()
+        res = fn(*a, **kw)
+        phase_s[name] = time.perf_counter() - t
+        say(f"[phase] {name}: {phase_s[name]:.1f} s")
+        return res
+
+    quant_rows = phase("check_quant_kernel", check_quant_kernel, dev)
+    xbar_row = phase("check_crossbar_kernel", check_crossbar_kernel, dev)
+    mult_launches, mult_table = phase("check_multipliers", check_multipliers,
+                                      dev)
 
     base = configs.get("qwen1.5-0.5b")
     t0 = time.perf_counter()
@@ -5234,36 +5672,51 @@ def main() -> int:
         f"{base.padded_vocab}, {base.dtype}) drawn on the card from seed 0 "
         f"in {time.perf_counter() - t0:.3f} s")
 
-    q_launches, qcfg, q_tokens = serve_quant(params, base, dev)
-    x_launches, pcfg, pim_tokens = serve_pim(params, base, dev)
-    qp_launches, qp_trace, qp_tokens = serve_quant_prefix(params, base, dev)
-    xp_launches = serve_pim_prefix(params, base, dev)
-    qs_launches = serve_quant_spec(params, qcfg, dev, q_tokens)
-    ps_launches = serve_pim_spec(params, base, dev)
-    profile_decode(params, qcfg, dev, 4)
-    profile_decode(params, pcfg, dev, 2)
-    profile_decode(params, pcfg.scaled(max_seq_len=24), dev, 2, max_new=8,
-                   speculative=True, draft_mode="quant", draft_k=3)
-    at_launches, at_warm_s, race_rows, geo_rows = serve_pim_autotune(
-        params, base, dev, pim_tokens)
-    fl_q, fl_x, fleet = serve_fleet_phase(params, base, dev, q_tokens,
-                                          qp_trace, qp_tokens, pim_tokens)
+    q_launches, qcfg, q_tokens = phase("serve_quant", serve_quant, params,
+                                       base, dev)
+    x_launches, pcfg, pim_tokens = phase("serve_pim", serve_pim, params,
+                                         base, dev)
+    qp_launches, qp_trace, qp_tokens = phase(
+        "serve_quant_prefix", serve_quant_prefix, params, base, dev)
+    xp_launches = phase("serve_pim_prefix", serve_pim_prefix, params, base,
+                        dev)
+    qs_launches = phase("serve_quant_spec", serve_quant_spec, params, qcfg,
+                        dev, q_tokens)
+    ps_launches = phase("serve_pim_spec", serve_pim_spec, params, base, dev)
+    q_prof = phase("profile_decode quant", profile_decode, params, qcfg, dev,
+                   4, flops=True)
+    phase("profile_decode pim_sim", profile_decode, params, pcfg, dev, 2)
+    phase("profile_decode pim_sim speculative", profile_decode, params,
+          pcfg.scaled(max_seq_len=24), dev, 2, max_new=8, speculative=True,
+          draft_mode="quant", draft_k=3)
+    at_launches, at_warm_s, race_rows, geo_rows = phase(
+        "serve_pim_autotune", serve_pim_autotune, params, base, dev,
+        pim_tokens)
+    fl_q, fl_x, fleet = phase("serve_fleet_phase", serve_fleet_phase, params,
+                              base, dev, q_tokens, qp_trace, qp_tokens,
+                              pim_tokens)
     # the serve phases' model is dropped: the engine may keep nothing of it
     before = footprint(params)
     del params
     check_released(base.name, before)
-    wide = {name: serve_wide(name, dev) for name in WIDE_LAYERS}
-    win_q, win_x, win = serve_window(dev)
-    moe_q, moe_x, moe_run, moe_tokens = serve_moe(dev)
-    rec_q, rec_x, rec_run = serve_recurrent(dev)
-    mm_q, mm_x, mm_run = serve_multimodal(dev)
-    mp_launches, mp_rows, mp_run = serve_tp(dev, q_tokens, moe_tokens)
+    wide = {name: phase(f"serve_wide {name}", serve_wide, name, dev)
+            for name in WIDE_LAYERS}
+    win_q, win_x, win = phase("serve_window", serve_window, dev)
+    moe_q, moe_x, moe_run, moe_tokens = phase("serve_moe", serve_moe, dev)
+    rec_q, rec_x, rec_run = phase("serve_recurrent", serve_recurrent, dev)
+    mm_q, mm_x, mm_run = phase("serve_multimodal", serve_multimodal, dev)
+    mp_launches, mp_rows, mp_run = phase("serve_tp", serve_tp, dev, q_tokens,
+                                         moe_tokens)
+    fr_q, fr_x, fleet_ranks = phase("serve_fleet_ranks", serve_fleet_ranks,
+                                    dev, q_tokens, pim_tokens)
+    dry = phase("dryrun_roofline", dryrun_roofline, qcfg, q_prof)
     # training: fresh weights from the same seed; the serve phases' params
     # stay as they are
-    tq_launches, tq = train_quant(base, dev, quant_rows)
-    tp_launches, tp = train_pim(base, dev)
-    drill = train_restart()
-    z_launches, zero3 = train_zero3(dev)
+    tq_launches, tq = phase("train_quant", train_quant, base, dev,
+                            quant_rows)
+    tp_launches, tp = phase("train_pim", train_pim, base, dev)
+    drill = phase("train_restart", train_restart)
+    z_launches, zero3 = phase("train_zero3", train_zero3, dev)
     m_train = TRAIN_QUANT[0] * TRAIN_QUANT[1]
     m_zero3 = ZERO3_TRAIN[0] // ZERO3_WORLD * ZERO3_TRAIN[1]
 
@@ -5279,6 +5732,7 @@ def main() -> int:
              launches_window_path=win_q, launches_moe_path=moe_q,
              launches_recurrent_path=rec_q, launches_multimodal_path=mm_q,
              launches_tp_path=mp_launches, launches_fleet_path=fl_q,
+             launches_fleet_ranks_path=fr_q,
              launches_zero3_path=z_launches,
              max_abs_err=qrow["max_abs_err"],
              exact=qrow["max_abs_err"] == 0,
@@ -5288,6 +5742,8 @@ def main() -> int:
              launch_floor_ms=qrow["launch_floor_ms"],
              device_ops_per_call=qrow["device_ops_per_call"],
              device_ops_per_call_traced=qrow["device_ops_per_call_traced"],
+             host_us_operator=qrow["host_us_operator"],
+             host_us_direct=qrow["host_us_direct"],
              train_shapes=[dict(shape=[m_train, k, n], **{
                  key: quant_rows[(m_train, k, n)][key]
                  for key in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -5305,7 +5761,8 @@ def main() -> int:
              tp_shapes=mp_rows,
              wide={k: v[2] for k, v in wide.items()}, window=win,
              moe=moe_run, recurrent=rec_run, multimodal=mm_run, tp=mp_run,
-             train=tq, restart_drill=drill, fleet=fleet, zero3=zero3),
+             train=tq, restart_drill=drill, fleet=fleet,
+             fleet_ranks=fleet_ranks, dryrun=dry, zero3=zero3),
         dict(name="crossbar_exec", route="cuda",
              source="src/repro_torch/kernels/csrc/crossbar_exec.cu",
              replaces="src/repro/kernels/crossbar_exec/crossbar_exec.py:66",
@@ -5317,7 +5774,7 @@ def main() -> int:
              launches_wide_path={k: v[1] for k, v in wide.items()},
              launches_window_path=win_x, launches_moe_path=moe_x,
              launches_recurrent_path=rec_x, launches_multimodal_path=mm_x,
-             launches_fleet_path=fl_x,
+             launches_fleet_path=fl_x, launches_fleet_ranks_path=fr_x,
              max_abs_err=xbar_row["max_abs_err"],
              exact=xbar_row["max_abs_err"] == 0,
              shape=xbar_row["shape"], ms=xbar_row["ms"],
@@ -5334,6 +5791,9 @@ def main() -> int:
         f" launch counters now {quant_matmul_int.launches}, "
         f"{crossbar_exec.launches}")
     say(json.dumps({"kernels": kernels}))
+    # after the long kernels line, so that a log's last lines keep them
+    say(f"[phases] {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
+        f" main {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,8 +23,11 @@ Placement rules (the reference's, ``repro.dist.partitioning``):
 
 ``dist.zero`` keeps a rank's shard of a leaf under its spec and gathers it
 back; ``quant_tp`` splits its tiles with :func:`tp_shard_dim`, the rule
-``param_pspecs`` puts on ``"model"``.  The reference's ``cache_pspecs``
-and ``tree_shardings`` wait for the dry-run tools (ROADMAP.md, item E).
+``param_pspecs`` puts on ``"model"``.  :func:`cache_pspecs` lays out
+decode caches, and :func:`tree_shardings` turns a spec tree into
+:class:`TensorSharding` leaves, whose ``shard_shape`` is the reference's
+``NamedSharding.shard_shape``: the dry run sums a rank's argument bytes
+from them (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ from repro_torch.dist import context as dctx
 from repro_torch.tree import leaves, rebuild
 
 __all__ = ["param_pspecs", "opt_state_pspecs", "batch_pspecs",
-           "tp_shard_dim", "replica_slices", "leaf_shape"]
+           "cache_pspecs", "tp_shard_dim", "replica_slices", "leaf_shape",
+           "TensorSharding", "tree_shardings"]
 
 FSDP_AXIS = "data"
 
@@ -133,6 +137,66 @@ def batch_pspecs(batch, mesh):
                            for _, s in leaves(batch)))
 
 
+def cache_pspecs(caches, mesh, *, batch_over_dp: bool = True):
+    """Decode caches ``(n_super, batch, ...)``: batch dim over the DP
+    axes, the head dim (-2) of rank>=4 leaves over the "model" axis.
+
+    ``batch_over_dp=False`` keeps the batch (slot) dim replicated while
+    heads still ride "model" — the serving pool's placement, and the
+    block-paged pool's, whose dim 1 is the block dim.  Quantized-KV
+    *scale* leaves (``k_scale``/``v_scale``) are the KV leaf minus its
+    trailing head-dim axis, so their head dim is last: they get "model"
+    on ``-1``.  The reference's rules, leaf for leaf."""
+    dp, tp_ax = dctx.mesh_axes(mesh)
+
+    def leaf(path, s):
+        shape = leaf_shape(s)
+        nd = len(shape)
+        entries = [None] * nd
+        if nd >= 2 and batch_over_dp:
+            entries[1] = dp
+        if nd >= 4 and tp_ax:
+            name = path[-1] if path else ""
+            entries[-1 if name.endswith("_scale") else -2] = tp_ax
+        return dctx.pspec_for(mesh, shape, *entries)
+
+    return rebuild(caches, (leaf(p, s) for p, s in leaves(caches)))
+
+
+class TensorSharding:
+    """A spec on a mesh (the reference's ``NamedSharding``): ``spec`` has
+    one entry per dim, as the factories above make them."""
+
+    def __init__(self, mesh, spec: Tuple):
+        self.mesh = mesh
+        self.spec = tuple(spec)
+
+    def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The shape of one rank's shard of a leaf of ``shape``: each dim
+        divided by the ranks of its entry's axes (it must divide)."""
+        shape = tuple(int(d) for d in shape)
+        if len(self.spec) > len(shape):
+            raise ValueError(f"spec {self.spec} for shape {shape}")
+        out = []
+        for d, entry in zip(shape, self.spec + (None,) * (len(shape)
+                                                          - len(self.spec))):
+            n = 1 if entry is None else self.mesh.axis_size(entry)
+            if d % n:
+                raise ValueError(f"dim {d} of {shape} does not split over "
+                                 f"{entry} = {n}")
+            out.append(d // n)
+        return tuple(out)
+
+    def __repr__(self) -> str:
+        return f"TensorSharding({self.spec})"
+
+
+def tree_shardings(spec_tree, mesh):
+    """Spec tree -> :class:`TensorSharding` tree on ``mesh``."""
+    return rebuild(spec_tree, (TensorSharding(mesh, sp)
+                               for _, sp in leaves(spec_tree)))
+
+
 def _at(tree, path):
     for k in path:
         tree = tree[k]
@@ -143,12 +207,13 @@ def replica_slices(n_replicas: int, devices: Sequence):
     """Disjoint contiguous slices of ``devices`` for a data-parallel
     replica fleet.
 
-    The serving router gives each replica its own slice; contiguity keeps
-    each replica's model-parallel neighbours together, as
-    ``ElasticMesh.make`` lays a world out.  ``n_replicas`` must divide the
-    count: a ragged fleet would hand replicas unequal capacity.  Any
-    sequence splits (the reference's default, every device of the
-    process, has no counterpart in a world of processes)."""
+    The serving router over ranks gives each replica its own slice of the
+    world's ranks (its own sub-mesh); contiguity keeps each replica's
+    model-parallel neighbours together, as ``ElasticMesh.make`` lays
+    ranks out.  ``n_replicas`` must divide the count: a ragged fleet would
+    hand replicas unequal capacity.  Any sequence splits (the reference's
+    default, every device of the process, has no counterpart in a world
+    of processes)."""
     devices = list(devices)
     n = len(devices)
     if n_replicas < 1 or n % n_replicas:

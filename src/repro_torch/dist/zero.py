@@ -28,12 +28,10 @@ layer's view), so no gathered leaf outlives the step that read it.
 from __future__ import annotations
 
 import math
-import time
 from collections.abc import Mapping
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.dist import context as dctx
 from repro_torch.tree import leaves, rebuild
@@ -215,31 +213,9 @@ class Gathered(Mapping):
 # the MoE's expert gathers and the expert-parallel collectives
 # --------------------------------------------------------------------------
 
-def _all_to_all(chunks: List[torch.Tensor], axes, mesh) -> List[torch.Tensor]:
-    """``chunks[j]`` to rank ``j`` of this rank's slice along ``axes``;
-    returns what each rank of the slice sent here, in slice order.  Staged
-    through the backend's device (the host for gloo)."""
-    g = mesh.group(axes)
-    if g is None:
-        return chunks
-    t0 = time.perf_counter()
-    dev = chunks[0].device
-    send = [c.contiguous().to(mesh.comm_device) for c in chunks]
-    recv = [torch.empty_like(c) for c in send]
-    key = mesh._key(axes)
-    ranks = next(r for r in mesh._slices(key) if mesh.rank in r)
-    # one scatter per source rank: gloo has no all-to-all on every build
-    for j, src in enumerate(ranks):
-        dist.scatter(recv[j], send if src == mesh.rank else None, src=src,
-                     group=g)
-    dctx._tally("all_to_all", sum(c.numel() * c.element_size()
-                                  for c in send), t0)
-    return [r.to(dev) for r in recv]
-
-
 def _a2a_split_concat(t, split_dim: int, cat_dim: int, axes, mesh):
     parts = list(t.chunk(mesh.axis_size(axes), dim=split_dim))
-    return torch.cat(_all_to_all(parts, axes, mesh), dim=cat_dim)
+    return torch.cat(dctx.all_to_all(parts, axes, mesh), dim=cat_dim)
 
 
 class _GatherExperts(torch.autograd.Function):

@@ -5,8 +5,12 @@ Replaces the Pallas TPU kernel ``repro/kernels/quant_matmul/
 quant_matmul.py::quant_matmul_int``.  The kernel is ``csrc/quant_matmul.cu``
 (its source note gives the bound and the design).  :func:`quant_matmul_int`
 runs :func:`quant_matmul_int_ref` for CPU tensors and launches the kernel
-for CUDA tensors; ``quant_matmul_int.launches`` counts the launches.
-:func:`plan` is the kernel's tiling arithmetic: the grid, the K split, the
+for CUDA tensors; ``quant_matmul_int.launches`` counts the launches.  The
+call goes through one PyTorch operator, ``repro_torch::quant_matmul_int``,
+with a fake (shape-only) version and a FLOP formula of ``2 M K N``: so
+``torch.utils.flop_counter.FlopCounterMode`` counts the kernel's
+operations on the card as on fake tensors (the dry run,
+``launch.dryrun``).  :func:`plan` is the kernel's tiling arithmetic: the grid, the K split, the
 workspace and the arrival counters, all chosen here and passed to the C
 entry point.
 """
@@ -17,6 +21,7 @@ import dataclasses
 from typing import Dict, List, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 __all__ = ["Plan", "plan", "quant_matmul_int", "quant_matmul_int_ref"]
 
@@ -140,17 +145,42 @@ def quant_matmul_int(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"expected int8 operands, got {x.dtype}, {w.dtype}")
     if x.device != w.device:
         raise ValueError(f"operands on {x.device} and {w.device}")
-    if x.device.type == "cpu":
-        return quant_matmul_int_ref(x, w)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    if not (x.is_contiguous() and w.is_contiguous()):
+    if x.device.type == "cuda" and not (x.is_contiguous()
+                                        and w.is_contiguous()):
         raise ValueError("quant_matmul_int needs contiguous operands")
+    return _op(x, w)
+
+
+def _launch_checked(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     m, k = x.shape
     n = w.shape[1]
     if m == 0 or n == 0:
         return torch.empty((m, n), dtype=torch.int32, device=x.device)
     return _launch(x, w, plan(m, k, n))
+
+
+# the operator: the plain version on the CPU, the kernel on the card, a
+# shape-only version for fake tensors (a Library, not custom_op, whose
+# Python layer adds to every call; chip_smoke.py times the operator's
+# host cost against a direct launch)
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("quant_matmul_int(Tensor x, Tensor w) -> Tensor")
+_LIB.impl("quant_matmul_int", quant_matmul_int_ref, "CPU")
+_LIB.impl("quant_matmul_int", _launch_checked, "CUDA")
+_op = torch.ops.repro_torch.quant_matmul_int.default
+
+
+@torch.library.register_fake("repro_torch::quant_matmul_int", lib=_LIB)
+def _op_fake(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x.new_empty((x.shape[0], w.shape[1]), dtype=torch.int32)
+
+
+@register_flop_formula(torch.ops.repro_torch.quant_matmul_int)
+def _op_flops(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    """One multiply and one add per term: ``2 M K N`` integer ops."""
+    return 2 * x_shape[0] * x_shape[1] * w_shape[1]
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, p: Plan) -> torch.Tensor:

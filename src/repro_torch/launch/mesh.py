@@ -1,8 +1,11 @@
 """Meshes over a ``torch.distributed`` world, and a helper that starts one.
 
 :func:`make_mesh` and :func:`make_host_mesh` lay a named grid over the
-ranks of the initialised default group (importing this module touches no
-process group).  :func:`spawn` starts ``world`` processes, each with its
+ranks of the initialised default group, or over listed ranks of it
+(importing this module touches no process group).
+:func:`make_production_mesh` is the reference's 16x16 / 2x16x16 mesh as
+a ``dist.context.VirtualMesh``: one rank of it, with no process, for the
+dry run.  :func:`spawn` starts ``world`` processes, each with its
 own rank of a gloo group and the mesh over them, runs one function on
 every rank and returns each rank's result; the tests and ``chip_smoke.py``
 run their multi-rank cases through it.  A served or trained run under
@@ -23,16 +26,36 @@ from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 
-from repro_torch.dist.context import Mesh
+from repro_torch.dist.context import Mesh, VirtualMesh
 
-__all__ = ["make_mesh", "make_host_mesh", "spawn"]
+__all__ = ["make_mesh", "make_host_mesh", "make_local_mesh",
+           "make_production_mesh", "spawn"]
 
 
-def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
-    """A mesh of ``shape`` named ``axes`` over the initialised world,
-    rank-major (the last axis varies fastest).  Every rank calls it, in
-    the same order as every other mesh it makes."""
-    return Mesh(shape, axes)
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              ranks: Optional[Sequence[int]] = None) -> Mesh:
+    """A mesh of ``shape`` named ``axes`` over the initialised world, or
+    over the world ranks ``ranks``, rank-major (the last axis varies
+    fastest).  Every rank of the world calls it, in the same order as
+    every other mesh it makes, whether or not it is in ``ranks``."""
+    return Mesh(shape, axes, ranks)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         rank: int = 0) -> VirtualMesh:
+    """The reference's production mesh, 16x16 = 256 ranks (2x16x16 = 512
+    for the multi-pod pass), as one rank of a virtual mesh: the dry run
+    runs that rank's step with no process group."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return VirtualMesh(shape, axes, rank)
+
+
+def make_local_mesh() -> Mesh:
+    """Every rank of the initialised world, as a (data, model=1) mesh."""
+    import torch.distributed as dist
+
+    return make_mesh((dist.get_world_size(), 1), ("data", "model"))
 
 
 def make_host_mesh(model: int = 2) -> Mesh:

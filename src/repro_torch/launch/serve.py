@@ -45,9 +45,12 @@ global queue and it respawns; migrated requests restart from their
 prompt, so the tokens are those of an undisturbed run.  The trace starts
 at 0 on the fleet clock (a round costs its slowest replica), and the
 ``[router]`` line echoes the policy, per-replica tok/s, rebalanced
-requests and restarts.  A fleet builds no mesh, as in the reference; a
-replica with its own model axis (``--model-parallel`` above 1) waits
-for the router over ranks and is refused (ROADMAP.md, item D3).
+requests and restarts.  Without a process group a fleet builds no mesh:
+every replica runs in this process.  Under ``torchrun`` (``WORLD_SIZE``
+above 1) the fleet runs over the world's ranks: each replica takes
+``world / N`` contiguous ranks as its own mesh, with ``--model-parallel``
+ranks on its ``"model"`` axis (``quant_tp`` tiles over them), and world
+rank 0 dispatches.
 ``--autotune`` switches the ``repro_torch.pim.autotune`` planner on: under
 ``pim_sim`` the scheduler's warmup plans every linear shape at the decode
 batch bucket (partition model x crossbar geometry x chunking, scored by
@@ -83,6 +86,11 @@ kernels' plain versions, where ``--smoke`` keeps the model small.
     PYTHONPATH=src python -m repro_torch.launch.serve --pim-mode quant \\
         --batch 2 --requests 8 --prompt-lens 16,32 --max-new-tokens 8 \\
         --paged --replicas 2 --router-policy least_loaded --kill-replica 0:2
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --pim-mode quant_tp --replicas 2 --model-parallel 2 --batch 4 \\
+        --requests 8 --prompt-lens 16,32,48,64 --max-new-tokens 16 \\
+        --paged --kill-replica 0:2
 """
 from __future__ import annotations
 
@@ -101,7 +109,7 @@ from repro_torch.pim import autotune, engine
 from repro_torch.runtime.fault_tolerance import ElasticMesh
 from repro_torch.serving import (FailurePlan, Router, RouterConfig, Scheduler,
                                  ServingConfig, synthetic_requests)
-from repro_torch.serving.router import _D3, ROUTER_POLICIES
+from repro_torch.serving.router import ROUTER_POLICIES
 
 
 def serve_trace(params, cfg, requests, *, max_batch: int, prompt_bucket: int,
@@ -143,8 +151,10 @@ def serve_fleet(params, cfg, requests, *, scfg: ServingConfig,
                 device="cuda"):
     """Run a trace through the multi-replica router on the fleet clock;
     returns (results, summary).  Request arrival times must be on the
-    fleet clock (start at 0), not ``time.monotonic``.  ``devices`` must be
-    None (every replica on ``device``; ROADMAP.md, item D3)."""
+    fleet clock (start at 0), not ``time.monotonic``.  ``devices``: None
+    (every replica in this process on ``device``) or world ranks (the
+    fleet over ranks; every rank calls this).  ``decode_traces`` counts
+    this rank's live schedulers."""
     router = Router(params, cfg, scfg, rcfg, devices=devices,
                     failure_plan=failure_plan, device=device)
     for req in requests:
@@ -152,7 +162,8 @@ def serve_fleet(params, cfg, requests, *, scfg: ServingConfig,
     results = router.run()
     summary = router.metrics().summary()
     summary["decode_traces"] = sum(
-        r.sched.decode_traces for r in router.replicas if r.alive)
+        r.sched.decode_traces for r in router.replicas
+        if r.alive and r.sched is not None)
     return results, summary
 
 
@@ -243,20 +254,36 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.replicas > 1 and args.model_parallel > 1:
-        # the router refuses a per-replica model axis (D3): before the
-        # weights are drawn
-        raise NotImplementedError(_D3)
-
-    mesh = _mesh_from_env(args) if args.replicas <= 1 else None
+    fleet_ranks = _fleet_ranks(args)
+    mesh = (_mesh_from_env(args) if args.replicas <= 1 else None)
     device = resolve_device(args.device)
-    if mesh is not None and device.type == "cuda":
+    if (mesh is not None or fleet_ranks) and device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
                               % torch.cuda.device_count())
         torch.cuda.set_device(device)
     with dctx.use_mesh(mesh) if mesh is not None else \
             contextlib.nullcontext():
-        return _serve(args, mesh, device)
+        return _serve(args, mesh, device, fleet_ranks)
+
+
+def _fleet_ranks(args):
+    """The world's ranks for a fleet over ranks (``--replicas`` above 1
+    under ``torchrun``), or None: a fleet in this process."""
+    if args.replicas <= 1:
+        return None
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        if args.model_parallel > 1:
+            raise ValueError(
+                "--model-parallel above 1 with --replicas gives each "
+                "replica a model axis over its own ranks: run under "
+                "torchrun with --nproc-per-node replicas x model-parallel")
+        return None
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        # gloo: ranks may share one card, which NCCL refuses
+        dist.init_process_group("gloo")
+    return list(range(dist.get_world_size()))
 
 
 def _mesh_from_env(args):
@@ -277,6 +304,12 @@ def _mesh_from_env(args):
     return mesh
 
 
+def _world_rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank()
+
+
 def _start_time(mesh) -> float:
     """The trace's start on the scheduler's clock: rank 0's, under a mesh
     (the scheduler reads rank 0's clock there)."""
@@ -285,9 +318,11 @@ def _start_time(mesh) -> float:
     return dctx.broadcast_float(time.monotonic(), mesh)
 
 
-def _serve(args, mesh, device):
+def _serve(args, mesh, device, fleet_ranks=None):
     # rank 0 prints; every rank serves
-    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
+    rank0 = ((mesh is None or mesh.rank == 0) and
+             (fleet_ranks is None or _world_rank() == 0))
+    say = print if rank0 else (lambda *a: None)
     # reload persisted tuner picks before any scheduler warms up: warmup
     # then *hits* the table (counted in [autotune]) instead of re-searching
     if args.autotune_table and os.path.exists(args.autotune_table):
@@ -336,7 +371,7 @@ def _serve(args, mesh, device):
             rcfg=RouterConfig(n_replicas=args.replicas,
                               policy=args.router_policy,
                               model_parallel=args.model_parallel),
-            failure_plan=plan, device=device)
+            devices=fleet_ranks, failure_plan=plan, device=device)
     else:
         results, summary = serve_trace(
             params, cfg, requests, max_batch=args.batch,
@@ -407,13 +442,16 @@ def _serve(args, mesh, device):
             + ", ".join(f"{c.model} {c.trial_us:.1f} us" for c in p.race))
     if args.autotune or args.autotune_table:
         say(f"[autotune] {autotune.summary()}")
-    if args.autotune_table and (mesh is None or mesh.rank == 0):
+    if args.autotune_table and rank0:
         n = autotune.save_table(args.autotune_table)
         say(f"[autotune] saved {n} plan(s) to {args.autotune_table}")
     if args.pim_mode == "quant_tp":
         from repro_torch.kernels.quant_matmul.tp import tile_summary
 
         r = mesh.shape.get("model", 1) if mesh is not None else 1
+        if fleet_ranks:
+            r = ElasticMesh(args.model_parallel).shape(
+                len(fleet_ranks) // args.replicas)[2]
         if r > 1:
             for line in tile_summary(cfg, r):
                 say(f"[tp] {line} x{r} ranks")

@@ -134,7 +134,10 @@ def train_step(params, opt_state, batch, cfg, ocfg: AdamWConfig,
     ps = [p.requires_grad_(True) for _, p in leaves(params)]
     loss = (M.loss_fn(params, batch, cfg) if sharding is None
             else _sharded_loss(params, batch, cfg, sharding))
-    grads = rebuild(params, torch.autograd.grad(loss, ps))
+    # a leaf the loss never reads (arctic's norm2: its "ar" block norms
+    # once for the MoE and the dense MLP) gets zeros, as jax.grad gives
+    grads = rebuild(params, torch.autograd.grad(loss, ps,
+                                                materialize_grads=True))
     params, opt_state, metrics = apply_updates(
         ocfg, params, grads, opt_state,
         *(() if sharding is None else (sharding.params, sharding.mesh)))

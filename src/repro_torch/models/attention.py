@@ -131,11 +131,13 @@ def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
 
 
 def decode_attention(q, k_cache, v_cache, cache_len=None, *,
+                     window: Optional[int] = None,
                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode-step attention: q (B, Sq, H, D) over cache (B, S, Hkv, D).
 
     The key mask comes from ``cache_len`` (prefix semantics: indices below
-    it are live; a scalar, or (B, 1) per slot)
+    it are live; a scalar, or (B, 1) per slot; with ``window`` only the
+    last ``window`` of them, the reference's clip)
     or, for non-contiguous cache layouts, from an explicit ``valid`` (B, S)
     boolean mask — the paged pool's gather path computes per-logical-index
     validity (unallocated sentinel blocks) that a prefix length can't
@@ -153,6 +155,8 @@ def decode_attention(q, k_cache, v_cache, cache_len=None, *,
     else:
         pos = torch.arange(s, device=q.device)
         mask = pos[None, :] < cache_len
+        if window is not None:
+            mask = mask & (pos[None, :] > cache_len - 1 - window)
     if mask.dim() == 3:          # per-query validity (B, Sq, S)
         mask5 = mask[:, None, None, :, :]
     else:

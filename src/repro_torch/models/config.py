@@ -23,7 +23,25 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "SHAPES", "ShapeSpec"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell (the dry run's and the roofline's)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("train_4k", 4_096, 256, "train"),
+    ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    ShapeSpec("long_500k", 524_288, 1, "decode"),
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +170,16 @@ class ModelConfig:
         if self.sliding_window:
             return True
         return self.has_recurrent_blocks
+
+    def runnable(self, shape: ShapeSpec) -> Tuple[bool, str]:
+        """Whether an assigned (arch x shape) cell runs, and why not if
+        not."""
+        if shape.name == "long_500k" and not self.sub_quadratic:
+            return False, ("pure full attention: 500k decode needs "
+                           "sub-quadratic")
+        if shape.name == "long_500k" and self.is_encoder_decoder:
+            return False, "enc-dec full attention (and out of domain at 500k)"
+        return True, ""
 
     def scaled(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,6 +1,9 @@
 """Primitive layers: norms, rotary embeddings, activations, linears, embed.
 
-Parameters are plain nested dicts of tensors.
+Parameters are plain nested dicts of tensors.  Their specs are
+:class:`Spec` leaves (shape, dtype, init kind, scale): :func:`materialize`
+draws real parameters from a spec tree, :func:`as_shapes` strips it to
+``(shape, dtype)`` leaves (what the dry run lays out without allocating).
 
 :func:`linear` is the paper integration point.  How it lowers is selected
 through ``repro_torch.pim.engine`` — there is no process-wide global:
@@ -22,12 +25,98 @@ the ambient context.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import dataclasses
+import math
+from typing import Any, Dict, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.tree import leaves, rebuild
+
 Params = Dict[str, Any]
+
+
+# --------------------------------------------------------------------------
+# spec / init plumbing
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """One parameter's spec: shape, dtype and init kind — ``"normal"``
+    (std ``scale / sqrt(fan_in)``), ``"zeros"``, ``"ones"`` or ``"alog"``
+    (``log(1..d_state)`` along the last dim) — as the reference's
+    ``layers.Spec``.  It unpacks and indexes as ``(shape, dtype, init,
+    scale)``."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    init: str = "normal"
+    scale: float = 1.0
+
+    def __iter__(self) -> Iterator:
+        return iter((self.shape, self.dtype, self.init, self.scale))
+
+    def __getitem__(self, i):
+        return tuple(self)[i]
+
+
+def _leaf_generator(seed: int, i: int, dev) -> torch.Generator:
+    """The generator of random leaf ``i``: seeded from
+    ``numpy.random.SeedSequence([seed, i])``, on ``dev``."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(np.random.SeedSequence([seed, i]).generate_state(
+        1, np.uint64)[0]))
+    return g
+
+
+def draw_specs(specs, seed: int = 0, device="cuda"):
+    """``(path, tensor)`` of every leaf of the spec tree ``specs``, drawn
+    one after another on ``device`` in sorted-path order, random leaf
+    ``i`` by ``normal_`` straight into its dtype from
+    :func:`_leaf_generator` ``(seed, i)``; each leaf is dropped here before
+    the next is drawn."""
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    i = 0
+    for path, (shape, dt, init, scale) in leaves(specs):
+        if init == "zeros":
+            t = torch.zeros(shape, dtype=dt, device=dev)
+        elif init == "ones":
+            t = torch.ones(shape, dtype=dt, device=dev)
+        elif init == "alog":
+            # S4/Mamba A = -(1..d_state) per channel: d_state values
+            row = np.log(np.arange(1, shape[-1] + 1, dtype=np.float32))
+            t = torch.from_numpy(row).to(dev).expand(shape).to(dt)
+            t = t.contiguous()
+        else:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            t = torch.empty(shape, dtype=dt, device=dev).normal_(
+                0.0, scale / math.sqrt(max(1, fan_in)),
+                generator=_leaf_generator(seed, i, dev))
+            i += 1
+        yield path, t
+        del t  # the next leaf is drawn with this one gone
+
+
+def materialize(specs, seed: int = 0, device="cuda") -> Params:
+    """Instantiate a spec tree into real parameters on ``device``
+    (:func:`draw_specs`'s leaves, in the tree's nesting)."""
+    out: Params = {}
+    for path, t in draw_specs(specs, seed, device):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    return out
+
+
+def as_shapes(specs):
+    """Strip init metadata: ``(shape, dtype)`` leaves."""
+    return rebuild(specs, ((tuple(sp.shape), sp.dtype)
+                           for _, sp in leaves(specs)))
 
 
 # --------------------------------------------------------------------------

@@ -85,18 +85,15 @@ from repro_torch.device import resolve_device
 from repro_torch.dist.zero import Gathered
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (activation, apply_rope, embed_lookup,
-                                       linear, rms_norm, unembed)
+from repro_torch.models.layers import (Spec, activation, apply_rope,
+                                       embed_lookup, linear, materialize,
+                                       rms_norm, unembed)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import mamba_mixer
 from repro_torch.models.xlstm import mlstm_block, slstm_block
 from repro_torch.tree import leaves as _leaves
 
 Params = Dict[str, Any]
-# (shape, dtype, init kind, scale) — init is "normal" (std
-# scale/sqrt(fan_in)), "zeros", "ones" or "alog" (log(1..d_state) along the
-# last dim), as in the reference's ``layers.materialize``
-Spec = Tuple[Tuple[int, ...], torch.dtype, str, float]
 
 #: Attention-KV leaf names eligible for block paging.
 PAGED_KV_KEYS = ("k", "v", "k_scale", "v_scale")
@@ -149,7 +146,7 @@ def ring_slot_positions(last_pos, r, ring: int, window: int):
 # ==========================================================================
 
 def _spec(shape, dt, init: str = "normal", scale: float = 1.0) -> Spec:
-    return (tuple(shape), dt, init, scale)
+    return Spec(tuple(shape), dt, init, scale)
 
 
 def _attn_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
@@ -262,27 +259,31 @@ def _block_specs(kind: str, cfg: ModelConfig, dt) -> Dict[str, Spec]:
     return s
 
 
+def _stack_specs(specs: Dict[str, Spec], n: int) -> Dict[str, Spec]:
+    """Each block spec with a leading layer dim of ``n``."""
+    return {k: Spec((n,) + tuple(v.shape), v.dtype, v.init, v.scale)
+            for k, v in specs.items()}
+
+
 def param_specs(cfg: ModelConfig) -> Params:
-    """The parameter tree as ``(shape, dtype, init, scale)`` leaves."""
+    """The parameter tree as :class:`layers.Spec` leaves (shape, dtype,
+    init kind, scale), the reference's tree leaf for leaf."""
     _check_supported(cfg)
     dt = cfg.compute_dtype
     v, d = cfg.padded_vocab, cfg.d_model
-
-    def stacked(kind, n):
-        return {k: ((n,) + shp, t, init, scale) for k, (shp, t, init, scale)
-                in _block_specs(kind, cfg, dt).items()}
-
     out: Params = {
         "embed": _spec((v, d), dt),
         "final_norm": _spec((d,), torch.float32, "ones"),
-        "blocks": {str(i): stacked(kind, cfg.n_super)
+        "blocks": {str(i): _stack_specs(_block_specs(kind, cfg, dt),
+                                        cfg.n_super)
                    for i, kind in enumerate(cfg.pattern)},
     }
     if not cfg.tie_embeddings:
         out["lm_head"] = _spec((v, d), dt)
     if cfg.is_encoder_decoder:
         out["encoder"] = {
-            "blocks": {"0": stacked("enc", cfg.n_encoder_layers)},
+            "blocks": {"0": _stack_specs(_block_specs("enc", cfg, dt),
+                                         cfg.n_encoder_layers)},
             "enc_norm": _spec((d,), torch.float32, "ones"),
         }
     if cfg.vision_dim:
@@ -296,59 +297,30 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
-def _leaf_generator(seed: int, i: int, dev) -> torch.Generator:
-    """The generator of random leaf ``i``: seeded from
-    ``numpy.random.SeedSequence([seed, i])``, on ``dev``."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(int(np.random.SeedSequence([seed, i]).generate_state(
-        1, np.uint64)[0]))
-    return g
-
-
 def draw_leaves(cfg: ModelConfig, seed: int = 0, device="cuda"):
     """``(path, leaf)`` of every parameter, drawn one after another on
     ``device`` as :func:`init_params` draws them, in sorted-path order: a
     caller that keeps only a shard of each leaf (the sharded trainer)
     holds one whole leaf at a time."""
-    dev = resolve_device(device)
-    i = 0
-    for path, (shape, dt, init, scale) in _leaves(param_specs(cfg)):
-        if init == "zeros":
-            t = torch.zeros(shape, dtype=dt, device=dev)
-        elif init == "ones":
-            t = torch.ones(shape, dtype=dt, device=dev)
-        elif init == "alog":
-            # S4/Mamba A = -(1..d_state) per channel: d_state values
-            row = np.log(np.arange(1, shape[-1] + 1, dtype=np.float32))
-            t = torch.from_numpy(row).to(dev).expand(shape).to(dt)
-            t = t.contiguous()
-        else:
-            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-            t = torch.empty(shape, dtype=dt, device=dev).normal_(
-                0.0, scale / math.sqrt(max(1, fan_in)),
-                generator=_leaf_generator(seed, i, dev))
-            i += 1
-        yield path, t
-        del t  # the next leaf is drawn with this one gone
+    from repro_torch.models.layers import draw_specs
+
+    return draw_specs(param_specs(cfg), seed, device)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
-    """Random parameters drawn on ``device`` (the reference's init rule:
-    normal leaves draw std ``scale/sqrt(fan_in)``, ``"alog"`` leaves hold
-    ``log(1..d_state)``).
+    """Random parameters drawn on ``device``: ``layers.materialize`` of
+    :func:`param_specs` (the reference's init rule: normal leaves draw std
+    ``scale/sqrt(fan_in)``, ``"alog"`` leaves hold ``log(1..d_state)``).
 
     Random leaf ``i``, in sorted-path order, is drawn by ``normal_``
-    straight into its dtype on ``device`` from its own generator
-    (:func:`_leaf_generator`): no host array and no float32 temporary is
-    made, so the draw needs only the model's own bytes.  The draw is deterministic for a given seed and
+    straight into its dtype on ``device`` from its own generator: no host
+    array and no float32 temporary is made, so the draw needs only the
+    model's own bytes.  The draw is deterministic for a given seed and
     device type (on a card, for a given card model), but the CPU and CUDA
     generators differ: one seed gives other weights on the CPU than on a
     card.  Parity with the reference goes through :func:`from_reference`,
     not through this draw."""
-    out: Params = {}
-    for path, t in draw_leaves(cfg, seed, device):
-        _set(out, path, t)
-    return out
+    return materialize(param_specs(cfg), seed, device)
 
 
 def _from_numpy(a: np.ndarray) -> torch.Tensor:

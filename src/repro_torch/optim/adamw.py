@@ -18,8 +18,10 @@ shards as it would on the whole leaves.  Given the spec tree and the
 mesh, :func:`global_norm` counts every element once (each rank's sum of
 squares, all-reduced over the axes its leaf is sharded on only, so a
 leaf replicated on ``"model"`` is not counted twice), and clipping scales
-every shard alike.  Factored moments reduce over whole rows and columns
-and are refused on a sharded tree.
+every shard alike.  Factored moments reduce over whole rows and columns:
+on a shard each mean is the rank's, averaged over the axes that shard
+the reduced dim (:func:`_whole_mean`, equal shards), so every rank holds
+its block of the whole leaf's statistics.
 """
 from __future__ import annotations
 
@@ -126,6 +128,19 @@ def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _whole_mean(x: torch.Tensor, entry, mesh) -> torch.Tensor:
+    """A mean over a dim sharded on ``entry`` (None: not sharded), from
+    this rank's mean over its shard of the dim: the ranks' means averaged
+    over ``entry``'s axes (the shards are equal)."""
+    if entry is None:
+        return x
+    from repro_torch.dist import context as dctx
+
+    t = dctx.all_reduce(x.to(mesh.comm_device, copy=True), entry, "sum",
+                        mesh)
+    return (t / mesh.axis_size(entry)).to(x.device)
+
+
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params, grads, state, specs=None,
                   mesh=None):
@@ -134,11 +149,6 @@ def apply_updates(cfg: AdamWConfig, params, grads, state, specs=None,
     Updates ``params`` and ``state`` in place; returns ``(params, state,
     {"lr", "grad_norm"})``.  ``specs`` and ``mesh``: the leaves are shards
     under those specs (see the module docstring)."""
-    if specs is not None and any(path[-1] == "vr" for path, _
-                                 in leaves(state["leaves"])):
-        raise NotImplementedError(
-            "factored second moments on a sharded tree: their row and "
-            "column means span shards")
     step = state["step"] + 1
     lr = cosine_schedule(cfg, step)
     gnorm = global_norm(grads, specs, mesh)
@@ -158,10 +168,14 @@ def apply_updates(cfg: AdamWConfig, params, grads, state, specs=None,
             st["v"].copy_(v)
         else:
             g2 = g * g + 1e-30
-            vr = cfg.b2 * st["vr"] + (1 - cfg.b2) * g2.mean(dim=-1)
-            vc = cfg.b2 * st["vc"] + (1 - cfg.b2) * g2.mean(dim=-2)
+            sp = _at(specs, path) if specs is not None else (None, None)
+            row = _whole_mean(g2.mean(dim=-1), sp[-1], mesh)
+            col = _whole_mean(g2.mean(dim=-2), sp[-2], mesh)
+            vr = cfg.b2 * st["vr"] + (1 - cfg.b2) * row
+            vc = cfg.b2 * st["vc"] + (1 - cfg.b2) * col
             # rank-1 reconstruction: v ~ vr vc / mean(vr)
-            mean_r = vr.mean(dim=-1, keepdim=True)
+            mean_r = _whole_mean(vr.mean(dim=-1, keepdim=True), sp[-2],
+                                 mesh)
             v_hat = (vr[..., None] * vc[..., None, :]
                      / torch.clamp(mean_r[..., None], min=1e-30))
             denom = torch.sqrt(v_hat / bc2) + cfg.eps

@@ -8,9 +8,9 @@
   the restart comes from the scheduler re-launching the job; the logic is
   the same because all state lives in (checkpoint, step).
 * :class:`ElasticMesh` — the largest valid (pod, data, model) mesh over
-  however many ranks the ``torch.distributed`` world has, shrinking the
-  model axis before the data axis (model shards must stay intact to
-  reshard checkpoints cheaply).
+  the world or a list of its ranks (a replica's slice, or its
+  survivors), shrinking the model axis before the data axis (model
+  shards must stay intact to reshard checkpoints cheaply).
 * :class:`StragglerMonitor` — EWMA step-time outlier detection.
 """
 from __future__ import annotations
@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import shutil
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 from repro_torch.checkpoint.checkpoint import (available_steps, latest_step,
                                                restore_checkpoint,
@@ -86,14 +86,16 @@ def run_with_restarts(worker: Callable[[Optional[int]], int],
 
 
 class ElasticMesh:
-    """Build the largest valid (pod, data, model) mesh over the world.
+    """Build the largest valid (pod, data, model) mesh over a list of
+    ranks.
 
-    The reference lays its mesh over a list of live devices.  A port mesh
-    (``dist.context.Mesh``) spans every rank of the initialised
-    ``torch.distributed`` world, so the world is the device list: a
-    restart at a smaller world builds the smaller mesh.  ``model_parallel``
-    halves until it divides the world, and ``pods`` falls back to 1 when
-    it does not divide the data-parallel count, as the reference's do."""
+    The reference lays its mesh over a list of live devices; a port mesh
+    (``dist.context.Mesh``) lies over world ranks of the initialised
+    ``torch.distributed`` world: all of them (``ranks=None``), or a
+    serving replica's slice, which shrinks to its survivors when ranks
+    are lost (``serving.router``).  ``model_parallel`` halves until it
+    divides the rank count, and ``pods`` falls back to 1 when it does not
+    divide the data-parallel count, as the reference's do."""
 
     def __init__(self, model_parallel: int, pods: int = 1):
         self.model_parallel = model_parallel
@@ -108,14 +110,19 @@ class ElasticMesh:
         pods = self.pods if dp_total % self.pods == 0 else 1
         return pods, dp_total // pods, tp
 
-    def make(self):
-        """The mesh over the initialised world (every rank calls it)."""
+    def make(self, ranks: Optional[Sequence[int]] = None):
+        """The mesh over ``ranks`` (default: the whole initialised world).
+        Every rank of the world calls it, in the same order."""
         import torch.distributed as dist
 
         from repro_torch.launch.mesh import make_mesh
 
-        return make_mesh(self.shape(dist.get_world_size()),
-                         ("pod", "data", "model"))
+        if ranks is None:
+            return make_mesh(self.shape(dist.get_world_size()),
+                             ("pod", "data", "model"))
+        ranks = list(ranks)
+        return make_mesh(self.shape(len(ranks)), ("pod", "data", "model"),
+                         ranks)
 
 
 @dataclasses.dataclass

@@ -148,6 +148,15 @@ class AdmissionQueue:
             return self._q[0]
         return min(self._q, key=lambda r: r.arrival_time)
 
+    def take(self, rid: int) -> Request:
+        """Remove and return the queued request ``rid`` (the router over
+        ranks pops what world rank 0 dispatched)."""
+        for i, r in enumerate(self._q):
+            if r.rid == rid:
+                del self._q[i]
+                return r
+        raise KeyError(f"request {rid} is not queued")
+
     def clear(self) -> List[Request]:
         """Remove and return every queued request (drain support)."""
         out = list(self._q)

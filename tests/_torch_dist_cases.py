@@ -285,12 +285,14 @@ def elastic_case(mesh, combos):
     return out
 
 
-def zero3_case(mesh, name, overrides, model_parallel, params_np, batches):
+def zero3_case(mesh, name, overrides, model_parallel, params_np, batches,
+               opt_kw=()):
     """The sharded trainer on one smoke config: the mesh of
     ``ElasticMesh(model_parallel)``, the reference's weights sharded under
     ``param_pspecs(..., fsdp=True)``, then one ``train_step`` per global
-    batch of ``batches``.  Returns the mesh, this rank's first shards, and
-    each step's loss, grad norm and gathered parameters."""
+    batch of ``batches`` (AdamW with ``opt_kw`` besides).  Returns the
+    mesh, this rank's first shards, and each step's loss, grad norm and
+    gathered parameters."""
     from repro_torch.dist import zero
     from repro_torch.dist.partitioning import opt_state_pspecs, param_pspecs
     from repro_torch.launch.train import Sharding, train_step
@@ -304,7 +306,8 @@ def zero3_case(mesh, name, overrides, model_parallel, params_np, batches):
     params = zero.shard_tree(whole, pspecs, m)
     del whole
     first = {k: v.clone().numpy() for k, v in _flat(params)}
-    ocfg = AdamWConfig(warmup_steps=1, total_steps=len(batches))
+    ocfg = AdamWConfig(warmup_steps=1, total_steps=len(batches),
+                       **dict(opt_kw))
     opt = init_state(ocfg, params)
     sharding = Sharding(m, pspecs, opt_state_pspecs(TM.param_specs(cfg),
                                                     pspecs, opt, m))
@@ -379,3 +382,98 @@ def moe_zero3_case(mesh, layer_np, x, cot):
     return dict(y=y.detach().numpy(), gathers=seen, specs=specs,
                 grads={k: g[0].numpy() for k, g in zip(names, grads)},
                 coords=mesh.coords)
+
+
+# ---------------------------------------------------------------------------
+# the router over ranks (tests/test_torch_router.py)
+# ---------------------------------------------------------------------------
+
+class FakeClock:
+    """Settable clock: router timing becomes exactly computable."""
+
+    def __init__(self, t: float = 0.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def fleet_case(mesh, params_np, overrides, trace_kw, scfg_kw, rcfg_kw,
+               plan_kw=None, kill_at=None, cli=False):
+    """A fleet of the smoke qwen over every rank of this world
+    (``Router(devices=range(world))``) on a fake clock, serving
+    ``synthetic_requests(**trace_kw)``.  ``plan_kw`` makes a
+    ``FailurePlan``; ``kill_at=(step, replica, lose)`` calls ``_kill``
+    on every rank after that many rounds instead.  Returns, in submission
+    order, each request's tokens, replica and migrations; each replica's
+    ranks before and after; the router's counters and summary fields."""
+    from repro_torch.serving import (FailurePlan, Router, RouterConfig,
+                                     synthetic_requests)
+    import torch.distributed as dist
+
+    cfg = _cfg("qwen1.5-0.5b", **overrides)
+    params = TM.from_reference(params_np, cfg, device="cpu")
+    plan = FailurePlan(**plan_kw) if plan_kw else None
+    router = Router(params, cfg, ServingConfig(**scfg_kw),
+                    RouterConfig(**rcfg_kw),
+                    devices=list(range(dist.get_world_size())),
+                    clock=FakeClock(1.0), failure_plan=plan, device="cpu")
+    before = [(list(r.ranks), dict(r.mesh.shape)) for r in router.replicas]
+    reqs = synthetic_requests(vocab_size=cfg.vocab_size, **trace_kw)
+    for r in reqs:
+        router.submit_request(r)
+    if kill_at is not None:
+        step, rep, lose = kill_at
+        for _ in range(step):
+            router.step()
+        router._kill(router.replicas[rep], lose_devices=lose)
+    res = router.run()
+    s = router.metrics().summary()
+    return dict(
+        tokens=[res[r.rid].tolist() for r in reqs],
+        replica_ids=[r.replica_id for r in reqs],
+        migrations=[r.n_migrations for r in reqs],
+        before=before,
+        after=[(list(r.ranks), dict(r.mesh.shape), r.alive)
+               for r in router.replicas],
+        member=[r.sched is not None for r in router.replicas],
+        restarts=router.replica_restarts,
+        rebalanced=router.rebalanced_requests, steps=router.step_count,
+        summary={k: s[k] for k in ("router_policy", "rebalanced_requests",
+                                   "replica_restarts", "n_finished",
+                                   "n_requests", "total_tokens",
+                                   "prefix_hit_rate")},
+        per_replica=sorted(s["per_replica_tok_s"]),
+        exchanges={k: dctx.counts[k]["calls"] for k in
+                   ("world_broadcast", "world_gather") if k in dctx.counts})
+
+
+def skip_group_case(mesh, params_np, skipper):
+    """Two replicas of two ranks each; replica 0 is killed and respawned
+    over the same ranks, but rank ``skipper`` (not in replica 0) builds
+    none of its new groups; then replica 1 is killed and respawned.
+    ``dist.new_group`` is collective over the world, so the skipper's
+    group count lags and replica 1's respawn waits forever: this case
+    must not return."""
+    from types import SimpleNamespace
+
+    from repro_torch.serving import Router, RouterConfig, router as rmod
+    import torch.distributed as dist
+
+    cfg = _cfg("qwen1.5-0.5b")
+    params = TM.from_reference(params_np, cfg, device="cpu")
+    router = Router(params, cfg, ServingConfig(max_batch=2, prompt_bucket=8),
+                    RouterConfig(n_replicas=2),
+                    devices=list(range(dist.get_world_size())),
+                    clock=FakeClock(1.0), device="cpu")
+    if dist.get_rank() == skipper:
+        def no_groups(self, ranks=None):
+            return SimpleNamespace(member=False, ranks=tuple(ranks),
+                                   shape={})
+
+        with mock.patch.object(rmod.ElasticMesh, "make", no_groups):
+            router._kill(router.replicas[0])
+    else:
+        router._kill(router.replicas[0])
+    router._kill(router.replicas[1])
+    return "respawned"

@@ -43,7 +43,9 @@ missing = sorted({{"repro_torch.pim.cost_model", "repro_torch.pim.autotune",
                   "repro_torch.kernels.quant_matmul.tp",
                   "repro_torch.launch.mesh",
                   "repro_torch.dist.zero",
-                  "repro_torch.serving.router"}}
+                  "repro_torch.serving.router",
+                  "repro_torch.launch.dryrun",
+                  "repro_torch.launch.roofline"}}
                  - set(names))
 print(len(names), bad, missing)
 """
@@ -58,7 +60,8 @@ def test_port_imports_without_jax_or_reference():
     n, bad, missing = out.stdout.strip().split(" ", 2)
     assert int(n) >= 38            # every module of the port was imported
     assert bad == "[]"
-    assert missing == "[]"         # the trainer and the configs among them
+    assert missing == "[]"         # the trainer, the configs and the
+    #                                dry-run and roofline tools among them
 
 
 def test_device_rule_is_explicit():

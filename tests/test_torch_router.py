@@ -1,10 +1,8 @@
 """``repro_torch.serving.router`` against ``repro.serving.router``: the
-mirror of tests/test_serving_router.py (all but
-``test_elastic_mesh_shrinks_on_device_loss``, a replica over a slice of
-several devices: ROADMAP.md, item D3), the mid-prefill kill of
+mirror of tests/test_serving_router.py, the mid-prefill kill of
 tests/test_serving_chunked.py and the mid-verify kill of
-tests/test_speculative.py, ``Scheduler.drain``, and the serve CLI's fleet
-and mesh.
+tests/test_speculative.py, ``Scheduler.drain``, the serve CLI's fleet
+and mesh, and the fleet over ranks.
 
 The reference's tests pass ``devices=jax.devices()[:2]``: one-device
 meshes, respawned on the same device.  The port's ``devices=None`` has
@@ -12,7 +10,10 @@ the same semantics (every replica its own scheduler and pool on the one
 device).  Every fleet's tokens are held bit for bit to the *reference's*
 single scheduler on the same trace and weights (``model.from_reference``;
 float32 smoke models, whose greedy tokens agree across the packages, see
-tests/test_torch_serving.py).  ``FleetClock`` arithmetic,
+tests/test_torch_serving.py).  The fleet over ranks runs in one spawn of
+four gloo ranks (``fleet_runs``; per-rank cases in
+tests/_torch_dist_cases.py): its replicas are sub-meshes of two ranks,
+and the reference's fleets it is held to run over ``jax.devices()[:4]``.  ``FleetClock`` arithmetic,
 ``RouterConfig``'s validation and the merged summary's router fields are
 compared with the reference's directly.  One ``pim_sim`` fleet is held
 to the reference's host interpreter; the other ``pim_sim`` case uses the
@@ -162,10 +163,16 @@ def test_requeue_front_keeps_arrival_and_order():
 
 
 def test_devices_raise_naming_d3(models):
+    """``devices`` are world ranks of an initialised ``torch.distributed``
+    world: without one they are refused, never ignored (the fleet over
+    ranks, formerly refused as ROADMAP item D3, is
+    ``test_fleet_over_ranks_option``)."""
     _, cfg_t, _, pt = models
-    with pytest.raises(NotImplementedError, match="D3"):
-        Router(pt, cfg_t, _scfg(), RouterConfig(), devices=["cpu", "cpu"],
+    with pytest.raises(RuntimeError, match="initialised torch.distributed"):
+        Router(pt, cfg_t, _scfg(), RouterConfig(), devices=[0, 1],
                device="cpu")
+    with pytest.raises(ValueError, match="model_parallel > 1"):
+        _router(models, RouterConfig(n_replicas=2, model_parallel=2))
 
 
 # --------------------------------------------------------------------------
@@ -313,25 +320,6 @@ def test_all_replicas_dead_raises(models):
     router.submit([1, 2, 3], 2)
     with pytest.raises(RuntimeError, match="all replicas dead"):
         router.run()
-
-
-@pytest.mark.parametrize("option", ["model_parallel", "lose_devices",
-                                    "kill", "cli"])
-def test_slice_options_raise_naming_d3(models, option):
-    """A per-replica model axis and devices that die with a replica need a
-    device slice per replica (D3): they are refused, never ignored."""
-    with pytest.raises(NotImplementedError, match="D3"):
-        if option == "model_parallel":
-            _router(models, RouterConfig(n_replicas=2, model_parallel=2))
-        elif option == "lose_devices":
-            _router(models, RouterConfig(n_replicas=2),
-                    failure_plan=FailurePlan(kill_replica=0, at_step=2,
-                                             lose_devices=1))
-        elif option == "kill":
-            router = _router(models, RouterConfig(n_replicas=2))
-            router._kill(router.replicas[0], lose_devices=1)
-        else:
-            serve_cli.main(CLI + ["--replicas", "2", "--model-parallel", "2"])
 
 
 def test_straggler_strikes_kill_and_respawn(models, oracle):
@@ -685,3 +673,188 @@ def test_serve_cli_world3_model_parallel2_degrades_to_data3():
         [want[k].tolist() for k in sorted(want)]
     for r in ranks[1:]:
         assert r[0][0] == res and r[0][1] == ""
+
+
+# --------------------------------------------------------------------------
+# the fleet over ranks: four spawned gloo ranks, two replicas of two
+# --------------------------------------------------------------------------
+
+WORLD = 4
+FLEET_TIMEOUT_S = 240.0
+TRACE = dict(n=N_REQ, prompt_lens=[5, 7], max_new_tokens=GEN, seed=11)
+PREFIX_TRACE = dict(n=12, prompt_lens=[4], max_new_tokens=3, seed=9,
+                    shared_prefix_len=16, n_tenants=3)
+PREFIX_KW = dict(max_batch=2, prompt_bucket=8, paged=True, block_size=8,
+                 prefix_cache=True)
+RR = dict(n_replicas=2, policy="round_robin")
+LOSE0 = dict(kill_replica=0, at_step=2, lose_devices=1)
+QUANT_TP = dict(pim_mode="quant_tp")
+
+# name -> (case, args after the params); fleet_case's are (overrides,
+# trace, ServingConfig, RouterConfig, FailurePlan, kill_at)
+FLEET_JOBS = {
+    "elastic": (RR, None, None),
+    "model_parallel": (dict(RR, model_parallel=2), None, None),
+    "lose_devices": (dict(RR, model_parallel=2), LOSE0, None),
+    "kill": (RR, None, (2, 0, 1)),
+    "least_loaded": (dict(n_replicas=2, policy="least_loaded"),
+                     dict(kill_replica=1, at_step=2), None),
+    "prefix_affinity": (dict(n_replicas=2, policy="prefix_affinity"), None,
+                        None),
+}
+FLEET_CLI = CLI + ["--pim-mode", "quant_tp", "--replicas", "2",
+                   "--model-parallel", "2", "--router-policy",
+                   "round_robin", "--kill-replica", "0:2"]
+
+
+def _fleet_job(name):
+    rcfg, plan, kill = FLEET_JOBS[name]
+    over = QUANT_TP if name in ("model_parallel", "lose_devices") else {}
+    if name == "elastic":
+        plan = LOSE0
+    if name == "prefix_affinity":
+        return (over, PREFIX_TRACE, PREFIX_KW, rcfg, plan, kill)
+    return (over, TRACE, dict(max_batch=2, prompt_bucket=8), rcfg, plan,
+            kill)
+
+
+@pytest.fixture(scope="module")
+def fleet_runs(models):
+    """Every fleet-over-ranks case in one spawn of four ranks: name ->
+    each rank's result."""
+    pr = models[2]
+    params_np = jax.tree.map(np.asarray, pr)
+    jobs = [("fleet_case", (params_np,) + _fleet_job(n)) for n in FLEET_JOBS]
+    jobs.append(("cli_case", ("serve", FLEET_CLI)))
+    ranks = spawn(C.run_jobs, WORLD, jobs, timeout_s=FLEET_TIMEOUT_S)
+    names = list(FLEET_JOBS) + ["cli"]
+    return {n: [r[i] for r in ranks] for i, n in enumerate(names)}
+
+
+@pytest.fixture(scope="module")
+def quant_oracle(models):
+    """The reference's single scheduler in ``quant`` on _trace: the oracle
+    of the ``quant_tp`` fleets (``quant_tp`` tiles are exact, and a
+    replica shrunk to one rank runs ``quant``)."""
+    cfg_r, _, pr, _ = models
+    reqs = _trace(R.synthetic_requests, cfg_r)
+    sched = R.Scheduler(pr, cfg_r.scaled(pim_mode="quant"),
+                        R.ServingConfig(max_batch=4, prompt_bucket=8))
+    for r in reqs:
+        sched.submit_request(r)
+    out = sched.run()
+    return [out[r.rid].tolist() for r in reqs]
+
+
+def _same_on_every_rank(runs):
+    for r in runs[1:]:
+        assert r == runs[0]
+    return runs[0]
+
+
+def _tokens(oracle):
+    return [np.asarray(t).tolist() for t in oracle]
+
+
+def test_elastic_mesh_shrinks_on_device_loss(fleet_runs, oracle):
+    """The mirror of tests/test_serving_router.py's: replica 0's sub-mesh
+    is re-derived over its surviving rank mid-serve and the trace still
+    completes exactly, on every rank."""
+    runs = fleet_runs["elastic"]
+    for rank, run in enumerate(runs):
+        assert run["before"][0][0] == [0, 1]            # two ranks
+        assert run["before"][0][1] == {"pod": 1, "data": 2, "model": 1}
+        ranks, shape, alive = run["after"][0]
+        assert ranks == [1] and alive                  # shrank to one
+        assert shape == {"pod": 1, "data": 1, "model": 1}
+        assert run["restarts"] == 1 and run["rebalanced"] > 0
+        # rank 0 was lost: it holds no scheduler of replica 0 any more
+        assert run["member"] == [rank == 1, rank >= 2]
+    run = _same_on_every_rank([{k: v for k, v in r.items()
+                                if k not in ("member", "exchanges")}
+                               for r in runs])
+    assert run["tokens"] == _tokens(oracle)
+    assert run["summary"]["n_finished"] == N_REQ
+
+
+@pytest.mark.parametrize("option", ["model_parallel", "lose_devices",
+                                    "kill", "cli"])
+def test_fleet_over_ranks_option(fleet_runs, oracle, quant_oracle, option):
+    """A per-replica model axis, ranks that die with a replica (by plan
+    and by a direct ``_kill``) and the serve CLI's ``--replicas 2
+    --model-parallel 2`` under a world of four: the tokens are the
+    reference single scheduler's (``quant`` for the ``quant_tp``
+    fleets)."""
+    if option == "cli":
+        got = _same_on_every_rank([r[0] for r in fleet_runs["cli"]])
+        out = fleet_runs["cli"][0][1]
+        assert "[router] round_robin over 2 replicas" in out
+        assert "1 restarts" in out
+        want = serve_cli.main(CLI)
+        assert [got[k] for k in sorted(got, key=int)] == \
+            [want[k].tolist() for k in sorted(want)]
+        return
+    run = _same_on_every_rank([{k: v for k, v in r.items() if k != "member"}
+                               for r in fleet_runs[option]])
+    want = quant_oracle if option in ("model_parallel", "lose_devices") \
+        else _tokens(oracle)
+    assert run["tokens"] == want
+    tp = {"pod": 1, "data": 1, "model": 2}
+    if option == "model_parallel":
+        assert [b[1] for b in run["before"]] == [tp, tp]
+        assert run["restarts"] == 0
+    elif option == "lose_devices":
+        assert run["before"][0] == ([0, 1], tp)
+        assert run["after"][0] == ([1], {"pod": 1, "data": 1, "model": 1},
+                                   True)
+        assert run["after"][1] == ([2, 3], tp, True)
+        assert run["restarts"] == 1
+    else:
+        assert run["after"][0][0] == [1] and run["restarts"] == 1
+    # two world exchanges a round (a kill adds two): rank 0's decisions
+    # and the replicas' reports
+    assert run["exchanges"]["world_gather"] >= run["steps"]
+
+
+@pytest.mark.parametrize("policy", ["least_loaded", "prefix_affinity"])
+def test_fleet_over_ranks_policy(fleet_runs, models, policy):
+    """The load signals cross processes: rank 0 dispatches from the
+    replicas' reports, and every request lands where the reference's
+    router over four devices puts it, with its tokens, migrations, round
+    count and summary (a kill of replica 1 under ``least_loaded``; the
+    prefix hit rate under ``prefix_affinity``)."""
+    cfg_r, _, pr, _ = models
+    run = _same_on_every_rank([{k: v for k, v in r.items()
+                                if k not in ("member", "exchanges")}
+                               for r in fleet_runs[policy]])
+    _, trace, scfg, rcfg, plan, _ = _fleet_job(policy)
+    rrouter = R.Router(pr, cfg_r, R.ServingConfig(**scfg),
+                       R.RouterConfig(**rcfg), devices=jax.devices()[:WORLD],
+                       clock=FakeClock(1.0),
+                       failure_plan=R.FailurePlan(**plan) if plan else None)
+    trace = dict(trace)
+    reqs = R.synthetic_requests(trace.pop("n"), vocab_size=cfg_r.vocab_size,
+                                **trace)
+    for r in reqs:
+        rrouter.submit_request(r)
+    res = rrouter.run()
+    s = rrouter.metrics().summary()
+    assert run["tokens"] == [res[r.rid].tolist() for r in reqs]
+    assert run["replica_ids"] == [r.replica_id for r in reqs]
+    assert run["migrations"] == [r.n_migrations for r in reqs]
+    assert run["steps"] == rrouter.step_count
+    assert run["per_replica"] == sorted(s["per_replica_tok_s"])
+    for k, v in run["summary"].items():
+        assert v == s[k] or (v != v and s[k] != s[k]), k
+    assert len(set(run["replica_ids"])) == 2
+
+
+def test_rank_that_skips_a_respawn_group_hangs(models):
+    """Every rank must build every replica's groups, even those it is not
+    in: a rank that skips replica 0's respawn groups makes the next
+    respawn wait forever, and the spawn's timeout turns the hang into a
+    failure."""
+    params_np = jax.tree.map(np.asarray, models[2])
+    with pytest.raises((TimeoutError, RuntimeError)) as err:
+        spawn(C.skip_group_case, WORLD, params_np, 3, timeout_s=15.0)
+    assert "respawned" not in str(err.value)

@@ -238,14 +238,14 @@ def _batches(cfg, n=STEPS):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_run(name, overrides, n, mp):
+def _reference_run(name, overrides, n, mp, opt_kw=()):
     """The reference's mesh branch as ``launch/train.py`` builds it:
     ``ElasticMesh(mp)`` over ``n`` devices, ZeRO-3 init under
     ``param_pspecs(fsdp=True)`` out-shardings, the AdamW state under
     ``opt_state_pspecs``, and ``STEPS`` jitted steps."""
     cfg = RC.get(name).smoke().scaled(**dict(overrides))
     mesh = RElastic(mp).make(jax.devices()[:n])
-    ocfg = RA.AdamWConfig(warmup_steps=1, total_steps=STEPS)
+    ocfg = RA.AdamWConfig(warmup_steps=1, total_steps=STEPS, **dict(opt_kw))
     pshapes = as_shapes(RM.param_specs(cfg))
     p_part = RP.param_pspecs(pshapes, mesh, fsdp=True)
     params = jax.jit(lambda k: RM.init_params(cfg, k),
@@ -282,11 +282,12 @@ def _reference_run(name, overrides, n, mp):
                 steps=out)
 
 
-def _check_zero3(name, overrides, n, mp):
-    ref = _reference_run(name, tuple(sorted(overrides.items())), n, mp)
+def _check_zero3(name, overrides, n, mp, opt_kw=()):
+    ref = _reference_run(name, tuple(sorted(overrides.items())), n, mp,
+                         opt_kw)
     tcfg = TC.get(name).smoke().scaled(**overrides)
     ranks = spawn(C.run_jobs, n, [("zero3_case", (
-        name, overrides, mp, ref["params"], _batches(tcfg)))],
+        name, overrides, mp, ref["params"], _batches(tcfg), opt_kw))],
         timeout_s=SPAWN_TIMEOUT_S)
     for rank in ranks:
         res = rank[0]
@@ -325,6 +326,17 @@ def test_qwen_world4_data2_model2_matches_reference():
     specs = ranks[0][0]["specs"].values()
     assert any("model" in s for s in specs) and any("data" in s
                                                     for s in specs)
+
+
+def test_qwen_world4_factored_adamw_matches_reference():
+    """Factored second moments on a ZeRO-3 tree at (data 2, model 2): each
+    row and column mean spans the shards of its dim, averaged over the
+    axes that shard it, and the steps equal the reference's."""
+    ranks = _check_zero3("qwen1.5-0.5b", {}, 4, 2,
+                         (("factored", True), ("factored_min_dim", 16)))
+    specs = ranks[0][0]["specs"].values()
+    assert any(len(s) >= 2 and s[-1] is not None for s in specs)
+    assert any(len(s) >= 2 and s[-2] is not None for s in specs)
 
 
 def test_granite_moe_fsdp_gather_matches_reference():
