@@ -130,14 +130,20 @@ generates with full-width, full-depth seamless-m4t-medium (12 encoder +
 12 decoder layers) and llama-3.2-vision-11b (40 layers, 1601 patches a
 request) through ``prefill`` and ``decode_step_slots`` (the reference's
 scheduler refuses both configs, and so does the port's): seamless in
-``quant`` and, twice, in ``pim_sim``, llama-vision in ``quant``; every
-step's logits and the tokens equal the plain GEMM's or the exact
-product's, the prefill and each decode step launch the mode's kernel
-once per linear (216 and 108; 312 and 296), the ``pim_sim`` runs upload
-no crossbar state after the first decode step and hold exactly their
-host arithmetic's resident bytes; then two ``quant`` train steps of
-seamless whose step 0 equals its oracle.  Every model's weights are
-drawn on the card.
+``quant`` and, twice, in ``pim_sim``, llama-vision in ``quant`` and, at
+one period of its pattern (5 layers, full width, 2 requests prefilled
+together), in ``pim_sim``; every step's logits and the tokens equal the
+plain GEMM's or the exact product's, the prefill and each decode step
+launch the mode's kernel once per linear (216 and 108; 312 and 296), or
+in ``pim_sim`` once per piece of a linear whose crossbars exceed the
+engine's launch budget (``pim_pieces``: llama-vision's xwk and xwv over
+3,202 patch rows split into 37 launches each), the ``pim_sim`` runs
+upload no crossbar state after the first decode step and hold exactly
+their host arithmetic's resident bytes, and llama-vision's ``pim_sim``
+peak stays under ``vision_pim_limit``; one xwk piece is timed and held
+to the per-gate and the grouped plain versions; then two ``quant`` train
+steps of seamless whose step 0 equals its oracle.  Every model's weights
+are drawn on the card.
 
 ``serve_tp`` runs ``quant_tp`` and the expert-parallel MoE block at model
 parallel 2: at world size 1 ``tp_quant_linear`` is ``quant_linear`` bit
@@ -180,13 +186,15 @@ printed against the measured busy and wall time.
 
 Last it trains full-width qwen1.5-0.5b on fresh weights from the same seed.  ``train_quant``: 4 steps of
 ``launch.train.train_step`` at batch 4, seq 128 (every linear on the GEMM
-kernel at M = 512); ``train_pim``: 1 step at batch 2, seq 32 (every linear
-on the crossbar kernel at M = 64, on transient state).  In both, every loss
+kernel at M = 512); ``train_pim``: 1 step at batch 2, seq 32 on
+``TRAIN_PIM_LAYERS`` of the 24 layers (every linear on the crossbar kernel
+at M = 64, on transient state).  In both, every loss
 and gradient norm must be finite, step 0's must equal those through the
 plain GEMM or the exact integer product, and each step must make one launch
-per linear in the forward and one more in remat's recompute; ``pim_sim``
-training must leave the resident crossbar state as it found it and stay
-below ``PIM_TRAIN_EXTRA_BYTES`` above its start.  The GEMM is timed at the
+per linear (or per piece, ``launches``) in the forward and one more in
+remat's recompute; ``pim_sim`` training must leave the resident crossbar
+state as it found it and stay below ``PIM_TRAIN_EXTRA_BYTES`` above its
+start.  The GEMM is timed at the
 train shapes beside ``torch._int_mm`` and its bound, one w_in crossbar
 launch at M = 64 beside its bound.  ``train_restart`` runs the crash and
 resume drill through the training CLI in subprocesses (2 layers at full
@@ -272,6 +280,9 @@ PIM_PEAK_BYTES = 16 << 30
 # the train phases: (batch, seq, steps) of train_quant and train_pim
 TRAIN_QUANT = (4, 128, 4)
 TRAIN_PIM = (2, 32, 1)
+# train_pim's depth: its step is device-bound on packing and the crossbar
+# kernel, 13 s at all 24 layers; 8 run every linear shape at full width
+TRAIN_PIM_LAYERS = 8
 # the pim_sim train phase's peak allocation above its start (PERF.md
 # predicts 10-12 GiB: grads, AdamW state and its temporaries, and one
 # M = 64 linear's transient crossbar state)
@@ -963,7 +974,9 @@ def prefill_logits(params, cfg, tokens):
 # granite-moe-1b-a400m's, served again by ``serve_tp``
 QUANT_TRACE = dict(n_requests=8, prompt_lens=(16, 32, 48, 64), max_new=16,
                    max_batch=4, seed=4)
-MOE_QUANT_TRACE = dict(n_requests=8, prompt_lens=(16, 32, 48, 64), max_new=8,
+# (granite-moe's quant serves are host-bound on its expert loop: 4
+# requests, one batch)
+MOE_QUANT_TRACE = dict(n_requests=4, prompt_lens=(16, 32, 48, 64), max_new=8,
                        max_batch=4, seed=20)
 
 
@@ -1920,15 +1933,18 @@ def _loss_and_norm(params, batch, cfg):
     return loss.detach(), norm
 
 
-def _expected_launches(cfg):
-    """One launch per linear in the forward, and with remat one more per
-    decoder linear in the recompute: the checkpoint recomputes a block
+def _expected_launches(cfg, rows, memory_rows=1):
+    """The launches of each linear (``launches``: one, or its pieces in
+    ``pim_sim``) of a forward over ``rows`` token rows and
+    ``memory_rows`` memory rows, and with remat those of each decoder
+    linear once more in the recompute: the checkpoint recomputes a block
     until the last tensor the block saved, which w_out's linear saves
     after its kernel (quant: the float rescale's operands; pim_sim: the
     autograd Function's inputs, packed when its forward returns).  An
     encoder is not checkpointed, as in the reference."""
-    fwd = len(prefill_linears(cfg))
-    enc = len(_kind_linears(cfg)["enc"]) * cfg.n_encoder_layers
+    fwd = launches(cfg, prefill_linears(cfg, rows, memory_rows))
+    enc = launches(cfg, [(memory_rows, k, n) for k, n in
+                         _kind_linears(cfg)["enc"]] * cfg.n_encoder_layers)
     return fwd, fwd - enc if cfg.remat else 0
 
 
@@ -1993,8 +2009,8 @@ def _busy(prof, top=6):
     return busy, lines
 
 
-def _check_train_rows(tag, rows, cfg, want_loss, want_norm):
-    fwd, rec = _expected_launches(cfg)
+def _check_train_rows(tag, rows, cfg, want_loss, want_norm, shape):
+    fwd, rec = _expected_launches(cfg, *shape)
     for r in rows:
         if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
             raise AssertionError(f"{tag} step {r['step']}: loss {r['loss']}, "
@@ -2013,8 +2029,8 @@ def _check_train_rows(tag, rows, cfg, want_loss, want_norm):
             f" {float(want_norm)!r}")
 
 
-def _train_report(tag, rows, prof, cfg, peak, base):
-    fwd, rec = _expected_launches(cfg)
+def _train_report(tag, rows, prof, cfg, peak, base, shape):
+    fwd, rec = _expected_launches(cfg, *shape)
     for r in rows:
         say(f"[{tag}] step {r['step']}: loss {r['loss']:.6f} | grad norm "
             f"{r['grad_norm']:.4f} | lr {r['lr']:.3e} | wall "
@@ -2028,7 +2044,8 @@ def _train_report(tag, rows, prof, cfg, peak, base):
         f"device busy {busy:.2f} ms ({busy / wall * 100:.1f}%)")
     for ln in lines:
         say(f"[{tag}] profiled step: {ln}")
-    say(f"[{tag}] launches per step derived: {fwd} forward (one per linear)"
+    say(f"[{tag}] launches per step derived: {fwd} forward (one per linear"
+        " or piece)"
         f" + {rec} in remat's recompute (each checkpointed block runs again "
         "up to w_out's linear, whose saved tensors come after its kernel); "
         f"peak allocated {peak / 2 ** 30:.2f} GiB ({base / 2 ** 30:.2f} GiB "
@@ -2057,13 +2074,15 @@ def train_quant(base_cfg, dev, quant_rows):
     params, opt_state, rows, prof = _train_steps(params, batches, cfg, ocfg,
                                                  which=0)
     peak = torch.cuda.max_memory_allocated()
-    _check_train_rows("train_quant", rows, cfg, want_loss, want_norm)
+    _check_train_rows("train_quant", rows, cfg, want_loss, want_norm,
+                      (batch * seq,))
     say(f"[train_quant] full-width {cfg.name} ({cfg.n_layers} layers, "
         f"remat {cfg.remat}), batch {batch}, seq {seq}, {steps} steps of "
         f"launch.train.train_step, AdamW defaults: step 0's loss "
         f"{rows[0]['loss']!r} and grad norm {rows[0]['grad_norm']!r} == "
         "the plain GEMM's (identical)")
-    busy = _train_report("train_quant", rows, prof, cfg, peak, base)
+    busy = _train_report("train_quant", rows, prof, cfg, peak, base,
+                         (batch * seq,))
     for k, n in QUANT_SHAPES_KN:
         r = quant_rows[(batch * seq, k, n)]
         say(f"[train_quant] quant_matmul_int at the train shape M={batch * seq}"
@@ -2079,22 +2098,29 @@ def train_quant(base_cfg, dev, quant_rows):
         peak_bytes=peak, launches_per_step=rows[0]["launches"])
 
 
-def time_crossbar_at(dev, m, k, o):
+def time_crossbar_at(dev, m, k, o, grouped=0):
     """One ``pim_sim`` linear's crossbar launch at (M, K, O): the packed
-    state ``engine.matmul_int`` hands the kernel, held against the per-gate
-    plain version and timed."""
+    state ``engine.matmul_int`` hands the kernel first (its first piece,
+    where the linear splits), held against the per-gate plain version and
+    timed; with ``grouped``, its first and last ``grouped`` crossbars also
+    against the grouped plain version on the host.  The operands are
+    uint8, as ``sim_linear`` hands them over, so the linear splits as on
+    the path; the row counts its launches."""
     from repro_torch.kernels import crossbar_exec as xb
-    from repro_torch.kernels.crossbar_exec import crossbar_exec_ref
+    from repro_torch.kernels.crossbar_exec import (crossbar_exec_grouped_ref,
+                                                   crossbar_exec_ref, plan)
     from repro_torch.pim import engine
 
     gi = np.random.default_rng(12)
-    x = torch.as_tensor(gi.integers(0, 256, (m, k)), device=dev)
-    wt = torch.as_tensor(gi.integers(0, 256, (o, k)), device=dev)
-    seen = []
+    x, wt = (torch.as_tensor(gi.integers(0, 256, (r, k)), dtype=torch.uint8,
+                             device=dev) for r in (m, o))
+    seen, sizes = [], []
     real = xb.crossbar_exec
 
     def capture(state, mc):
-        seen.append((state.clone(), mc))
+        if not seen:
+            seen.append((state.clone(), mc))
+        sizes.append(state.shape[0])
         return real(state, mc)
 
     with mock.patch.object(xb, "crossbar_exec", capture), engine.transient():
@@ -2102,6 +2128,7 @@ def time_crossbar_at(dev, m, k, o):
     if not torch.equal(got, (x.double() @ wt.double().T).long()):
         raise AssertionError(f"matmul_int != exact product at M={m} K={k} "
                              f"O={o}")
+    del got
     st, mc = seen[0]
     ms = cuda_ms(lambda i: xb.crossbar_exec(st, mc), 5, warmup=1)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -2109,26 +2136,34 @@ def time_crossbar_at(dev, m, k, o):
     plain_out = crossbar_exec_ref(st, mc)
     end.record()
     end.synchronize()
-    e = max_abs_err(xb.crossbar_exec(st, mc), plain_out)
+    out = xb.crossbar_exec(st, mc)
+    e = max_abs_err(out, plain_out)
+    c, n, w_words = st.shape
+    if grouped:
+        sched = plan(mc, n)
+        for part in (slice(0, grouped), slice(c - grouped, c)):
+            e = max(e, max_abs_err(out[part].cpu(), crossbar_exec_grouped_ref(
+                st[part].cpu(), sched.rows, sched.offsets)))
     if e:
         raise AssertionError(f"crossbar_exec != plain on the packed state of "
                              f"M={m} K={k} O={o}: max abs error {e}")
-    c, n, w_words = st.shape
     bound, by = crossbar_bound_ms(c, n, w_words, mc)
     return dict(shape=[c, n, w_words, mc.shape[0]], m=m, k=k, o=o, ms=ms,
                 plain_ms=start.elapsed_time(end), bound_ms=bound,
-                bound_by=by, library_ms=None, max_abs_err=e)
+                bound_by=by, library_ms=None, max_abs_err=e,
+                launches=len(sizes))
 
 
 def train_pim(base_cfg, dev):
-    """Full-width qwen1.5-0.5b in ``pim_sim``, 1 step at batch 2, seq 32:
-    every linear on ``crossbar_exec`` at M = 64, on transient state."""
+    """Full-width qwen1.5-0.5b at ``TRAIN_PIM_LAYERS`` layers in
+    ``pim_sim``, 1 step at batch 2, seq 32: every linear on
+    ``crossbar_exec`` at M = 64, on transient state."""
     from repro_torch.models import model_lib as M
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.pim import engine
 
     batch, seq, steps = TRAIN_PIM
-    cfg = base_cfg.scaled(pim_mode="pim_sim")
+    cfg = base_cfg.scaled(pim_mode="pim_sim", n_layers=TRAIN_PIM_LAYERS)
     ocfg = AdamWConfig()
     batches = _train_batches(cfg, dev, batch, seq, steps)
     torch.cuda.synchronize()
@@ -2142,7 +2177,8 @@ def train_pim(base_cfg, dev):
                                                  which=1)
     peak = torch.cuda.max_memory_allocated()
     info = engine.cache_info()
-    _check_train_rows("train_pim", rows, cfg, want_loss, want_norm)
+    _check_train_rows("train_pim", rows, cfg, want_loss, want_norm,
+                      (batch * seq,))
     if (info.resident_entries, info.resident_bytes, info.exec_uploads) != \
             (info0.resident_entries, info0.resident_bytes,
              info0.exec_uploads):
@@ -2164,7 +2200,8 @@ def train_pim(base_cfg, dev):
         f"{info.exec_transient - info0.exec_transient} transient chunk "
         "GEMMs); peak limit "
         f"{PIM_TRAIN_EXTRA_BYTES / 2 ** 30:.0f} GiB above the start")
-    busy = _train_report("train_pim", rows, prof, cfg, peak, base)
+    busy = _train_report("train_pim", rows, prof, cfg, peak, base,
+                         (batch * seq,))
     del params, opt_state
     torch.cuda.empty_cache()
     xrow = time_crossbar_at(dev, batch * seq, cfg.d_model, cfg.d_ff)
@@ -2185,11 +2222,13 @@ def train_pim(base_cfg, dev):
 def train_restart():
     """The reference's crash-and-resume drill through the port's CLI, in
     subprocesses: full width at 2 layers, ``quant``, batch 2, seq 64, 6
-    steps, a checkpoint every 3 steps.  Two uninterrupted runs, then one
-    that fails at step 4 and one that resumes it; the resumed steps' losses
-    and the last checkpoint must equal the uninterrupted run's."""
+    steps, a checkpoint every 3 steps.  Two uninterrupted runs and one
+    that fails at step 4, side by side on the card, then one that resumes
+    the failed run; the resumed steps' losses and the last checkpoint must
+    equal the uninterrupted run's."""
     import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     tmp = tempfile.mkdtemp(prefix="train_restart_")
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
@@ -2241,9 +2280,12 @@ def train_restart():
         return out
 
     try:
-        m_a = run("a")
-        m_b = run("b")
-        run("c", "--fail-at-step", "4", fail=True)
+        # independent runs: each waits for its own process, which
+        # subprocess.run kills at its timeout
+        with ThreadPoolExecutor(3) as pool:
+            first = [pool.submit(run, "a"), pool.submit(run, "b"),
+                     pool.submit(run, "c", "--fail-at-step", "4", fail=True)]
+        m_a, m_b, _ = (f.result() for f in first)
         m_c = run("c", "--resume")
         la, lb, lc = ([m["loss"] for m in ms] for ms in (m_a, m_b, m_c))
         if [m["step"] for m in m_c] != [0, 1, 2, 3, 3, 4, 5]:
@@ -2267,7 +2309,7 @@ def train_restart():
             f"{same} (largest leaf difference {max(d_ab.values())}); "
             f"resumed vs uninterrupted: largest leaf difference "
             f"{max(d_ac.values())} over {len(ca)} leaves of step 6")
-        for s in saves:
+        for s in sorted(saves, key=lambda s: s.split(":")[0]):
             say(f"[train_restart] save {s}")
         if not ok:
             raise AssertionError("the resumed run differs from the "
@@ -2372,6 +2414,44 @@ def pim_state_bytes(m, k, o):
     return math.ceil(k / 37) * math.ceil(m * o / 256) * 1024 * 8 * 4
 
 
+# the bytes one crossbar of a pim_sim launch is reckoned to take at 1024
+# columns, 37 uint8 terms, 22 accumulator bits and 256 rows: its state in
+# and out (2 x 32 KiB), two operands' rows built and padded, with two int64
+# row numbers a row (2 x (2 x 9,472 + 4,096)), and packing's temporaries,
+# larger than reading's: two int64 bit planes and four word sums
+# (2 x 75,776 + 9,472)
+PIM_CROSSBAR_LAUNCH_BYTES = (2 * 32768 + 2 * (2 * 9472 + 4096)
+                             + 2 * 75776 + 9472)
+
+
+def pim_pieces(m, k, o):
+    """(launches, crossbars in the largest) of one pim_sim linear at
+    (M, K, O), by host arithmetic: its ceil(K / 37) chunks of
+    ceil(M * O / 256) crossbars in one launch while they fit
+    ``engine.MAX_LAUNCH_BYTES`` at ``PIM_CROSSBAR_LAUNCH_BYTES`` each, else
+    in runs of whole chunks, balanced, while one chunk fits, else each
+    chunk in balanced parts."""
+    from repro_torch.pim import engine
+
+    p, n_cb = math.ceil(k / 37), math.ceil(m * o / 256)
+    cap = engine.MAX_LAUNCH_BYTES // PIM_CROSSBAR_LAUNCH_BYTES
+    if p * n_cb <= cap:
+        return 1, p * n_cb
+    if n_cb <= cap:
+        n = math.ceil(p / (cap // n_cb))
+        return n, math.ceil(p / n) * n_cb
+    parts = math.ceil(n_cb / cap)
+    return p * parts, math.ceil(n_cb / parts)
+
+
+def launches(cfg, linears):
+    """Kernel launches of ``linears`` [(M, K, N)] in ``cfg``'s mode: one a
+    linear, or in ``pim_sim`` its pieces (``pim_pieces``)."""
+    if cfg.pim_mode != "pim_sim":
+        return len(linears)
+    return sum(pim_pieces(*s)[0] for s in linears)
+
+
 def _kind_linears(cfg):
     """(K, N) of the linears one decode step runs in a layer of each kind:
     the attention projections of the attention kinds, ``"adx"``'s
@@ -2394,13 +2474,15 @@ def step_linears(cfg):
     return [s for kind in cfg.pattern for s in per_kind[kind]] * cfg.n_super
 
 
-def prefill_linears(cfg):
-    """(K, N) of each linear a prefill (or a train forward) runs: the
-    encoder's layers, the decode step's, and each ``"adx"`` layer's
-    ``xwk``/``xwv`` on the memory."""
-    xkv = [(cfg.d_model, cfg.n_kv_heads * cfg.hd)] * 2
-    return (_kind_linears(cfg)["enc"] * cfg.n_encoder_layers
-            + step_linears(cfg)
+def prefill_linears(cfg, rows=1, memory_rows=1):
+    """(M, K, N) of each linear a prefill (or a train forward) runs over
+    ``rows`` token rows: the encoder's layers on the ``memory_rows`` rows of
+    the frames, the decode step's on the tokens, and each ``"adx"`` layer's
+    ``xwk``/``xwv`` on the ``memory_rows`` rows of the memory."""
+    xkv = [(memory_rows, cfg.d_model, cfg.n_kv_heads * cfg.hd)] * 2
+    return ([(memory_rows, k, n) for k, n in _kind_linears(cfg)["enc"]]
+            * cfg.n_encoder_layers
+            + [(rows, k, n) for k, n in step_linears(cfg)]
             + xkv * cfg.pattern.count("adx") * cfg.n_super)
 
 
@@ -2482,14 +2564,21 @@ def serve_wide(name, dev):
         0, base.vocab_size, (1, plen)), device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reset_counters()
     t0 = time.perf_counter()
     got = prefill_logits(params, pcfg, toks)
     t_prefill = time.perf_counter() - t0
+    pre_launches = counters()[1]
+    want_pre = launches(pcfg, prefill_linears(pcfg, plen))
     with mock.patch.object(engine, "matmul_int", exact_matmul):
         want = prefill_logits(params, pcfg, toks)
     if not (torch.isfinite(got).all() and torch.equal(got, want)):
         raise AssertionError(f"{name} pim_sim prefill logits differ from the "
                              "exact 7-bit integer product")
+    if pre_launches != want_pre:
+        raise AssertionError(f"{name} pim_sim prefill launched the crossbar "
+                             f"kernel {pre_launches} times, the pieces of "
+                             f"its linears are {want_pre}")
     info0 = engine.cache_info()
     reset_counters()
     (ptokens, psummary, pwall), steps = decode_records(
@@ -2507,9 +2596,14 @@ def serve_wide(name, dev):
     limit = wide_pim_limit(base, weights)
     decode_state = sum(pim_state_bytes(2, k, o)
                        for k, o in step_linears(base))
+    split = sorted({(k, o, pim_pieces(plen, k, o)[0])
+                    for k, o in step_linears(base)
+                    if pim_pieces(plen, k, o)[0] > 1})
     say(f"[{name} pim_sim] 8-token prefill logits on the crossbar kernel == "
         f"exact 7-bit integer product (identical), {t_prefill:.2f} s on "
-        f"transient state; served {psummary['n_finished']} requests "
+        f"transient state in {pre_launches} launches (linears split under "
+        f"the launch budget, (K, O, launches): {split}); served "
+        f"{psummary['n_finished']} requests "
         f"({plen}-token prompts, {pnew} new tokens, max_batch 2, paged) in "
         f"{pwall:.2f} s: mean TTFT {psummary['mean_ttft_s'] * 1e3:.0f} ms | "
         f"mean TPOT {psummary['mean_tpot_s'] * 1e3:.0f} ms | crossbar_exec "
@@ -2859,7 +2953,7 @@ def check_moe_dispatch(params, cfg, dev):
 
 def serve_moe(dev):
     """Full-width, full-depth granite-moe-1b-a400m (24 layers of 32
-    experts, top 8) on fresh weights from seed 0.  ``quant``: 8 requests
+    experts, top 8) on fresh weights from seed 0.  ``quant``: 4 requests
     of 16-64 prompt tokens, 8 new tokens, batch 4, whose prefill logits
     and tokens equal the plain GEMM's, one GEMM per attention projection
     in each decode step.  ``pim_sim``: 2 requests of 8 and 16 tokens, 4
@@ -2894,7 +2988,7 @@ def serve_moe(dev):
     per_step = len(step_linears(base))
     failures = []
 
-    # quant: 8 requests, prompts 16-64, 8 new tokens, batch 4, paged
+    # quant: 4 requests, prompts 16-64, 8 new tokens, batch 4, paged
     plens, max_new = MOE_QUANT_TRACE["prompt_lens"], MOE_QUANT_TRACE["max_new"]
     qcfg = base.scaled(pim_mode="quant",
                        max_seq_len=trace_len(MOE_QUANT_TRACE))
@@ -3404,6 +3498,13 @@ SEAMLESS_QUANT = ((16, 32, 48, 64), 8)
 SEAMLESS_PIM = ((8, 16), 4)
 SEAMLESS_FRAMES = 16
 VISION_QUANT = ((16, 32), 8)
+# llama-3.2-vision-11b in pim_sim: one period of the pattern (``ad ad ad
+# adx ad``), the quant phase's 2 requests with 4 new tokens
+VISION_PIM_LAYERS = 5
+VISION_PIM = ((16, 32), 4)
+# the vision pim_sim phase's allowance for the model's float activations,
+# beside the linears' int64 chunk partials (vision_pim_limit)
+VISION_ACT_BYTES = 2 << 30
 # the seamless train phase: (batch, seq, steps), seq // 4 frames a row
 TRAIN_SEAMLESS = (2, 128, 2)
 
@@ -3432,7 +3533,9 @@ def generate(params, cfg, dev, prompts, media, new, profile=None):
     request, every step's logits, the launches (quant_matmul_int,
     crossbar_exec) of the prefill and of each decode step, the engine's
     cold uploads after each decode step, the prefill's peak allocation,
-    the ``xk``/``xv`` leaves unchanged by decode, and the profiles."""
+    the ``xk``/``xv`` leaves unchanged by decode, the profiles, the rows
+    of the prefill's linears (tokens and memory) and the seconds of the
+    prefill and of each decode step."""
     from repro_torch.models import model_lib as M
     from repro_torch.pim import engine
 
@@ -3454,10 +3557,12 @@ def generate(params, cfg, dev, prompts, media, new, profile=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     q0, x0 = counters()
+    t0 = time.perf_counter()
     with torch.no_grad():
         logits, caches = run("prefill", lambda: M.prefill(
             params, {"tokens": tokens, **media}, cfg, last_index=last))
         torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         q1, x1 = counters()
         pre = (q1 - q0, x1 - x0)
@@ -3465,13 +3570,16 @@ def generate(params, cfg, dev, prompts, media, new, profile=None):
                  for k in ("xk", "xv") if k in c}
         out, nxt, pos, steps = [logits], logits.argmax(-1)[:, None], \
             last + 1, []
-        gen = [nxt]
+        gen, step_s = [nxt], []
         for i in range(new - 1):
             q0, x0 = counters()
+            t0 = time.perf_counter()
             nxt, logits, caches = run(
                 "decode step" if i == 1 else None,
                 lambda: M.decode_step_slots(params, nxt.to(torch.int32), pos,
                                             active, caches, cfg))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
             q1, x1 = counters()
             steps.append((q1 - q0, x1 - x0,
                           engine.cache_info().exec_uploads))
@@ -3481,9 +3589,12 @@ def generate(params, cfg, dev, prompts, media, new, profile=None):
     torch.cuda.synchronize()
     kept = bool(xattn) and all(torch.equal(v, caches[i][k])
                                for (i, k), v in xattn.items())
+    mem = next(iter(media.values()))
     return dict(tokens=torch.cat(gen, dim=1).tolist(), logits=out,
                 prefill_launches=pre, steps=steps, prefill_peak=peak,
-                xattn_kept=kept, profiles=profs)
+                xattn_kept=kept, profiles=profs, rows=b * plen,
+                memory_rows=mem.shape[0] * mem.shape[1], batch=b,
+                prefill_s=prefill_s, step_s=step_s)
 
 
 def same_generation(a, b):
@@ -3495,14 +3606,16 @@ def same_generation(a, b):
 
 
 def check_generation(tag, res, cfg, failures):
-    """Exact launch counts: one of the mode's kernel per linear of the
-    prefill and of each decode step, none of the other kernel; decode
-    leaves ``xk``/``xv`` as prefill wrote them."""
+    """Exact launch counts: one of the mode's kernel per linear (or per
+    piece, ``launches``) of the prefill and of each decode step, none of
+    the other kernel; decode leaves ``xk``/``xv`` as prefill wrote them."""
     which = {"quant": 0, "pim_sim": 1}[cfg.pim_mode]
     want_pre = [0, 0]
-    want_pre[which] = len(prefill_linears(cfg))
+    want_pre[which] = launches(cfg, prefill_linears(
+        cfg, res["rows"], res["memory_rows"]))
     want_step = [0, 0]
-    want_step[which] = len(step_linears(cfg))
+    want_step[which] = launches(cfg, [(res["batch"], k, n)
+                                      for k, n in step_linears(cfg)])
     if list(res["prefill_launches"]) != want_pre:
         failures.append(f"{tag} prefill launched {res['prefill_launches']}, "
                         f"expected {tuple(want_pre)}")
@@ -3677,8 +3790,8 @@ def serve_vision(dev):
     plain GEMM; 312 launches in the prefill, 296 in every decode step;
     then a profiled prefill and decode step (``_cross_attention`` under a
     ``record_function`` range) and the release of the weights.  Its
-    ``pim_sim`` is not run: the line printed first says why.  Returns
-    (quant launches, a summary)."""
+    ``pim_sim`` runs at one period of the pattern (``serve_vision_pim``).
+    Returns (quant launches, a summary)."""
     from repro_torch import configs
     from repro_torch.kernels.quant_matmul import ops, quant_matmul_int_ref
     from repro_torch.models import model as model_mod
@@ -3698,15 +3811,6 @@ def serve_vision(dev):
         f"{base.vocab_size}, untied) drawn on the card from seed 0 in "
         f"{draw_s:.3f} s; launches per prefill {len(prefill_linears(base))},"
         f" per decode step {len(step_linears(base))}")
-    xkv = (base.n_patches, base.d_model, base.n_kv_heads * base.hd)
-    one = pim_state_bytes(*xkv)
-    say(f"[vision] pim_sim not run: at batch 1 the prefill's xwk on "
-        f"{xkv[0]} patches at (K, O) = {xkv[1:]} alone needs "
-        f"{math.ceil(xkv[1] / 37)} x {math.ceil(xkv[0] * xkv[2] / 256)} "
-        f"crossbars x 32 KiB = {one / 1e9:.1f} GB of transient state, about "
-        f"{8 * one / 1e9:.0f} GB with packing's temporaries (the factor 8 of "
-        "wide_pim_limit), over the card's 80 GB; it waits for row-chunked "
-        "transient launches")
     failures = []
     rng = np.random.default_rng(43)
     plens, new = VISION_QUANT
@@ -3753,9 +3857,176 @@ def serve_vision(dev):
         params_g=M.param_count(base) / 1e9, draw_s=draw_s, quant_wall_s=wall,
         prefill_launches=len(prefill_linears(base)),
         step_launches=len(step_linears(base)),
-        peak_bytes=got["prefill_peak"], pim_xwk_transient_bytes=one,
-        decode_wall_ms=step["wall_ms"], decode_busy_ms=step["busy_ms"],
+        peak_bytes=got["prefill_peak"], decode_wall_ms=step["wall_ms"],
+        decode_busy_ms=step["busy_ms"],
         prefill_wall_ms=pre["wall_ms"], prefill_busy_ms=pre["busy_ms"])
+
+
+def vision_pim_limit(cfg, batch, rows, memory_rows):
+    """The vision pim_sim phase's bound on its peak allocation above its
+    weights, and its parts: the decode state kept resident at ``batch``
+    (``pim_state_bytes``), one launch's budget
+    (``engine.MAX_LAUNCH_BYTES``), the weights' offset and chunked copies
+    (a byte per element, the chunks zero-padded to 37 terms, and 12 bytes
+    of scales and sums per output), and activations: twice the largest
+    linear's int64 chunk partials (P, M, O) (the pieces' accumulators and
+    the partials they reshape to) and ``VISION_ACT_BYTES``."""
+    from repro_torch.pim import engine
+
+    shapes = prefill_linears(cfg, rows, memory_rows)
+    resident = sum(pim_state_bytes(batch, k, o)
+                   for k, o in step_linears(cfg))
+    weights = step_linears(cfg) + [(cfg.d_model, cfg.n_kv_heads * cfg.hd)] \
+        * 2 * cfg.pattern.count("adx") * cfg.n_super
+    copies = sum(o * (k + math.ceil(k / 37) * 37 + 12) for k, o in weights)
+    partials = max(math.ceil(k / 37) * m * o * 8 for m, k, o in shapes)
+    parts = dict(resident=resident, launch=engine.MAX_LAUNCH_BYTES,
+                 copies=copies, partials=2 * partials, act=VISION_ACT_BYTES)
+    return sum(parts.values()), parts
+
+
+def serve_vision_pim(dev):
+    """llama-3.2-vision-11b at full width, one period of its pattern
+    (``VISION_PIM_LAYERS``: ``ad ad ad adx ad``), fresh weights drawn on
+    the card from seed 0, in ``pim_sim``: 2 requests of 16 and 32 tokens
+    with all 1601 patches each, prefilled together, 4 new tokens.  Every
+    step's logits and the tokens equal the exact integer product's; the
+    prefill and each decode step launch the crossbar kernel once per piece
+    of each linear (``pim_pieces``: the xwk/xwv over 3,202 patch rows and
+    the MLP over 64 token rows split under ``engine.MAX_LAUNCH_BYTES``);
+    no launch holds more crossbars than the budget allows; no upload after
+    the first decode step; resident bytes equal their host arithmetic; the
+    peak above the weights stays under ``vision_pim_limit``; the weights
+    release.  Then one xwk piece is timed and held to both plain versions.
+    Returns (crossbar launches, the timed piece's row, a summary)."""
+    from repro_torch import configs
+    from repro_torch.models import model_lib as M
+    from repro_torch.pim import engine
+    from repro_torch.pim import executor as ex
+
+    full = configs.get("llama-3.2-vision-11b")
+    base = full.scaled(n_layers=VISION_PIM_LAYERS)
+    plens, new = VISION_PIM
+    b = len(plens)
+    rows, memory_rows = b * max(plens), b * base.n_patches
+    xkv = (memory_rows, base.d_model, base.n_kv_heads * base.hd)
+    layer_state = sum(pim_state_bytes(b, k, o)
+                      for k, o in _kind_linears(base)["ad"])
+    per = engine.launch_bytes(1024, 37, 22)
+    if per != PIM_CROSSBAR_LAUNCH_BYTES:
+        raise AssertionError(f"the engine reckons {per} B a crossbar, this "
+                             f"script {PIM_CROSSBAR_LAUNCH_BYTES} B")
+    limit, parts = vision_pim_limit(base, b, rows, memory_rows)
+    say(f"[vision pim_sim] full width, {base.n_layers} of {full.n_layers} "
+        f"layers ({'/'.join(base.pattern)}, one period): at batch {b} an "
+        f"\"ad\" layer's decode linears keep {layer_state} B of crossbar "
+        f"state resident, so {full.n_layers} layers would keep about "
+        f"{full.n_layers * layer_state / 1e9:.1f} GB against "
+        f"MAX_RESIDENT_BYTES {engine.MAX_RESIDENT_BYTES} B and re-upload "
+        f"every step; launch budget {engine.MAX_LAUNCH_BYTES} B at {per} B "
+        f"a crossbar ({engine.MAX_LAUNCH_BYTES // per} crossbars); peak "
+        f"limit above the weights {limit} B ({limit / 2 ** 30:.2f} GiB) = "
+        + " + ".join(f"{k} {v}" for k, v in parts.items()))
+    gc.collect()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = M.init_params(base, seed=0, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    weights = footprint(params)[0]
+    pcfg = base.scaled(pim_mode="pim_sim", max_seq_len=max(plens) + new)
+    rng = np.random.default_rng(47)
+    prompts = [rng.integers(1, base.vocab_size, p) for p in plens]
+    media = media_batch(base, dev, b)
+    failures = []
+    sizes = []
+    real_execute = ex.execute
+
+    def sized(state, mc):
+        sizes.append(state.shape[0])
+        return real_execute(state, mc)
+
+    info0 = engine.cache_info()
+    reset_counters()
+    t0 = time.perf_counter()
+    with mock.patch.object(ex, "execute", sized):
+        got = generate(params, pcfg, dev, prompts, media, new)
+    wall = time.perf_counter() - t0
+    x_launches = counters()[1]
+    info = engine.cache_info()
+    peak = torch.cuda.max_memory_allocated() - start - weights
+    with mock.patch.object(engine, "matmul_int", exact_matmul):
+        exact = generate(params, pcfg, dev, prompts, media, new)
+    check_generation("vision pim_sim", got, pcfg, failures)
+    equal = same_generation(got, exact)
+    if not equal:
+        failures.append(f"pim_sim tokens {got['tokens']} vs the exact "
+                        f"product's {exact['tokens']} (or their logits "
+                        "differ)")
+    cap = engine.MAX_LAUNCH_BYTES // PIM_CROSSBAR_LAUNCH_BYTES
+    if len(sizes) != x_launches or max(sizes) > cap:
+        failures.append(f"{len(sizes)} executions for {x_launches} launches,"
+                        f" the largest of {max(sizes)} crossbars (cap {cap})")
+    up = [u - info0.exec_uploads for _, _, u in got["steps"]]
+    if len(set(up)) != 1:
+        failures.append(f"pim_sim decode uploaded after its first step: {up}")
+    decode_state = sum(pim_state_bytes(b, k, o)
+                       for k, o in step_linears(base))
+    if info.resident_bytes != decode_state:
+        failures.append(f"{info.resident_bytes} resident bytes, expected "
+                        f"{decode_state}")
+    if peak >= limit:
+        failures.append(f"peaked {peak} B above the weights, limit {limit}")
+    n_xkv, largest = pim_pieces(*xkv)
+    pre = launches(pcfg, prefill_linears(pcfg, rows, memory_rows))
+    say(f"[vision pim_sim] {b} requests (prompts {plens} padded to "
+        f"{max(plens)}, {base.n_patches} patches each, {new} new tokens) "
+        f"through prefill + decode_step_slots in {wall:.2f} s (prefill "
+        f"{got['prefill_s']:.2f} s, decode steps "
+        f"{[round(t, 3) for t in got['step_s']]} s); weights "
+        f"{weights / 2 ** 30:.2f} GiB drawn in {draw_s:.3f} s; xwk and xwv "
+        f"on {xkv[0]} patch rows at (K, O) = {xkv[1:]}: "
+        f"{math.ceil(xkv[1] / 37)} x {math.ceil(xkv[0] * xkv[2] / 256)} "
+        f"crossbars each in {n_xkv} launches of up to {largest} crossbars "
+        f"({largest * PIM_CROSSBAR_LAUNCH_BYTES} B reckoned, "
+        f"{largest * 32768} B of state); crossbar_exec launches prefill "
+        f"{got['prefill_launches'][1]} (expected {pre}), per decode step "
+        f"{sorted({s[1] for s in got['steps']})} (expected "
+        f"{len(step_linears(base))}), total {x_launches}, the largest "
+        f"{max(sizes)} crossbars | cold uploads after each decode step {up} "
+        f"| resident {info.resident_entries} states, {info.resident_bytes} B"
+        f" (host arithmetic {decode_state} B) | peak {peak} B "
+        f"({peak / 2 ** 30:.2f} GiB) above the weights, limit {limit} B | "
+        f"tokens and every step's logits == exact product's: {equal} "
+        f"({got['tokens']})")
+    summary = dict(
+        layers=base.n_layers, draw_s=draw_s, wall_s=wall,
+        prefill_s=got["prefill_s"], step_s=got["step_s"],
+        prefill_launches=got["prefill_launches"][1],
+        step_launches=len(step_linears(base)), xkv_launches=n_xkv,
+        xkv_piece_crossbars=largest, largest_launch_crossbars=max(sizes),
+        resident_bytes=info.resident_bytes, peak_bytes=peak,
+        peak_limit_bytes=limit, peak_limit_parts=parts)
+    before = footprint(params)
+    del params, got, exact
+    check_released(f"{base.name} ({base.n_layers} layers)", before)
+    if failures:
+        raise AssertionError("serve_vision_pim: " + "; ".join(failures))
+    row = time_crossbar_at(dev, *xkv, grouped=2)
+    c, n, w_words, g = row["shape"]
+    row.update(model="llama-3.2-vision-11b xwk prefill",
+               launches_per_prefill=2 * row["launches"]
+               * base.pattern.count("adx") * base.n_super)
+    say(f"[crossbar_exec] llama-3.2-vision-11b xwk piece (M={xkv[0]}, "
+        f"K={xkv[1]}, O={xkv[2]}; piece 1 of {row['launches']}): C={c} "
+        f"n={n} W={w_words} G={g}: kernel {row['ms']:.4f} ms | plain "
+        f"{row['plain_ms']:.1f} ms | bound {row['bound_ms'] * 1e3:.2f} us "
+        f"({row['bound_by']}) | {row['bound_ms'] / row['ms'] * 100:.2f}% of "
+        f"bound | {row['launches_per_prefill']} such launches per prefill; "
+        "== per-gate plain (exact state), its first and last 2 crossbars "
+        "== grouped plain")
+    return x_launches, row, summary
 
 
 def train_seamless(dev):
@@ -3786,13 +4057,15 @@ def train_seamless(dev):
     params, opt_state, rows, prof = _train_steps(params, batches, cfg,
                                                  AdamWConfig(), which=0)
     peak = torch.cuda.max_memory_allocated()
-    _check_train_rows("train_seamless", rows, cfg, want_loss, want_norm)
+    _check_train_rows("train_seamless", rows, cfg, want_loss, want_norm,
+                      (batch * seq, batch * frames))
     say(f"[train_seamless] full-width {cfg.name} ({cfg.n_encoder_layers} + "
         f"{cfg.n_layers} layers, remat {cfg.remat}), batch {batch}, seq "
         f"{seq}, {frames} frames, {steps} steps of launch.train.train_step: "
         f"step 0's loss {rows[0]['loss']!r} and grad norm "
         f"{rows[0]['grad_norm']!r} == the plain GEMM's (identical)")
-    busy = _train_report("train_seamless", rows, prof, cfg, peak, base)
+    busy = _train_report("train_seamless", rows, prof, cfg, peak, base,
+                         (batch * seq, batch * frames))
     del params, opt_state
     torch.cuda.empty_cache()
     return sum(r["launches"] for r in rows), dict(
@@ -3804,14 +4077,17 @@ def train_seamless(dev):
 
 def serve_multimodal(dev):
     """seamless-m4t-medium and llama-3.2-vision-11b at full width and
-    depth (``serve_seamless``, ``serve_vision``), then seamless's train
+    depth (``serve_seamless``, ``serve_vision``), llama-3.2-vision-11b in
+    ``pim_sim`` at one period (``serve_vision_pim``), then seamless's train
     steps (``train_seamless``).  Returns (quant launches, crossbar
-    launches, a summary)."""
+    launches, the timed xwk piece's row, a summary)."""
     q1, x1, seamless = serve_seamless(dev)
     q2, vision = serve_vision(dev)
+    x2, xwk_row, vision_pim = serve_vision_pim(dev)
     q3, train = train_seamless(dev)
-    return q1 + q2 + q3, x1, dict(seamless=seamless, vision=vision,
-                                  train=train)
+    return q1 + q2 + q3, x1 + x2, xwk_row, dict(
+        seamless=seamless, vision=vision, vision_pim=vision_pim,
+        train=train)
 
 
 # --------------------------------------------------------------------------
@@ -4379,8 +4655,8 @@ def serve_tp(dev, q_tokens, moe_tokens):
     # the launches per weight tile shape that the configs call for
     want = dict(qwen=tiles(step_linears(configs.get("qwen1.5-0.5b"))),
                 moe=tiles(step_linears(configs.get("granite-moe-1b-a400m"))),
-                arctic=tiles(prefill_linears(
-                    configs.get("arctic-480b").scaled(n_layers=1))))
+                arctic=tiles([(k, n) for _, k, n in prefill_linears(
+                    configs.get("arctic-480b").scaled(n_layers=1))]))
     t0 = time.perf_counter()
     check_tp_world1(dev)
     gc.collect()
@@ -5704,7 +5980,8 @@ def main() -> int:
     win_q, win_x, win = phase("serve_window", serve_window, dev)
     moe_q, moe_x, moe_run, moe_tokens = phase("serve_moe", serve_moe, dev)
     rec_q, rec_x, rec_run = phase("serve_recurrent", serve_recurrent, dev)
-    mm_q, mm_x, mm_run = phase("serve_multimodal", serve_multimodal, dev)
+    mm_q, mm_x, xwk_row, mm_run = phase("serve_multimodal",
+                                        serve_multimodal, dev)
     mp_launches, mp_rows, mp_run = phase("serve_tp", serve_tp, dev, q_tokens,
                                          moe_tokens)
     fr_q, fr_x, fleet_ranks = phase("serve_fleet_ranks", serve_fleet_ranks,
@@ -5783,7 +6060,7 @@ def main() -> int:
              bound_by=xbar_row["bound_by"], library_ms=None,
              launch_floor_ms=xbar_row["launch_floor_ms"],
              one_gate_ms=xbar_row["one_gate_ms"],
-             wide_shapes=xbar_row["wide_shapes"],
+             wide_shapes=xbar_row["wide_shapes"], vision_xwk_piece=xwk_row,
              multipliers=mult_table, autotune_warmup_s=at_warm_s,
              autotune_race=race_rows, geometries=geo_rows, train=tp),
     ]

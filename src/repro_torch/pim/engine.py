@@ -64,7 +64,10 @@ The driving side of the partitioned crossbar, as one API:
 * :func:`matmul_int` — the exact integer GEMM over the session pool, with
   inner dimensions longer than one row's column budget split into chunks
   and the last chunk zero-padded to a whole one; all chunks run as one
-  batch of crossbars, so a linear costs one kernel launch.  ``plan=`` (a
+  batch of crossbars, so a linear costs one kernel launch, or one per
+  piece where its crossbars would take more than :data:`MAX_LAUNCH_BYTES`
+  (:func:`launch_pieces`): a launch's memory is a constant of the engine,
+  not a function of M and K.  ``plan=`` (a
   ``pim.autotune.TunedPlan``) or ``tune_ctx=`` (a table lookup) picks the
   partition model, crossbar geometry, chunk and backend; the bits are the
   same under every plan.  ``cache_info()`` carries the tuner's counters,
@@ -98,7 +101,7 @@ import contextlib
 import dataclasses
 import threading
 import weakref
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -121,6 +124,9 @@ __all__ = [
     "execute_state",
     "ExecutionSession",
     "MAX_RESIDENT_BYTES",
+    "MAX_LAUNCH_BYTES",
+    "launch_bytes",
+    "launch_pieces",
     "session_for",
     "transient",
     "matmul_int",
@@ -672,6 +678,25 @@ def _grid(v: torch.Tensor, n_cb: int, rows: int) -> torch.Tensor:
     return v.reshape(p * n_cb, rows, k)
 
 
+def _operand_rows(v: torch.Tensor, lo: int, hi: int, n_cb: int, rows: int,
+                  m: int, o: int, of_x: bool) -> torch.Tensor:
+    """The operand rows of crossbars ``[lo, hi)`` of a batch of GEMMs,
+    ``x`` (P, M, K) or ``w`` (P, O, K), as (hi - lo, rows, K): row ``r`` of
+    chunk ``q`` is ``x[q, r // o]`` against ``w[q, r % o]``, and rows past
+    M * O are zero.  ``[lo, hi)`` is a run of whole chunks or a part of one
+    (:func:`launch_pieces`), so only its own rows are ever built."""
+    if lo % n_cb == 0 and hi % n_cb == 0:
+        part = v[lo // n_cb:hi // n_cb]
+        part = (part.repeat_interleave(o, dim=1) if of_x
+                else part.repeat(1, m, 1))
+        return _grid(part, n_cb, rows)
+    q, first = divmod(lo, n_cb)
+    r = torch.arange(first * rows, min((first + hi - lo) * rows, m * o),
+                     device=v.device)
+    part = v[q, r // o] if of_x else v[q, r % o]
+    return _grid(part[None], hi - lo, rows)
+
+
 _sessions: Dict[Tuple, "ExecutionSession"] = {}
 # re-entrant: freeing a tensor inside a critical section can run the
 # finalizer of an entry bound to it (_bind), which takes the lock again
@@ -685,10 +710,69 @@ _exec_transient = 0
 #: evicted first.  8 GiB holds the decode-step states of every linear of
 #: full-width qwen1.5-0.5b (about 1 GiB per decode row) up to batch 8.
 MAX_RESIDENT_BYTES = 8 << 30
+#: Bound on the bytes one crossbar launch takes on its device, reckoned on
+#: the host by :func:`launch_bytes`: a GEMM whose crossbars take more runs
+#: as several launches over contiguous ranges of them
+#: (:func:`launch_pieces`).  At 1024 columns, 37 8-bit terms and 256 rows
+#: a crossbar is reckoned at 272,640 B, so a launch holds up to 47,259
+#: crossbars: the decode steps' linears of every configuration run in one
+#: launch (granite-20b's w_in at batch 2, the largest, is 32,064
+#: crossbars, 8.74 GB), while long transient prefills split, among them
+#: llama-3.2-vision-11b's xwk over 1601 patches (710,844 crossbars).
+MAX_LAUNCH_BYTES = 12 << 30
 # every resident state per session namespace, in LRU order:
 # namespace -> {(session, key): bytes}, and the bytes of each namespace
 _resident: Dict[str, "collections.OrderedDict"] = {}
 _resident_bytes: Dict[str, int] = {}
+
+
+def launch_bytes(n_cols: int, n_terms: int, acc_bits: int,
+                 rows: int = 256, itemsize: int = 1) -> int:
+    """The bytes one crossbar of a launch takes at most, by host
+    arithmetic: its state in and the kernel's state out (``n_cols`` columns
+    of ``ceil(rows / 32)`` 32-bit words each); its two operands' rows of
+    ``n_terms`` values of ``itemsize`` bytes, each built and then padded to
+    whole crossbars, with two int64 row numbers a row; and the larger of
+    the writer's and the reader's temporaries.  ``executor._pack_bit``
+    holds a bit plane as int64 and its shifted words (``rows * n_terms``
+    int64 each) beside four word-sized sums; ``executor.read_numbers``
+    holds the ``acc_bits`` accumulator bits of each row as bool and int64,
+    their weighted values as int64, and their sum."""
+    words = -(-rows // 32)
+    padded = 32 * words
+    state = n_cols * words * 4
+    operands = 2 * (2 * padded * n_terms * itemsize + 2 * 8 * padded)
+    pack = 2 * padded * n_terms * 8 + 4 * words * n_terms * 8
+    read = acc_bits * padded * (1 + 2 * 8) + 8 * padded
+    return 2 * state + operands + max(pack, read)
+
+
+def launch_pieces(p: int, n_cb: int, per_crossbar: int,
+                  budget: Optional[int] = None) -> List[Tuple[int, int]]:
+    """Split a batch of ``p`` chunk GEMMs of ``n_cb`` crossbars each into
+    launches under ``budget`` bytes (default :data:`MAX_LAUNCH_BYTES`),
+    ``per_crossbar`` bytes a crossbar (:func:`launch_bytes`).  Returns
+    contiguous, disjoint ``[lo, hi)`` ranges of the ``p * n_cb`` crossbars
+    that cover each once, in order: one range when all fit; else runs of
+    whole chunks, as many as fit, balanced; else, when one chunk does not
+    fit, each chunk in balanced parts.  Raises when one crossbar does not
+    fit."""
+    budget = MAX_LAUNCH_BYTES if budget is None else budget
+    cap = budget // per_crossbar
+    if cap < 1:
+        raise ValueError(f"one crossbar takes {per_crossbar} B, over the "
+                         f"launch budget of {budget} B")
+    if p * n_cb <= cap:
+        return [(0, p * n_cb)]
+    if n_cb <= cap:
+        n = -(-p // (cap // n_cb))
+        size = -(-p // n) * n_cb
+        return [(lo, min(lo + size, p * n_cb))
+                for lo in range(0, p * n_cb, size)]
+    n = -(-n_cb // cap)
+    size = -(-n_cb // n)
+    return [(q * n_cb + lo, q * n_cb + min(lo + size, n_cb))
+            for q in range(p) for lo in range(0, n_cb, size)]
 
 
 class _Transient(threading.local):
@@ -854,8 +938,12 @@ class ExecutionSession:
 
         Also takes a batch of ``P`` GEMMs of this artifact, ``x`` (P, M, K)
         and ``w`` (P, O, K) -> (P, M, O): all ``P * n_cb`` crossbars run in
-        one launch.  Exact for unsigned operands up to
-        ``artifact.n_bits`` bits; returns int64 on the operands' device.
+        one launch, or, past :data:`MAX_LAUNCH_BYTES`, in one launch per
+        piece (:func:`launch_pieces`), each piece packing only its own
+        operand rows.  A transient piece's state is dropped after its
+        read; a resident state stays one tensor, its pieces run on slices
+        of it.  Exact for unsigned operands up to ``artifact.n_bits`` bits;
+        returns int64 on the operands' device.
         """
         from repro_torch.pim import executor as ex
 
@@ -880,28 +968,54 @@ class ExecutionSession:
             raise ValueError(f"operands on {x.device} and {w.device}")
         total = m * o
         n_cb = (total + rows - 1) // rows
+        pieces = launch_pieces(p, n_cb, launch_bytes(
+            art.n_cols, k, len(art.acc_cols), rows,
+            max(x.element_size(), w.element_size())))
 
         x_cols, w_cols, acc_cols = art.columns_on(x.device)
+        mc = art.microcode_on(x.device)
         keep = _transient.depth == 0
         key = (p, n_cb, m, o, _tensor_key(w))
         entry = None
         if keep:
             with _session_lock:
                 entry = self._states.get(key)
-        if entry is None:
+        if entry is not None:
+            state = entry.value
+        elif keep:
             state = ex.blank_state(p * n_cb, art.n_cols, rows,
                                    device=x.device)
-            ws = _grid(w.repeat(1, m, 1), n_cb, rows)
-            ex.write_numbers(state, w_cols, ws)
         else:
-            state = entry.value
-        xs = _grid(x.repeat_interleave(o, dim=1), n_cb, rows)
-        ex.write_numbers(state, x_cols, xs)
-        if self.backend is None:
-            state = ex.execute(state, art.microcode_on(x.device))
+            state = None                 # transient: a state per piece
+
+        def launch(lo, hi):
+            part = (ex.blank_state(hi - lo, art.n_cols, rows,
+                                   device=x.device)
+                    if state is None else state[lo:hi])
+            if entry is None:
+                ex.write_numbers(part, w_cols, _operand_rows(
+                    w, lo, hi, n_cb, rows, m, o, of_x=False))
+            ex.write_numbers(part, x_cols, _operand_rows(
+                x, lo, hi, n_cb, rows, m, o, of_x=True))
+            if self.backend is None:
+                return part, ex.execute(part, mc)
+            return part, execute_state(part, mc, backend=self.backend)
+
+        if len(pieces) == 1:
+            new = launch(0, p * n_cb)[1]
+            if keep:
+                state = new
+            acc = ex.read_numbers(new, acc_cols, rows)
+            del new
         else:
-            state = execute_state(state, art.microcode_on(x.device),
-                                  backend=self.backend)
+            acc = torch.empty((p * n_cb, rows), dtype=torch.int64,
+                              device=x.device)
+            for lo, hi in pieces:
+                part, new = launch(lo, hi)
+                acc[lo:hi] = ex.read_numbers(new, acc_cols, rows)
+                if keep:
+                    part.copy_(new)
+                del part, new
         if not keep:
             self.transient += p
             self._count("transient", p)
@@ -913,7 +1027,6 @@ class ExecutionSession:
             else:
                 self.hits += p                   # resident weights: x-only
                 self._count("hit", p)
-        acc = ex.read_numbers(state, acc_cols, rows)
         acc = acc.reshape(p, n_cb * rows)[:, :total].reshape(p, m, o)
         return acc[0] if single else acc
 
@@ -972,18 +1085,20 @@ def matmul_int(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8, *,
     Inner dimensions longer than one row's column budget
     (``max_dot_terms``) are zero-padded to whole chunks, and all
     ``ceil(K / chunk)`` chunks run as one batch of GEMMs: one artifact, one
-    kernel launch.  Zero terms add nothing, so the partials, summed in
-    int64, are exact.  Execution goes through the pooled
-    :class:`ExecutionSession` of the artifact, so repeated calls with the
-    same ``w`` tensor keep crossbar state resident (the padded weight is
-    made once per weight tensor and chunk, see :func:`_chunked_weight`).
+    kernel launch, or one per piece past :data:`MAX_LAUNCH_BYTES`.  Zero
+    terms add nothing, so the partials, summed in int64, are exact and the
+    same bits as the reference's per-chunk loop.  Execution goes through
+    the pooled :class:`ExecutionSession` of the artifact, so repeated calls
+    with the same ``w`` tensor keep crossbar state resident (the padded
+    weight is made once per weight tensor and chunk, see
+    :func:`_chunked_weight`).
 
     ``plan`` (an ``autotune.TunedPlan``) overrides model / crossbar
     geometry / chunking / execution backend with a tuned pick; passing
     ``tune_ctx`` (a pim-mode string, e.g. ``"pim_sim"``) instead looks the
     plan up in the autotuner table when tuning is enabled — a miss keeps
     the defaults, it never triggers a search.  Every configuration
-    computes the same exact integer GEMM, and still in one launch, so
+    computes the same exact integer GEMM, in the same pieces rule, so
     plans change speed, never results.
 
     ``backend`` names a registered state backend (``None``: the device's

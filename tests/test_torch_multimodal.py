@@ -8,6 +8,15 @@ reference's weights imported by ``from_reference``; the port runs on the
 CPU, i.e. on the kernels' plain versions.  Cross-attention is an einsum in
 the reference and reaches no Pallas kernel; its ``pim_sim`` linears run
 its host interpreter, so the ``pim_sim`` cases keep to the seamless model.
+The vision model's ``pim_sim`` prefill and decode step run in the port
+alone (the reference's model would run every GEMM through that
+interpreter a second time, doubling the case's several minutes), with the
+launch budget (``engine.MAX_LAUNCH_BYTES``) cut to ``SPLIT_CROSSBARS``
+crossbars so that its ``xwk``/``xwv`` over the patches run as several
+launches, as the full-width model's do: each GEMM is held to the
+reference's ``matmul_int``, the logits to the same run on the exact
+integer product, the launches to the pieces ``engine.launch_pieces``
+reckons for the recorded GEMMs.
 
 Exact: every integer GEMM of the path (each ``quant`` int32 accumulator
 equal to the reference's Pallas kernel in interpret mode, each
@@ -67,6 +76,9 @@ NAMES = (SEAMLESS, VISION)
 FRAMES = 6
 # prompt length of the prefill cases
 PLEN = 7
+# crossbars a launch may hold in the vision model's pim_sim case: its xwk
+# (18 patch rows x 32 outputs, 2 chunks of 3 crossbars) runs as 2 launches
+SPLIT_CROSSBARS = 4
 
 
 def _np_tree(tree):
@@ -300,6 +312,43 @@ def _linears(cfg, prefill: bool):
     return n + (7 * cfg.n_encoder_layers if prefill else 0)
 
 
+def _pieces(x, w, bits):
+    """Launches of one ``engine.matmul_int`` call on (M, K) x (O, K)
+    uint8 operands by the engine's rule: 37-term chunks, 256 rows a
+    crossbar, pieces under ``engine.MAX_LAUNCH_BYTES``."""
+    (m, k), o = x.shape, w.shape[0]
+    art = engine.compile_matmul(min(k, 37), bits)
+    per = engine.launch_bytes(art.n_cols, art.n_terms, len(art.acc_cols))
+    return len(engine.launch_pieces(-(-k // 37), -(-m * o // 256), per))
+
+
+@contextlib.contextmanager
+def _split_launches(calls, memory_rows):
+    """Cut the launch budget to ``SPLIT_CROSSBARS`` crossbars and count the
+    crossbar launches; on exit, hold them to the pieces of the GEMMs
+    recorded in ``calls`` and require that ``xwk``/``xwv`` (the GEMMs on
+    the ``memory_rows`` rows of the memory) split."""
+    from repro_torch.kernels import crossbar_exec as xb
+
+    art = engine.compile_matmul(37, 8)
+    budget = SPLIT_CROSSBARS * engine.launch_bytes(
+        art.n_cols, art.n_terms, len(art.acc_cols))
+    real, launches = xb.crossbar_exec, []
+
+    def count(state, mc):
+        launches.append(state.shape[0])
+        return real(state, mc)
+
+    with mock.patch.object(engine, "MAX_LAUNCH_BYTES", budget), \
+            mock.patch.object(xb, "crossbar_exec", count):
+        yield
+        pieces = [_pieces(x, w, bits) for x, w, _, bits in calls]
+    assert len(launches) == sum(pieces)
+    assert max(launches) <= SPLIT_CROSSBARS
+    xkv = [n for (x, *_), n in zip(calls, pieces) if len(x) == memory_rows]
+    assert len(xkv) == 2 and min(xkv) > 1
+
+
 def _xattn(tree):
     return {(i, k): v.clone() for i, c in tree.items() for k, v in c.items()
             if k in ("xk", "xv")}
@@ -363,6 +412,43 @@ def test_prefill_and_decode_match_reference(name, mode):
         steps = 1 if mode == "pim_sim" else 2
         assert len(calls) - n_prefill == steps * _linears(ct, False)
         _check_gemms(mode, calls)
+
+
+def test_vision_pim_sim_holds_every_gemm_to_the_reference():
+    """The vision model in ``pim_sim`` with its ``xwk``/``xwv`` split
+    into several launches: a prefill of 2 x 7 tokens with 9 patches each
+    and one ``decode_step_slots`` (slot 1 inactive).  Every integer GEMM
+    equals the reference's ``matmul_int``, the launches equal their
+    pieces, and the logits and tokens equal, bit for bit, those of the
+    same steps on the exact integer product."""
+    _, cfg_t, _, pt = _pair(VISION)
+    ct = cfg_t.scaled(pim_mode="pim_sim")
+    toks = np.random.default_rng(4).integers(0, ct.vocab_size, (2, PLEN))
+    _, bt = _batches(cfg_t, toks, _media(cfg_t, 2, 4))
+    pos = torch.tensor([PLEN, PLEN])
+    active = torch.tensor([True, False])
+
+    def steps():
+        logits, cache = TM.prefill(pt, bt, ct)
+        tok, logits2, _ = TM.decode_step_slots(
+            pt, logits.argmax(-1)[:, None], pos, active, cache, ct)
+        return logits, tok, logits2
+
+    def exact(x, w, n_bits=8, **kw):
+        return (x.double() @ w.double().T).long()
+
+    calls = []
+    engine.clear_cache()
+    with _split_launches(calls, 2 * ct.n_patches), \
+            _recording("pim_sim", calls):
+        got = steps()
+    with mock.patch.object(engine, "matmul_int", exact):
+        want = steps()
+    engine.clear_cache()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert len(calls) == _linears(ct, True) + _linears(ct, False)
+    _check_gemms("pim_sim", calls)
 
 
 def _noise_caches(specs, rng):
