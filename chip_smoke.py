@@ -1997,8 +1997,11 @@ def _train_steps(params, batches, cfg, ocfg, which):
 def _busy(prof, top=6):
     """Device-busy ms of a profiled step and its ``top`` kernels."""
     events = prof.key_averages()
+    # device events but the spans of record_function ranges (the port's
+    # repro: spans open inside a profiled step)
     kernels = sorted((e for e in events
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
                      key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     ours = [e for e in kernels[top:] if "quant_matmul_kernel" in e.key

@@ -6,6 +6,7 @@ import torch
 from repro_torch.kernels.quant_matmul.quant_matmul import (
     quant_matmul_int, quant_matmul_int_ref)
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+from repro_torch.runtime.trace import span
 
 __all__ = ["quantize_sym", "quant_linear", "quant_matmul_int",
            "quant_matmul_ref", "quant_matmul_int_ref"]
@@ -33,9 +34,12 @@ def quant_linear(x: torch.Tensor, w: torch.Tensor, bits: int = 8
     CUDA tensor, its plain version on a CPU tensor."""
     lead = x.shape[:-1]
     k = x.shape[-1]
-    x2 = x.reshape(-1, k).to(torch.float32)
-    xq, xs = quantize_sym(x2, axis=1, bits=bits)
-    wq, ws = quantize_sym(w.to(torch.float32), axis=0, bits=bits)
-    acc = quant_matmul_int(xq, wq)
-    y = acc.to(torch.float32) * xs[:, None] * ws[None, :]
-    return y.reshape(*lead, w.shape[1]).to(x.dtype)
+    with span("linear.quantize"):
+        x2 = x.reshape(-1, k).to(torch.float32)
+        xq, xs = quantize_sym(x2, axis=1, bits=bits)
+        wq, ws = quantize_sym(w.to(torch.float32), axis=0, bits=bits)
+    with span("quant.gemm"):
+        acc = quant_matmul_int(xq, wq)
+    with span("linear.rescale"):
+        y = acc.to(torch.float32) * xs[:, None] * ws[None, :]
+        return y.reshape(*lead, w.shape[1]).to(x.dtype)

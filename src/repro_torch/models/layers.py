@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.runtime.trace import span
 from repro_torch.tree import leaves, rebuild
 
 Params = Dict[str, Any]
@@ -169,20 +170,22 @@ def linear(x, w, b=None, *, mode: Optional[str] = None):
     """
     from repro_torch.pim import engine
 
-    mode = engine.resolve_mode(mode)
-    if mode == "quant":
-        from repro_torch.kernels.quant_matmul import quant_linear
+    with span("linear"):
+        mode = engine.resolve_mode(mode)
+        if mode == "quant":
+            from repro_torch.kernels.quant_matmul import quant_linear
 
-        y = quant_linear(x, w.to(torch.float32))
-    elif mode == "quant_tp":
-        y = engine.get_backend("quant_tp")(x, w)
-    elif mode == "pim_sim":
-        y = engine.sim_linear(x, w)
-    else:
-        y = x @ w.to(x.dtype)
-    if b is not None:
-        y = y + b.to(y.dtype)
-    return y
+            # quant_linear casts w to float32 inside its quantization
+            y = quant_linear(x, w)
+        elif mode == "quant_tp":
+            y = engine.get_backend("quant_tp")(x, w)
+        elif mode == "pim_sim":
+            y = engine.sim_linear(x, w)
+        else:
+            y = x @ w.to(x.dtype)
+        if b is not None:
+            y = y + b.to(y.dtype)
+        return y
 
 
 def embed_lookup(table, ids):

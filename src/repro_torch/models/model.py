@@ -91,6 +91,7 @@ from repro_torch.models.layers import (Spec, activation, apply_rope,
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import mamba_mixer
 from repro_torch.models.xlstm import mlstm_block, slstm_block
+from repro_torch.runtime.trace import span
 from repro_torch.tree import leaves as _leaves
 
 Params = Dict[str, Any]
@@ -921,7 +922,7 @@ def prefill(params, batch, cfg: ModelConfig, last_index=None, prefix=None):
     scatters them at block offset ``m``).
     """
     _check_supported(cfg)
-    with _transient_ctx(cfg):
+    with _transient_ctx(cfg), span("model.prefill"):
         tokens = batch["tokens"]
         x = _embed_in(params, tokens, cfg)
         memory = _memory(params, batch, cfg)
@@ -955,7 +956,7 @@ def prefill_packed(params, tokens, positions, segment_ids, last_index,
     ``PagedCachePool.admit(start=)`` unpacks each segment.
     """
     _check_supported(cfg)
-    with _transient_ctx(cfg):
+    with _transient_ctx(cfg), span("model.prefill"):
         positions = torch.as_tensor(positions, device=tokens.device).long()
         x = _embed_in(params, tokens, cfg)
         x, caches = _decoder_stack(params, x, cfg, positions=positions,
@@ -976,7 +977,7 @@ def decode_step(params, token, pos, caches, cfg: ModelConfig):
     """One greedy decode step. token: (B, 1) int; pos: scalar int.
     Updates ``caches`` in place."""
     _check_supported(cfg)
-    with _pim_ctx(cfg):
+    with _pim_ctx(cfg), span("model.decode_step"):
         x = _embed_in(params, token, cfg)
         positions = torch.full((1,), int(pos), dtype=torch.int64,
                                device=token.device)
@@ -1006,7 +1007,7 @@ def decode_step_slots(params, tokens, pos, active, caches, cfg: ModelConfig,
     leaves to the block-paged layout.  Updates ``caches`` in place.
     """
     _check_supported(cfg)
-    with _pim_ctx(cfg):
+    with _pim_ctx(cfg), span("model.decode_step"):
         pos = pos.long()
         x = _embed_in(params, tokens, cfg)
         x, new_caches = _decoder_stack(
@@ -1050,7 +1051,7 @@ def decode_run_slots(params, tokens, pos, active, caches, cfg: ModelConfig,
     (contiguous).  Updates ``caches`` in place.
     """
     _check_supported(cfg)
-    with _pim_ctx(cfg):
+    with _pim_ctx(cfg), span("model.decode_step"):
         pos = pos.long()
         run = torch.arange(tokens.shape[1], device=tokens.device)
         x = _embed_in(params, tokens, cfg)

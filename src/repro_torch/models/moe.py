@@ -58,6 +58,7 @@ import torch
 from repro_torch.dist import context as dctx
 from repro_torch.dist.zero import Gathered, gather_experts, gather_rows, psum
 from repro_torch.models.layers import activation
+from repro_torch.runtime.trace import span
 
 __all__ = ["expert_capacity", "moe_ffn", "router_top_k"]
 
@@ -136,57 +137,65 @@ def moe_ffn(x, params: Dict, cfg) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d).  params: router (d, E), w1/w3 (E, d, f),
     w2 (E, f, d).  Without a mesh all ``B * S`` tokens route together and
     the capacity counts them all; under one, see the module docstring."""
-    b, s, d = x.shape
-    e = cfg.n_experts
-    k = cfg.top_k
-    xf = x.reshape(b * s, d)
-    top_w, top_ids = router_top_k(xf, params["router"], k)
-    mesh = dctx.current_mesh()
-    tp_ax = dctx.mesh_axes(mesh)[1] if mesh is not None else None
-    # ZeRO-3 expert weights keep the expert-parallel path even at model 1,
-    # as the reference's shard_map branch does
-    zero3 = (mesh is not None and cfg.moe_fsdp_gather
-             and "data" in mesh.axis_names and mesh.shape["data"] > 1)
-    if mesh is None or tp_ax is None or (mesh.shape[tp_ax] == 1
-                                         and not zero3):
-        cap = expert_capacity(b * s, k, cfg.capacity_factor, e)
-        out = _local_moe(xf, top_ids, top_w, params["w1"], params["w2"],
-                         params.get("w3"), capacity=cap,
-                         act_name=cfg.activation)
-        return out.to(x.dtype).reshape(b, s, d)
+    with span("moe.ffn"):
+        b, s, d = x.shape
+        e = cfg.n_experts
+        k = cfg.top_k
+        xf = x.reshape(b * s, d)
+        with span("moe.route"):
+            top_w, top_ids = router_top_k(xf, params["router"], k)
+        mesh = dctx.current_mesh()
+        tp_ax = dctx.mesh_axes(mesh)[1] if mesh is not None else None
+        # ZeRO-3 expert weights keep the expert-parallel path even at
+        # model 1, as the reference's shard_map branch does
+        zero3 = (mesh is not None and cfg.moe_fsdp_gather
+                 and "data" in mesh.axis_names and mesh.shape["data"] > 1)
+        if mesh is None or tp_ax is None or (mesh.shape[tp_ax] == 1
+                                             and not zero3):
+            cap = expert_capacity(b * s, k, cfg.capacity_factor, e)
+            with span("moe.experts"):
+                out = _local_moe(xf, top_ids, top_w, params["w1"],
+                                 params["w2"], params.get("w3"),
+                                 capacity=cap, act_name=cfg.activation)
+            return out.to(x.dtype).reshape(b, s, d)
 
-    if "w3" not in params:
-        raise ValueError("MoE experts are gated (SwiGLU) in all configs")
-    if e % mesh.shape[tp_ax]:
-        raise ValueError(f"{e} experts do not split over {tp_ax} = "
-                         f"{mesh.shape[tp_ax]} ranks")
-    if isinstance(params, Gathered) and params.row_axes:
-        # the sharded trainer's local batch: these rows are this rank's
-        # block of the tokens already
-        dp, dp_size = (), 1
-    else:
-        dp = dctx.mesh_axes(mesh)[0]
-        dp_size = mesh.axis_size(dp) if dp else 1
-        if (b * s) % dp_size:
-            dp, dp_size = (), 1   # batch-1 decode: every data rank routes all
-    t_loc = (b * s) // dp_size
-    e_loc = e // mesh.shape[tp_ax]
-    e_base = mesh.index(tp_ax) * e_loc
-    rows = slice(mesh.index(dp) * t_loc, (mesh.index(dp) + 1) * t_loc) \
-        if dp else slice(None)
-    if zero3 and isinstance(params, Gathered):
-        w1, w2, w3 = (gather_experts(params.shard(n), params.spec(n), mesh,
-                                     e_loc, tp_ax) for n in ("w1", "w2", "w3"))
-    else:
-        experts = slice(e_base, e_base + e_loc)
-        w1, w2, w3 = (params[n][experts] for n in ("w1", "w2", "w3"))
-    part = _local_moe(xf[rows], top_ids[rows], top_w[rows], w1, w2, w3,
-                      capacity=expert_capacity(t_loc, k, cfg.capacity_factor,
-                                               e),
-                      act_name=cfg.activation, e_base=e_base)
-    # the sum over the model group in the compute dtype, as the reference's
-    # psum (the float32 accumulation inside _local_moe took the long sums)
-    out = psum(part.to(x.dtype), tp_ax, mesh)
-    if dp:
-        out = gather_rows(out, dp, mesh)
-    return out.reshape(b, s, d)
+        if "w3" not in params:
+            raise ValueError("MoE experts are gated (SwiGLU) in all "
+                             "configs")
+        if e % mesh.shape[tp_ax]:
+            raise ValueError(f"{e} experts do not split over {tp_ax} = "
+                             f"{mesh.shape[tp_ax]} ranks")
+        if isinstance(params, Gathered) and params.row_axes:
+            # the sharded trainer's local batch: these rows are this rank's
+            # block of the tokens already
+            dp, dp_size = (), 1
+        else:
+            dp = dctx.mesh_axes(mesh)[0]
+            dp_size = mesh.axis_size(dp) if dp else 1
+            if (b * s) % dp_size:
+                # batch-1 decode: every data rank routes all
+                dp, dp_size = (), 1
+        t_loc = (b * s) // dp_size
+        e_loc = e // mesh.shape[tp_ax]
+        e_base = mesh.index(tp_ax) * e_loc
+        rows = (slice(mesh.index(dp) * t_loc, (mesh.index(dp) + 1) * t_loc)
+                if dp else slice(None))
+        if zero3 and isinstance(params, Gathered):
+            w1, w2, w3 = (gather_experts(params.shard(n), params.spec(n),
+                                         mesh, e_loc, tp_ax)
+                          for n in ("w1", "w2", "w3"))
+        else:
+            experts = slice(e_base, e_base + e_loc)
+            w1, w2, w3 = (params[n][experts] for n in ("w1", "w2", "w3"))
+        with span("moe.experts"):
+            part = _local_moe(xf[rows], top_ids[rows], top_w[rows], w1, w2,
+                              w3, capacity=expert_capacity(
+                                  t_loc, k, cfg.capacity_factor, e),
+                              act_name=cfg.activation, e_base=e_base)
+        # the sum over the model group in the compute dtype, as the
+        # reference's psum (the float32 accumulation inside _local_moe took
+        # the long sums)
+        out = psum(part.to(x.dtype), tp_ax, mesh)
+        if dp:
+            out = gather_rows(out, dp, mesh)
+        return out.reshape(b, s, d)

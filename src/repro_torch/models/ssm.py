@@ -17,6 +17,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.runtime.trace import span
+
 __all__ = ["mamba_mixer"]
 
 
@@ -30,45 +32,46 @@ def mamba_mixer(x, params: Dict, cfg, state: Tuple = None):
 
     ``state`` = (ssm_state (B, di, ds) float32, conv_state (B, d_conv-1,
     di)) or None for a fresh sequence (training/prefill from scratch)."""
-    b, s, _ = x.shape
-    di, ds, dc = cfg.d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
-    dtr = cfg.dt_rank
-    cdt = x.dtype
+    with span("ssm.mixer"):
+        b, s, _ = x.shape
+        di, ds, dc = cfg.d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+        dtr = cfg.dt_rank
+        cdt = x.dtype
 
-    xz = x @ params["in_proj"].to(cdt)                # (B, S, 2*di)
-    xi, z = torch.split(xz, di, dim=-1)
+        xz = x @ params["in_proj"].to(cdt)                # (B, S, 2*di)
+        xi, z = torch.split(xz, di, dim=-1)
 
-    # causal depthwise conv over S
-    conv_w = params["conv_w"].to(cdt)                 # (dc, di)
-    if state is None:
-        tail = torch.zeros((b, dc - 1, di), dtype=cdt, device=x.device)
-    else:
-        tail = state[1].to(cdt)
-    xi_pad = torch.cat([tail, xi], dim=1)             # (B, S+dc-1, di)
-    conv = sum(xi_pad[:, t:t + s, :] * conv_w[t] for t in range(dc))
-    conv = conv + params["conv_b"].to(cdt)
-    new_tail = xi_pad[:, xi_pad.shape[1] - (dc - 1):, :]
-    u = F.silu(conv)                                  # (B, S, di)
+        # causal depthwise conv over S
+        conv_w = params["conv_w"].to(cdt)                 # (dc, di)
+        if state is None:
+            tail = torch.zeros((b, dc - 1, di), dtype=cdt, device=x.device)
+        else:
+            tail = state[1].to(cdt)
+        xi_pad = torch.cat([tail, xi], dim=1)             # (B, S+dc-1, di)
+        conv = sum(xi_pad[:, t:t + s, :] * conv_w[t] for t in range(dc))
+        conv = conv + params["conv_b"].to(cdt)
+        new_tail = xi_pad[:, xi_pad.shape[1] - (dc - 1):, :]
+        u = F.silu(conv)                                  # (B, S, di)
 
-    # input-dependent SSM parameters
-    proj = u @ params["x_proj"].to(cdt)               # (B, S, dtr+2*ds)
-    dt_r, b_t, c_t = torch.split(proj, [dtr, ds, ds], dim=-1)
-    dt = _softplus(dt_r @ params["dt_proj"].to(cdt)
-                   + params["dt_bias"].to(cdt))       # (B, S, di)
-    a = -torch.exp(params["a_log"].to(torch.float32))  # (di, ds)
+        # input-dependent SSM parameters
+        proj = u @ params["x_proj"].to(cdt)               # (B, S, dtr+2*ds)
+        dt_r, b_t, c_t = torch.split(proj, [dtr, ds, ds], dim=-1)
+        dt = _softplus(dt_r @ params["dt_proj"].to(cdt)
+                       + params["dt_bias"].to(cdt))       # (B, S, di)
+        a = -torch.exp(params["a_log"].to(torch.float32))  # (di, ds)
 
-    f32 = torch.float32
-    da = torch.exp(dt[..., None].to(f32) * a)         # (B, S, di, ds)
-    dbu = (dt * u)[..., None].to(f32) * b_t[:, :, None, :].to(f32)
-    c32 = c_t.to(f32)
-    h = (torch.zeros((b, di, ds), dtype=f32, device=x.device)
-         if state is None else state[0].to(f32))
-    ys = []
-    for t in range(s):
-        h = da[:, t] * h + dbu[:, t]
-        ys.append(torch.einsum("bis,bs->bi", h, c32[:, t]))
-    y = torch.stack(ys, dim=1).to(cdt)                # (B, S, di)
-    y = y + u * params["d_skip"].to(cdt)
-    y = y * F.silu(z)
-    out = y @ params["out_proj"].to(cdt)
-    return out, (h, new_tail)
+        f32 = torch.float32
+        da = torch.exp(dt[..., None].to(f32) * a)         # (B, S, di, ds)
+        dbu = (dt * u)[..., None].to(f32) * b_t[:, :, None, :].to(f32)
+        c32 = c_t.to(f32)
+        h = (torch.zeros((b, di, ds), dtype=f32, device=x.device)
+             if state is None else state[0].to(f32))
+        ys = []
+        for t in range(s):
+            h = da[:, t] * h + dbu[:, t]
+            ys.append(torch.einsum("bis,bs->bi", h, c32[:, t]))
+        y = torch.stack(ys, dim=1).to(cdt)                # (B, S, di)
+        y = y + u * params["d_skip"].to(cdt)
+        y = y * F.silu(z)
+        out = y @ params["out_proj"].to(cdt)
+        return out, (h, new_tail)

@@ -106,6 +106,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.runtime.trace import span
+
 __all__ = [
     "MODES",
     "CompiledPim",
@@ -988,34 +990,49 @@ class ExecutionSession:
         else:
             state = None                 # transient: a state per piece
 
+        write_back = keep and len(pieces) > 1
+
         def launch(lo, hi):
-            part = (ex.blank_state(hi - lo, art.n_cols, rows,
-                                   device=x.device)
-                    if state is None else state[lo:hi])
-            if entry is None:
-                ex.write_numbers(part, w_cols, _operand_rows(
-                    w, lo, hi, n_cb, rows, m, o, of_x=False))
-            ex.write_numbers(part, x_cols, _operand_rows(
-                x, lo, hi, n_cb, rows, m, o, of_x=True))
-            if self.backend is None:
-                return part, ex.execute(part, mc)
-            return part, execute_state(part, mc, backend=self.backend)
+            """Pack, run and (a resident piece) write back crossbars
+            ``[lo, hi)``; returns their state after the program."""
+            with span("pim.pack"):
+                part = (ex.blank_state(hi - lo, art.n_cols, rows,
+                                       device=x.device)
+                        if state is None else state[lo:hi])
+                if entry is None:
+                    ex.write_numbers(part, w_cols, _operand_rows(
+                        w, lo, hi, n_cb, rows, m, o, of_x=False))
+                ex.write_numbers(part, x_cols, _operand_rows(
+                    x, lo, hi, n_cb, rows, m, o, of_x=True))
+            with span("pim.exec"):
+                if self.backend is None:
+                    new = ex.execute(part, mc)
+                else:
+                    new = execute_state(part, mc, backend=self.backend)
+                if write_back:
+                    part.copy_(new)
+            return new
+
+        def shaped(acc):
+            return acc.reshape(p, n_cb * rows)[:, :total].reshape(p, m, o)
 
         if len(pieces) == 1:
-            new = launch(0, p * n_cb)[1]
+            new = launch(0, p * n_cb)
             if keep:
                 state = new
-            acc = ex.read_numbers(new, acc_cols, rows)
+            with span("pim.read"):
+                acc = shaped(ex.read_numbers(new, acc_cols, rows))
             del new
         else:
             acc = torch.empty((p * n_cb, rows), dtype=torch.int64,
                               device=x.device)
             for lo, hi in pieces:
-                part, new = launch(lo, hi)
-                acc[lo:hi] = ex.read_numbers(new, acc_cols, rows)
-                if keep:
-                    part.copy_(new)
-                del part, new
+                new = launch(lo, hi)
+                with span("pim.read"):
+                    acc[lo:hi] = ex.read_numbers(new, acc_cols, rows)
+                del new
+            with span("pim.read"):
+                acc = shaped(acc)
         if not keep:
             self.transient += p
             self._count("transient", p)
@@ -1027,7 +1044,6 @@ class ExecutionSession:
             else:
                 self.hits += p                   # resident weights: x-only
                 self._count("hit", p)
-        acc = acc.reshape(p, n_cb * rows)[:, :total].reshape(p, m, o)
         return acc[0] if single else acc
 
 
@@ -1126,9 +1142,10 @@ def matmul_int(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8, *,
         chunk = plan.chunk
     if k > chunk:
         p = -(-k // chunk)
-        x = torch.nn.functional.pad(x, (0, p * chunk - k))
-        x = x.unflatten(1, (p, chunk)).transpose(0, 1)
-        w = _chunked_weight(w, p, chunk)
+        with span("pim.pack"):
+            x = torch.nn.functional.pad(x, (0, p * chunk - k))
+            x = x.unflatten(1, (p, chunk)).transpose(0, 1)
+            w = _chunked_weight(w, p, chunk)
     artifact = compile_matmul(min(k, chunk), n_bits, model=model,
                               accumulate=accumulate, n_cols=n_cols)
     if backend == "cuda" and x.device.type == "cuda":
@@ -1138,7 +1155,10 @@ def matmul_int(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8, *,
     acc = session_for(artifact, backend=backend,
                       rows_per_crossbar=rows_per_crossbar,
                       namespace=session_ns).execute(x, w)
-    return acc.sum(dim=0) if k > chunk else acc
+    if k > chunk:
+        with span("pim.read"):
+            return acc.sum(dim=0)
+    return acc
 
 
 # The weights' derived copies, each cache an LRU of _Entry bound to the
@@ -1255,20 +1275,23 @@ def _sim_forward(x: torch.Tensor, w: torch.Tensor, bits: int, model: str,
     off = qmax + 1
     lead = x.shape[:-1]
     k = x.shape[-1]
-    xf = x.detach().to(torch.float32).reshape(-1, k)
-    xs = torch.clamp(torch.amax(torch.abs(xf), dim=1, keepdim=True),
-                     min=1e-8) / qmax
-    xq = torch.clamp(torch.round(xf / xs), -qmax, qmax).to(torch.int64)
-    w_off, wsc, wq_sum = _quantized_weight(w, bits)
-    # 2's-complement offset: shift into unsigned, multiply, correct
-    # ((a+off)(b+off))
+    with span("linear.quantize"):
+        xf = x.detach().to(torch.float32).reshape(-1, k)
+        xs = torch.clamp(torch.amax(torch.abs(xf), dim=1, keepdim=True),
+                         min=1e-8) / qmax
+        xq = torch.clamp(torch.round(xf / xs), -qmax, qmax).to(torch.int64)
+        # 2's-complement offset: shift into unsigned, multiply, correct
+        # ((a+off)(b+off))
+        x_off = (xq + off).to(torch.uint8)
+        w_off, wsc, wq_sum = _quantized_weight(w, bits)
     # tune_ctx="pim_sim": pick up any tuned plan for this (K, n_bits) — a
     # no-op unless autotune is enabled and the table has a pick
-    acc = matmul_int((xq + off).to(torch.uint8), w_off, n_bits=bits + 1,
-                     model=model, tune_ctx="pim_sim", session_ns=ns)
-    corr = off * (wq_sum + off * k) + off * xq.sum(dim=1, keepdim=True)
-    y = (acc - corr).to(torch.float64) * (xs * wsc).to(torch.float64)
-    return y.reshape(*lead, w.shape[1]).to(x.dtype)
+    acc = matmul_int(x_off, w_off, n_bits=bits + 1, model=model,
+                     tune_ctx="pim_sim", session_ns=ns)
+    with span("linear.rescale"):
+        corr = off * (wq_sum + off * k) + off * xq.sum(dim=1, keepdim=True)
+        y = (acc - corr).to(torch.float64) * (xs * wsc).to(torch.float64)
+        return y.reshape(*lead, w.shape[1]).to(x.dtype)
 
 
 class _SimLinear(torch.autograd.Function):

@@ -98,6 +98,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model_lib as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.pim import engine
+from repro_torch.runtime.trace import span
 from repro_torch.serving.cache import CachePool, PagedCachePool
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.queue import AdmissionQueue, Request, make_request
@@ -558,9 +559,10 @@ class Scheduler:
             pos[s0:s0 + w] = np.arange(w)
             seg[s0:s0 + plen] = i
             last[i] = s0 + plen - 1
-        logits, cache = M.prefill_packed(
-            self.params, self._tensor(toks), self._tensor(pos),
-            self._tensor(seg), self._tensor(last), self.cfg)
+        with span("sched.prefill", [r.rid for r in pack]):
+            logits, cache = M.prefill_packed(
+                self.params, self._tensor(toks), self._tensor(pos),
+                self._tensor(seg), self._tensor(last), self.cfg)
         self.metrics.on_packed_prefill()
         firsts = torch.argmax(logits, dim=-1).cpu().numpy()
         now = self.clock()
@@ -605,8 +607,9 @@ class Scheduler:
             toks = np.full((1, self._bucket_tail(chunk, m)),
                            self.scfg.pad_id, np.int64)
             toks[0, :chunk] = req.prompt[m:m + chunk]
-            _, cache = self._prefill(toks, chunk - 1,
-                                     self.pool.read_prefix(pblocks))
+            with span("sched.prefill", [req.rid]):
+                _, cache = self._prefill(toks, chunk - 1,
+                                         self.pool.read_prefix(pblocks))
             # prompt=None: a half-written prompt must not enter the trie —
             # registration is deferred to the last chunk
             self.pool.admit(slot, cache, m + chunk, n_tok,
@@ -615,7 +618,8 @@ class Scheduler:
             toks = np.full((1, self._bucket(chunk)), self.scfg.pad_id,
                            np.int64)
             toks[0, :chunk] = req.prompt[:chunk]
-            _, cache = self._prefill(toks, chunk - 1)
+            with span("sched.prefill", [req.rid]):
+                _, cache = self._prefill(toks, chunk - 1)
             self.pool.admit(slot, cache, chunk, n_tok)
         self.metrics.on_admit(req.rid, self.clock(), prefix_tokens=m)
         self.metrics.on_prefill_chunk()
@@ -643,7 +647,8 @@ class Scheduler:
         toks[0, :tlen] = req.prompt[done:new_len]
         prefix = self.pool.read_prefix(
             self.pool.slot_blocks(slot)[:done // self.pool.block_size])
-        logits, cache = self._prefill(toks, tlen - 1, prefix)
+        with span("sched.prefill", [req.rid]):
+            logits, cache = self._prefill(toks, tlen - 1, prefix)
         self.pool.extend(slot, cache, done, new_len)
         self.metrics.on_prefill_chunk()
         self._prefill_done[slot] = new_len
@@ -710,98 +715,103 @@ class Scheduler:
         stops further admissions once this step's prefill spend would
         exceed it — the first work item of a step is always allowed.
         """
-        budget = self.scfg.step_token_budget
-        chunk = self.scfg.prefill_chunk
-        free = [int(s) for s in np.flatnonzero(~self.active_slots)]
-        while free:
-            now = self.clock()
-            head = self.queue.peek(now)
-            if head is None or head.arrival_time > now:
-                break
-            plen = head.prompt.shape[0]
-            n_tok = plen + head.max_new_tokens
-            if self._prefix_on:
-                m, pblocks = self.pool.prefix_match(head.prompt)
-                ok = self.pool.can_admit(n_tok, prefix_tokens=m)
-            else:
-                m, pblocks = 0, []
-                ok = self.pool.can_admit(n_tok)
-            if not ok:
-                if head.rid not in self._deferred_rids:  # count requests,
-                    self._deferred_rids.add(head.rid)    # not steps waiting
-                    self.metrics.on_deferred_admit()
-                break
-            chunked = (chunk is not None and plen - m > chunk
-                       and self._dense_prefill_ok(plen))
-            if chunked:
-                cost = chunk
-            elif m:
-                cost = self._bucket_tail(plen - m, m)
-            else:
-                cost = self._bucket(plen)
-            if budget is not None and spent and spent + cost > budget:
-                break
-            if (self.scfg.packed_prefill and not chunked
-                    and self._packable(head, m)):
-                pack = self._collect_pack(now, len(free), spent)
-                if len(pack) > 1:
-                    spent += self._admit_packed(pack, free, emitted)
+        with span("sched.admit"):
+            budget = self.scfg.step_token_budget
+            chunk = self.scfg.prefill_chunk
+            free = [int(s) for s in np.flatnonzero(~self.active_slots)]
+            while free:
+                now = self.clock()
+                head = self.queue.peek(now)
+                if head is None or head.arrival_time > now:
+                    break
+                plen = head.prompt.shape[0]
+                n_tok = plen + head.max_new_tokens
+                if self._prefix_on:
+                    m, pblocks = self.pool.prefix_match(head.prompt)
+                    ok = self.pool.can_admit(n_tok, prefix_tokens=m)
+                else:
+                    m, pblocks = 0, []
+                    ok = self.pool.can_admit(n_tok)
+                if not ok:
+                    # count requests, not steps waiting
+                    if head.rid not in self._deferred_rids:
+                        self._deferred_rids.add(head.rid)
+                        self.metrics.on_deferred_admit()
+                    break
+                chunked = (chunk is not None and plen - m > chunk
+                           and self._dense_prefill_ok(plen))
+                if chunked:
+                    cost = chunk
+                elif m:
+                    cost = self._bucket_tail(plen - m, m)
+                else:
+                    cost = self._bucket(plen)
+                if budget is not None and spent and spent + cost > budget:
+                    break
+                if (self.scfg.packed_prefill and not chunked
+                        and self._packable(head, m)):
+                    pack = self._collect_pack(now, len(free), spent)
+                    if len(pack) > 1:
+                        spent += self._admit_packed(pack, free, emitted)
+                        continue
+                    req = pack[0]   # a pack of one admits like any other
+                else:
+                    req = self.queue.pop(now)
+                    assert req is head, "peek/pop selection must agree"
+                    self._deferred_rids.discard(req.rid)
+                spent += cost
+                if chunked:
+                    self._begin_chunked(free.pop(0), req, m, pblocks)
                     continue
-                req = pack[0]   # a pack of one admits like any other
-            else:
-                req = self.queue.pop(now)
-                assert req is head, "peek/pop selection must agree"
-                self._deferred_rids.discard(req.rid)
-            spent += cost
-            if chunked:
-                self._begin_chunked(free.pop(0), req, m, pblocks)
-                continue
-            if m:
-                tlen = plen - m
-                toks = np.full((1, self._bucket_tail(tlen, m)),
-                               self.scfg.pad_id, np.int64)
-                toks[0, :tlen] = req.prompt[m:]
-                logits, cache = self._prefill(toks, tlen - 1,
-                                              self.pool.read_prefix(pblocks))
-            else:
-                toks = np.full((1, self._bucket(plen)), self.scfg.pad_id,
-                               np.int64)
-                toks[0, :plen] = req.prompt
-                logits, cache = self._prefill(toks, plen - 1)
-            first = int(torch.argmax(logits, dim=-1)[0])
-            now = self.clock()
-            self.metrics.on_admit(req.rid, now, prefix_tokens=m)
-            self.metrics.on_token(req.rid, now)
-            self._outputs[req.rid] = [first]
-            emitted.append((req.rid, first))
-            if req.max_new_tokens <= 1 or first == self.scfg.eos_id:
-                # finished at admit: never touches a slot; retry the same
-                # slot with the next queued request
-                self.metrics.on_finish(req.rid, now)
-                continue
-            slot = free.pop(0)
-            if self._prefix_on:
-                self.pool.admit(slot, cache, plen, n_tok, prompt=req.prompt,
-                                prefix_blocks=pblocks)
-            else:
-                self.pool.admit(slot, cache, plen, n_tok)
-            self._occupy(slot, req, first, plen)
-        return spent
+                if m:
+                    tlen = plen - m
+                    toks = np.full((1, self._bucket_tail(tlen, m)),
+                                   self.scfg.pad_id, np.int64)
+                    toks[0, :tlen] = req.prompt[m:]
+                    with span("sched.prefill", [req.rid]):
+                        logits, cache = self._prefill(
+                            toks, tlen - 1, self.pool.read_prefix(pblocks))
+                else:
+                    toks = np.full((1, self._bucket(plen)), self.scfg.pad_id,
+                                   np.int64)
+                    toks[0, :plen] = req.prompt
+                    with span("sched.prefill", [req.rid]):
+                        logits, cache = self._prefill(toks, plen - 1)
+                first = int(torch.argmax(logits, dim=-1)[0])
+                now = self.clock()
+                self.metrics.on_admit(req.rid, now, prefix_tokens=m)
+                self.metrics.on_token(req.rid, now)
+                self._outputs[req.rid] = [first]
+                emitted.append((req.rid, first))
+                if req.max_new_tokens <= 1 or first == self.scfg.eos_id:
+                    # finished at admit: never touches a slot; retry the same
+                    # slot with the next queued request
+                    self.metrics.on_finish(req.rid, now)
+                    continue
+                slot = free.pop(0)
+                if self._prefix_on:
+                    self.pool.admit(slot, cache, plen, n_tok,
+                                    prompt=req.prompt, prefix_blocks=pblocks)
+                else:
+                    self.pool.admit(slot, cache, plen, n_tok)
+                self._occupy(slot, req, first, plen)
+            return spent
 
     def _decode(self, active: np.ndarray):
-        dev = self.device
-        tokens = torch.as_tensor(self._tokens).to(dev)
-        pos = torch.as_tensor(self._pos).to(dev)
-        act = torch.as_tensor(active).to(dev)
-        tables = self.pool.block_tables
-        self._decode_shapes.add(
-            (tuple(tokens.shape), tuple(pos.shape), tuple(act.shape),
-             None if tables is None else tuple(tables.shape)))
-        next_tok, _, new_caches = M.decode_step_slots(
-            self.params, tokens, pos, act, self.pool.caches, self.cfg,
-            block_tables=tables)
-        self.pool.caches = new_caches
-        return next_tok.cpu().numpy()
+        with span("sched.decode", self._slot_rid[active]):
+            dev = self.device
+            tokens = torch.as_tensor(self._tokens).to(dev)
+            pos = torch.as_tensor(self._pos).to(dev)
+            act = torch.as_tensor(active).to(dev)
+            tables = self.pool.block_tables
+            self._decode_shapes.add(
+                (tuple(tokens.shape), tuple(pos.shape), tuple(act.shape),
+                 None if tables is None else tuple(tables.shape)))
+            next_tok, _, new_caches = M.decode_step_slots(
+                self.params, tokens, pos, act, self.pool.caches, self.cfg,
+                block_tables=tables)
+            self.pool.caches = new_caches
+            return next_tok.cpu().numpy()
 
     @torch.no_grad()
     def step(self) -> List[Tuple[int, int]]:
@@ -858,9 +868,10 @@ class Scheduler:
         budget and EOS), and roll the rest back by not advancing ``_pos``
         past the accepted rows."""
         spec = self._spec
-        toks_run, vt, new_caches = spec.run_round(
-            self.params, self._tokens, self._pos, active, self.pool.caches,
-            self.pool.block_tables, self.device)
+        with span("sched.decode", self._slot_rid[active]):
+            toks_run, vt, new_caches = spec.run_round(
+                self.params, self._tokens, self._pos, active,
+                self.pool.caches, self.pool.block_tables, self.device)
         self.pool.caches = new_caches
         now = self.clock()
         for slot in np.flatnonzero(active):
