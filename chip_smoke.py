@@ -38,6 +38,16 @@ prefix cache and 16-token chunks, tokens held to the exact integer
 product, then one 64-token prompt whose memory high-water mark must stay
 below ``PIM_PEAK_BYTES``.
 
+The ``pim_sim`` engine's bit-plane kernels (``check_pim_bits``): the writer
+and the reader of ``kernels.pim_bits`` are held state for state to the
+engine's plain packing and reading at jamba-v0.1's w_in and w_out decode
+shapes and on llama-vision's xwk prefill (one launch piece of whole chunks,
+one part of a chunk); four resident w_in decode steps through the engine
+on the kernels equal the plain path's results and state; both kernels are
+timed beside the plain path and their byte bounds.  ``serve_jamba`` holds
+them to one x write and one read per linear a decode step (and one w write
+in the step that uploads).
+
 The paper's multipliers run on the crossbar kernel through the engine's
 backend registry (``check_multipliers``): serial, serial_fast,
 compressor42 (``engine.build_multiplier``) and MultPIM at n = 8, 16 and 32
@@ -814,6 +824,171 @@ def check_crossbar_kernel(dev):
 
 
 # --------------------------------------------------------------------------
+# phase 3a: the pim_sim engine's bit-plane kernels
+# --------------------------------------------------------------------------
+
+# (name, M, K, O) of the crossbar GEMMs held, K in 37-term chunks: jamba-
+# v0.1's w_in (the first: its decode steps are run and timed too) and
+# w_out at batch 2, llama-3.2-vision-11b's xwk over 2 x 1601 patch rows
+PIM_BITS_SHAPES = (("jamba w_in", 2, 4096, 14336),
+                   ("jamba w_out", 2, 14336, 4096),
+                   ("llama-vision xwk", 3202, 4096, 1024))
+PIM_BITS_STEPS = 4          # resident decode steps held to the plain path
+
+
+def check_pim_bits(dev):
+    """The writer and reader of ``kernels.pim_bits`` against the engine's
+    plain path (``executor.write_numbers`` over ``engine._operand_rows``,
+    and ``executor.read_numbers``), state for state on a random state: at
+    jamba-v0.1's w_in and w_out decode shapes (12,432 and 12,416
+    crossbars), and at llama-vision's xwk on one launch piece as the
+    engine's byte budget cuts it (three whole chunks from the fourth,
+    38,424 crossbars) and on a part of one chunk.  Then
+    ``PIM_BITS_STEPS`` resident decode steps of w_in through
+    ``ExecutionSession.execute`` on the kernels and on the plain path:
+    results, resident states and the exact product all equal, one write a
+    step (and w's at the upload) and one read.  Last, both kernels timed at
+    w_in beside the plain path and their byte bounds.  Returns a row."""
+    from repro_torch.kernels import pim_bits
+    from repro_torch.pim import engine
+    from repro_torch.pim import executor as ex
+
+    art = engine.compile_matmul(37, 8)
+    x_cols, w_cols, acc = art.columns_on(dev)
+    n, rows, k = art.n_cols, 256, art.n_terms
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def operand(r, p):
+        """(p, r, 37) uint8, a strided view as ``matmul_int`` chunks it."""
+        flat = torch.randint(0, 256, (r, p * k), dtype=torch.uint8,
+                             device=dev, generator=gen)
+        return flat.unflatten(1, (p, k)).transpose(0, 1)
+
+    def rand_state(c):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, (c, n, rows // 32),
+                             dtype=torch.int32, device=dev, generator=gen)
+
+    def plain_write(part, v, cols, lo, hi, n_cb, m, o, of_x):
+        return ex.write_numbers(part, cols, engine._operand_rows(
+            v, lo, hi, n_cb, rows, m, o, of_x))
+
+    held = []
+    for name, m, kk, o in PIM_BITS_SHAPES:
+        p, n_cb = -(-kk // k), -(-m * o // rows)
+        x, w = operand(m, p), operand(o, p)
+        pieces = engine.launch_pieces(p, n_cb, engine.launch_bytes(
+            n, k, len(acc), rows))
+        # one launch; or the second piece and a part of the chunk it starts
+        first = pieces[1][0] if len(pieces) > 1 else 0
+        ranges = [pieces[0]] if len(pieces) == 1 else [
+            pieces[1], (first + n_cb // 10, first + n_cb // 2)]
+        for lo, hi in ranges:
+            start = rand_state(hi - lo)
+            for v, cols, of_x in ((x, x_cols, True), (w, w_cols, False)):
+                got = pim_bits.write_operand(start.clone(), v, cols, lo, hi,
+                                             n_cb, rows, m, o, of_x)
+                want = plain_write(start.clone(), v, cols, lo, hi, n_cb, m,
+                                   o, of_x)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"pim_bits writer != write_numbers at {name} "
+                        f"[{lo}, {hi}) ({'x' if of_x else 'w'})")
+                del got, want
+            if not torch.equal(pim_bits.read_accumulators(start, acc, rows),
+                               ex.read_numbers(start, acc, rows)):
+                raise AssertionError(f"pim_bits reader != read_numbers at "
+                                     f"{name} [{lo}, {hi})")
+            held.append((name, lo, hi))
+            del start
+        torch.cuda.synchronize()
+    say(f"[pim_bits] writer (x and w) == write_numbers of the operand rows, "
+        f"reader == read_numbers, exact state, at (GEMM, crossbars "
+        f"[lo, hi)) {held}")
+
+    # resident decode steps of jamba's w_in: the kernels against the plain
+    # path, through the engine
+    _, m, kk, o = PIM_BITS_SHAPES[0]
+    p, n_cb = -(-kk // k), -(-m * o // rows)
+
+    def chunked(t):
+        return torch.nn.functional.pad(t, (0, p * k - kk)).unflatten(
+            1, (p, k)).transpose(0, 1)
+
+    wt = torch.randint(0, 256, (o, kk), dtype=torch.uint8, device=dev,
+                       generator=gen)
+    xs = [torch.randint(0, 256, (m, kk), dtype=torch.uint8, device=dev,
+                        generator=gen) for _ in range(PIM_BITS_STEPS)]
+    wc = chunked(wt)            # one tensor: the state stays resident
+    runs = []
+    for on_card in (True, False):
+        engine.clear_cache()
+        sess = engine.ExecutionSession(art)
+        before = dict(pim_bits.launches)
+        with contextlib.ExitStack() as stack:
+            if not on_card:
+                stack.enter_context(mock.patch.object(
+                    engine, "_bit_kernels", lambda *a: False))
+            outs = [sess.execute(chunked(x), wc).sum(dim=0) for x in xs]
+        torch.cuda.synchronize()
+        (entry,) = sess._states.values()
+        runs.append((outs, entry.value.clone(),
+                     {key: pim_bits.launches[key] - before[key]
+                      for key in before}))
+    engine.clear_cache()
+    (k_outs, k_state, k_calls), (p_outs, p_state, p_calls) = runs
+    exact = [(x.double() @ wt.double().T).long() for x in xs]
+    if not (all(torch.equal(a, b) and torch.equal(a, e)
+                for a, b, e in zip(k_outs, p_outs, exact))
+            and torch.equal(k_state, p_state)):
+        raise AssertionError("pim_bits decode steps differ from the plain "
+                             "path's")
+    want_calls = {"write": PIM_BITS_STEPS + 1, "read": PIM_BITS_STEPS}
+    if k_calls != want_calls or p_calls != {"write": 0, "read": 0}:
+        raise AssertionError(f"pim_bits launches {k_calls} / {p_calls}, "
+                             f"expected {want_calls} / none")
+    say(f"[pim_bits] {PIM_BITS_STEPS} resident decode steps of jamba w_in "
+        f"(M={m}, K={kk}, O={o}: {p} x {n_cb} crossbars) on the "
+        f"kernels == on the plain path == exact product, resident states "
+        f"equal; launches {k_calls}")
+    del runs, k_outs, p_outs, k_state, p_state
+
+    # timed at jamba's w_in decode shape
+    c = p * n_cb
+    x, w = operand(m, p), operand(o, p)
+    state = rand_state(c)
+    out = torch.empty((c, rows), dtype=torch.int64, device=dev)
+    times = dict(
+        write_x_ms=cuda_ms(lambda i: pim_bits.write_operand(
+            state, x, x_cols, 0, c, n_cb, rows, m, o, True), 20),
+        write_w_ms=cuda_ms(lambda i: pim_bits.write_operand(
+            state, w, w_cols, 0, c, n_cb, rows, m, o, False), 20),
+        read_ms=cuda_ms(lambda i: pim_bits.read_accumulators(
+            state, acc, rows, out), 20),
+        plain_write_x_ms=cuda_ms(lambda i: plain_write(
+            state, x, x_cols, 0, c, n_cb, m, o, True), 3, warmup=1),
+        plain_read_ms=cuda_ms(lambda i: ex.read_numbers(state, acc, rows), 3,
+                              warmup=1))
+    word_bytes = rows // 32 * 4
+    write_bytes = c * k * x_cols.shape[1] * word_bytes
+    read_bytes = c * (len(acc) * word_bytes + rows * 8)
+    row = dict(shape=[c, n, rows // 32, k, x_cols.shape[1], len(acc)],
+               held=held, steps=PIM_BITS_STEPS, launches=k_calls,
+               write_bound_ms=write_bytes / HBM_BYTES_PER_S * 1e3,
+               read_bound_ms=read_bytes / HBM_BYTES_PER_S * 1e3,
+               write_bytes=write_bytes, read_bytes=read_bytes, **times)
+    say(f"[pim_bits] jamba w_in decode shape C={c} n={n} W={rows // 32} "
+        f"K={k} nb={x_cols.shape[1]} A={len(acc)}: writer x "
+        f"{times['write_x_ms'] * 1e3:.2f} us, w "
+        f"{times['write_w_ms'] * 1e3:.2f} us (bound "
+        f"{row['write_bound_ms'] * 1e3:.2f} us: {write_bytes} B written) | "
+        f"plain write of x {times['plain_write_x_ms']:.3f} ms | reader "
+        f"{times['read_ms'] * 1e3:.2f} us (bound "
+        f"{row['read_bound_ms'] * 1e3:.2f} us: {read_bytes} B) | plain read "
+        f"{times['plain_read_ms']:.3f} ms")
+    return row
+
+
+# --------------------------------------------------------------------------
 # phase 3b: the paper's multipliers on the crossbar kernel
 # --------------------------------------------------------------------------
 
@@ -900,11 +1075,13 @@ def check_multipliers(dev):
 # --------------------------------------------------------------------------
 
 def reset_counters():
+    from repro_torch.kernels import pim_bits
     from repro_torch.kernels.crossbar_exec import crossbar_exec
     from repro_torch.kernels.quant_matmul import quant_matmul_int
 
     quant_matmul_int.launches = 0
     crossbar_exec.launches = 0
+    pim_bits.launches.update(write=0, read=0)
 
 
 def counters():
@@ -2389,11 +2566,13 @@ def check_released(label, before):
                              f"{held})")
 
 
-def decode_records(fn):
+def decode_records(fn, bits=False):
     """Run ``fn()`` recording, for each plain decode step of the
     scheduler, the engine's cold uploads after it and the launches of
     each kernel in it; returns (fn's result, a list of (uploads,
-    quant_matmul_int launches, crossbar_exec launches))."""
+    quant_matmul_int launches, crossbar_exec launches)), each record
+    followed by the step's pim_bits writes and reads with ``bits``."""
+    from repro_torch.kernels import pim_bits
     from repro_torch.pim import engine
     from repro_torch.serving import Scheduler
 
@@ -2402,9 +2581,14 @@ def decode_records(fn):
 
     def step(self, active, emitted):
         q0, x0 = counters()
+        b0 = dict(pim_bits.launches)
         real(self, active, emitted)
         q1, x1 = counters()
-        seen.append((engine.cache_info().exec_uploads, q1 - q0, x1 - x0))
+        rec = (engine.cache_info().exec_uploads, q1 - q0, x1 - x0)
+        if bits:
+            rec += tuple(pim_bits.launches[k] - b0[k]
+                         for k in ("write", "read"))
+        seen.append(rec)
 
     with mock.patch.object(Scheduler, "_plain_step", step):
         out = fn()
@@ -3052,16 +3236,23 @@ def serve_moe(dev):
 
     info0 = engine.cache_info()
     reset_counters()
-    (first, psummary, pwall), rec1 = decode_records(pim_serve)
+    (first, psummary, pwall), rec1 = decode_records(pim_serve, bits=True)
     info1 = engine.cache_info()
-    (second, _, _), rec2 = decode_records(pim_serve)
+    (second, _, _), rec2 = decode_records(pim_serve, bits=True)
     x_launches = counters()[1]
     info2 = engine.cache_info()
     with mock.patch.object(engine, "matmul_int", exact_matmul):
         pwant, _, _ = pim_serve()
     decode_state = sum(pim_state_bytes(2, k, o)
                        for k, o in step_linears(base))
-    x_steps = sorted({x for _, _, x in rec1 + rec2})
+    x_steps = sorted({x for _, _, x, _, _ in rec1 + rec2})
+    # pim_bits: one read per linear a step; one write of x per linear, and
+    # one of w per linear in the step that uploads its state
+    prev_uploads = ([info0.exec_uploads] + [u for u, *_ in rec1][:-1]
+                    + [info1.exec_uploads] + [u for u, *_ in rec2][:-1])
+    uploaded = [u - v for (u, *_), v in zip(rec1 + rec2, prev_uploads)]
+    bits_steps = [(wr, rd) for *_, wr, rd in rec1 + rec2]
+    bits_want = [(per_step * (2 if up else 1), per_step) for up in uploaded]
     say(f"[granite-moe pim_sim] 16-token prefill logits on the crossbar "
         f"kernel == exact 7-bit integer product: {p_prefill_equal}, "
         f"{t_prefill:.2f} s on transient state; served 2 requests (8- and "
@@ -3070,20 +3261,24 @@ def serve_moe(dev):
         f"{psummary['mean_ttft_s'] * 1e3:.0f} ms | mean TPOT "
         f"{psummary['mean_tpot_s'] * 1e3:.0f} ms | crossbar_exec launches "
         f"{x_launches}, per decode step {x_steps} (expected {per_step}) | "
-        f"cold uploads after each decode step, first serve "
-        f"{[u - info0.exec_uploads for u, _, _ in rec1]}, second "
-        f"{[u - info1.exec_uploads for u, _, _ in rec2]} | resident "
+        f"pim_bits (writes, reads) per decode step {bits_steps} (expected "
+        f"{bits_want}) | cold uploads after each decode step, first serve "
+        f"{[u - info0.exec_uploads for u, *_ in rec1]}, second "
+        f"{[u - info1.exec_uploads for u, *_ in rec2]} | resident "
         f"{info2.resident_entries} states, {info2.resident_bytes} B (host "
         f"arithmetic {decode_state} B); tokens (both serves) == exact "
         f"product's: {first == second == pwant} ({first})")
     if not first == second == pwant:
         failures.append(f"pim_sim tokens {first}, {second} vs the exact "
                         f"product's {pwant}")
-    if x_steps != [per_step] or any(q for _, q, _ in rec1 + rec2):
+    if x_steps != [per_step] or any(q for _, q, *_ in rec1 + rec2):
         failures.append(f"pim_sim decode steps launched {rec1 + rec2}, "
                         f"expected {per_step} crossbar launches each")
-    if len({u for u, _, _ in rec1}) != 1 or \
-            any(u != info1.exec_uploads for u, _, _ in rec2):
+    if bits_steps != bits_want or uploaded[1:] != [0] * (len(uploaded) - 1):
+        failures.append(f"pim_bits launched {bits_steps} a decode step, "
+                        f"expected {bits_want}, one upload step first")
+    if len({u for u, *_ in rec1}) != 1 or \
+            any(u != info1.exec_uploads for u, *_ in rec2):
         failures.append(f"pim_sim decode uploaded after its first step: "
                         f"{rec1}, {rec2}")
     if info2.resident_bytes != decode_state:
@@ -3269,9 +3464,9 @@ def serve_jamba(dev):
 
     info0 = engine.cache_info()
     reset_counters()
-    (first, psummary, pwall), rec1 = decode_records(pim_serve)
+    (first, psummary, pwall), rec1 = decode_records(pim_serve, bits=True)
     info1 = engine.cache_info()
-    (second, _, _), rec2 = decode_records(pim_serve)
+    (second, _, _), rec2 = decode_records(pim_serve, bits=True)
     x_launches = counters()[1]
     info2 = engine.cache_info()
     peak = torch.cuda.max_memory_allocated()
@@ -3279,7 +3474,14 @@ def serve_jamba(dev):
         pwant, _, _ = pim_serve()
     decode_state = sum(pim_state_bytes(2, k, o)
                        for k, o in step_linears(base))
-    x_steps = sorted({x for _, _, x in rec1 + rec2})
+    x_steps = sorted({x for _, _, x, _, _ in rec1 + rec2})
+    # pim_bits: one read per linear a step; one write of x per linear, and
+    # one of w per linear in the step that uploads its state
+    prev_uploads = ([info0.exec_uploads] + [u for u, *_ in rec1][:-1]
+                    + [info1.exec_uploads] + [u for u, *_ in rec2][:-1])
+    uploaded = [u - v for (u, *_), v in zip(rec1 + rec2, prev_uploads)]
+    bits_steps = [(wr, rd) for *_, wr, rd in rec1 + rec2]
+    bits_want = [(per_step * (2 if up else 1), per_step) for up in uploaded]
     say(f"[jamba pim_sim] 16-token prefill logits on the crossbar kernel == "
         f"exact 7-bit integer product: {p_prefill_equal}, {t_prefill:.2f} s "
         f"on transient state; served 2 requests (8- and 16-token prompts, "
@@ -3288,9 +3490,10 @@ def serve_jamba(dev):
         f"{psummary['mean_ttft_s'] * 1e3:.0f} ms | mean TPOT "
         f"{psummary['mean_tpot_s'] * 1e3:.0f} ms | crossbar_exec launches "
         f"{x_launches}, per decode step {x_steps} (expected {per_step}) | "
-        f"cold uploads after each decode step, first serve "
-        f"{[u - info0.exec_uploads for u, _, _ in rec1]}, second "
-        f"{[u - info1.exec_uploads for u, _, _ in rec2]} | resident "
+        f"pim_bits (writes, reads) per decode step {bits_steps} (expected "
+        f"{bits_want}) | cold uploads after each decode step, first serve "
+        f"{[u - info0.exec_uploads for u, *_ in rec1]}, second "
+        f"{[u - info1.exec_uploads for u, *_ in rec2]} | resident "
         f"{info2.resident_entries} states, {info2.resident_bytes} B (host "
         f"arithmetic {decode_state} B, bound {engine.MAX_RESIDENT_BYTES} B) "
         f"| peak allocated {peak / 2 ** 30:.2f} GiB; tokens (both serves) "
@@ -3298,11 +3501,14 @@ def serve_jamba(dev):
     if not first == second == pwant:
         failures.append(f"pim_sim tokens {first}, {second} vs the exact "
                         f"product's {pwant}")
-    if x_steps != [per_step] or any(q for _, q, _ in rec1 + rec2):
+    if x_steps != [per_step] or any(q for _, q, *_ in rec1 + rec2):
         failures.append(f"pim_sim decode steps launched {rec1 + rec2}, "
                         f"expected {per_step} crossbar launches each")
-    if len({u for u, _, _ in rec1}) != 1 or \
-            any(u != info1.exec_uploads for u, _, _ in rec2):
+    if bits_steps != bits_want or uploaded[1:] != [0] * (len(uploaded) - 1):
+        failures.append(f"pim_bits launched {bits_steps} a decode step, "
+                        f"expected {bits_want}, one upload step first")
+    if len({u for u, *_ in rec1}) != 1 or \
+            any(u != info1.exec_uploads for u, *_ in rec2):
         failures.append(f"pim_sim decode uploaded after its first step: "
                         f"{rec1}, {rec2}")
     if info2.resident_bytes != decode_state \
@@ -3357,6 +3563,7 @@ def serve_jamba(dev):
         pim_peak_bytes=peak, decode_wall_ms=prof["wall_ms"],
         decode_busy_ms=prof["busy_ms"], pim_decode_wall_ms=pprof["wall_ms"],
         pim_decode_busy_ms=pprof["busy_ms"], pim_crossbar_ms=xbar_ms,
+        pim_bits=bits_steps,
         mamba_host_ms=mamba[0],
         mamba_span_ms=mamba[2], moe_host_ms=moe[0], moe_span_ms=moe[2],
         gemm_ms=gemm_ms, continuity_max_abs_diff=cont_err)
@@ -5905,6 +6112,7 @@ def main() -> int:
     sys.path.insert(0, SRC)
     from repro_torch import configs
     from repro_torch.kernels import build
+    from repro_torch.kernels import pim_bits
     from repro_torch.kernels.crossbar_exec import crossbar_exec
     from repro_torch.kernels.quant_matmul import quant_matmul_int
     from repro_torch.models import model_lib as M
@@ -5917,7 +6125,7 @@ def main() -> int:
         f"{torch.cuda.device_count()} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | python {platform.python_version()}")
 
-    # phase 1: build both kernels, one nvcc each, started together
+    # phase 1: build the kernels, one nvcc each, started together
     t0 = time.perf_counter()
     infos = build.build()
     say(f"[build] {', '.join(infos)} in {time.perf_counter() - t0:.2f} s "
@@ -5938,6 +6146,7 @@ def main() -> int:
 
     quant_rows = phase("check_quant_kernel", check_quant_kernel, dev)
     xbar_row = phase("check_crossbar_kernel", check_crossbar_kernel, dev)
+    bits_row = phase("check_pim_bits", check_pim_bits, dev)
     mult_launches, mult_table = phase("check_multipliers", check_multipliers,
                                       dev)
 
@@ -6066,10 +6275,15 @@ def main() -> int:
              wide_shapes=xbar_row["wide_shapes"], vision_xwk_piece=xwk_row,
              multipliers=mult_table, autotune_warmup_s=at_warm_s,
              autotune_race=race_rows, geometries=geo_rows, train=tp),
+        dict(name="pim_bits", route="cuda",
+             source="src/repro_torch/kernels/csrc/pim_bits.cu",
+             replaces=None,
+             launches_recurrent_path=rec_run["jamba"]["pim_bits"],
+             exact=True, library_ms=None, **bits_row),
     ]
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s;"
         f" launch counters now {quant_matmul_int.launches}, "
-        f"{crossbar_exec.launches}")
+        f"{crossbar_exec.launches}, {pim_bits.launches}")
     say(json.dumps({"kernels": kernels}))
     # after the long kernels line, so that a log's last lines keep them
     say(f"[phases] {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"

@@ -34,7 +34,7 @@ __all__ = ["BUILD_DIR", "SOURCES", "BuildInfo", "build", "load", "nvcc"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quant_matmul", "crossbar_exec")
+SOURCES = ("quant_matmul", "crossbar_exec", "pim_bits")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -300,11 +300,10 @@ class CompiledPim:
         device = torch.device(device)
         hit = self._device_copies.get(device)
         if hit is None:
-            hit = tuple(torch.as_tensor(a, dtype=dt).to(device).contiguous()
-                        for a, dt in ((self.microcode, torch.int32),
-                                      (self.x_cols, torch.long),
-                                      (self.w_cols, torch.long),
-                                      (self.acc_cols, torch.long)))
+            hit = tuple(torch.as_tensor(a, dtype=torch.int32).to(device)
+                        .contiguous()
+                        for a in (self.microcode, self.x_cols, self.w_cols,
+                                  self.acc_cols))
             self._device_copies[device] = hit
         return hit
 
@@ -313,7 +312,7 @@ class CompiledPim:
         return self._on(device)[0]
 
     def columns_on(self, device) -> Tuple[torch.Tensor, ...]:
-        """``(x_cols, w_cols, acc_cols)`` as int64 tensors on ``device``
+        """``(x_cols, w_cols, acc_cols)`` as int32 tensors on ``device``
         (cached), so that a GEMM copies no column index from the host: such
         a copy waits for the stream and would stall the host behind every
         kernel already queued."""
@@ -680,6 +679,18 @@ def _grid(v: torch.Tensor, n_cb: int, rows: int) -> torch.Tensor:
     return v.reshape(p * n_cb, rows, k)
 
 
+def _bit_kernels(x, w, art: CompiledPim) -> bool:
+    """Whether :meth:`ExecutionSession.execute` packs its operands and reads
+    its accumulators through ``kernels.pim_bits``: for a CUDA state,
+    uint8 operands, at most 8 bits a term and 63 accumulator bits.  Else it
+    takes ``executor.write_numbers`` / ``read_numbers``."""
+    from repro_torch.kernels.pim_bits import MAX_ACC_BITS, MAX_BITS
+
+    return (x.device.type == "cuda" and x.dtype == w.dtype == torch.uint8
+            and max(map(len, art.x_cols + art.w_cols)) <= MAX_BITS
+            and len(art.acc_cols) <= MAX_ACC_BITS)
+
+
 def _operand_rows(v: torch.Tensor, lo: int, hi: int, n_cb: int, rows: int,
                   m: int, o: int, of_x: bool) -> torch.Tensor:
     """The operand rows of crossbars ``[lo, hi)`` of a batch of GEMMs,
@@ -945,8 +956,13 @@ class ExecutionSession:
         operand rows.  A transient piece's state is dropped after its
         read; a resident state stays one tensor, its pieces run on slices
         of it.  Exact for unsigned operands up to ``artifact.n_bits`` bits;
-        returns int64 on the operands' device.
+        returns int64 on the operands' device.  On a CUDA state with uint8
+        operands the operands are written and the accumulators read by
+        ``kernels.pim_bits`` (:func:`_bit_kernels`), straight from ``x`` and
+        ``w``; otherwise by ``executor.write_numbers`` over
+        :func:`_operand_rows` and ``executor.read_numbers``: the same bits.
         """
+        from repro_torch.kernels import pim_bits
         from repro_torch.pim import executor as ex
 
         art = self.artifact
@@ -991,6 +1007,21 @@ class ExecutionSession:
             state = None                 # transient: a state per piece
 
         write_back = keep and len(pieces) > 1
+        on_card = _bit_kernels(x, w, art)
+
+        def write(part, v, cols, lo, hi, of_x):
+            if on_card:
+                pim_bits.write_operand(part, v, cols, lo, hi, n_cb, rows, m,
+                                       o, of_x)
+            else:
+                ex.write_numbers(part, cols, _operand_rows(
+                    v, lo, hi, n_cb, rows, m, o, of_x))
+
+        def read(new, out=None):
+            if on_card:
+                return pim_bits.read_accumulators(new, acc_cols, rows, out)
+            got = ex.read_numbers(new, acc_cols, rows)
+            return got if out is None else out.copy_(got)
 
         def launch(lo, hi):
             """Pack, run and (a resident piece) write back crossbars
@@ -1000,10 +1031,8 @@ class ExecutionSession:
                                        device=x.device)
                         if state is None else state[lo:hi])
                 if entry is None:
-                    ex.write_numbers(part, w_cols, _operand_rows(
-                        w, lo, hi, n_cb, rows, m, o, of_x=False))
-                ex.write_numbers(part, x_cols, _operand_rows(
-                    x, lo, hi, n_cb, rows, m, o, of_x=True))
+                    write(part, w, w_cols, lo, hi, of_x=False)
+                write(part, x, x_cols, lo, hi, of_x=True)
             with span("pim.exec"):
                 if self.backend is None:
                     new = ex.execute(part, mc)
@@ -1021,7 +1050,7 @@ class ExecutionSession:
             if keep:
                 state = new
             with span("pim.read"):
-                acc = shaped(ex.read_numbers(new, acc_cols, rows))
+                acc = shaped(read(new))
             del new
         else:
             acc = torch.empty((p * n_cb, rows), dtype=torch.int64,
@@ -1029,7 +1058,7 @@ class ExecutionSession:
             for lo, hi in pieces:
                 new = launch(lo, hi)
                 with span("pim.read"):
-                    acc[lo:hi] = ex.read_numbers(new, acc_cols, rows)
+                    read(new, acc[lo:hi])
                 del new
             with span("pim.read"):
                 acc = shaped(acc)

@@ -46,6 +46,8 @@ def pytest_configure(config):
         "markers",
         "slow: long-running (hypothesis-heavy) tests; deselect with "
         "-m 'not slow'")
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device; skipped without one")
 
 
 @pytest.fixture(scope="session")
