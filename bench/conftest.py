@@ -78,14 +78,16 @@ SMOKE_CELLS = {
 
 
 def write_root(path, limit: float = 1e-3):
-    """A benchmark root at ``path``: the real metric readers, the smoke
-    configurations, mixes and cells, and a ``BENCHMARK.json`` naming them
-    with the real metrics."""
+    """A benchmark root at ``path``: the real metric readers and
+    references, the smoke configurations, mixes and cells, and a
+    ``BENCHMARK.json`` naming them with the real metrics."""
     bench = os.path.join(path, "bench")
     for d in ("configs", "traffic", "cells"):
         os.makedirs(os.path.join(bench, d), exist_ok=True)
-    shutil.copytree(os.path.join(ROOT, "bench", "metrics"),
-                    os.path.join(bench, "metrics"), dirs_exist_ok=True)
+    for d in ("metrics", "reference"):
+        shutil.copytree(os.path.join(ROOT, "bench", d),
+                        os.path.join(bench, d), dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     for name, model in SMOKE_MODELS.items():
         with open(os.path.join(bench, "configs", f"{name}.json"), "w") as f:
             json.dump({"name": name, "model": model}, f)

@@ -25,10 +25,11 @@ def readings(cell, seed, seconds, dev, t_start):
     res.program_metrics = None
     main.free_program()
     t0 = time.perf_counter()
-    prog = check.gaps(params, cell.arch, smp, cell.bits, cell.wide, dev)
+    prog = check.gaps(params, cell.arch, smp, cell.bits, cell.wide, dev,
+                      ref=cell.reference)
     t_ref = time.perf_counter() - t0
     ctl = check.control_gaps(params, cell.arch, smp, cell.bits, cell.wide,
-                             check.CONTROL_BITS, dev)
+                             check.CONTROL_BITS, dev, ref=cell.reference)
     return {"seed": seed, "program": check.readings(prog),
             "control": check.readings(ctl),
             "program_per_request": [check.readings([g]) for g in prog],

@@ -2,7 +2,8 @@
 
 Once the window has closed and the program's state is freed, a sample of
 the requests served in the window, drawn from the seed and holding the
-longest one, goes through the plain reference (``bench/reference``):
+longest one, goes through the cell's plain reference (``Cell.reference``,
+a module under ``bench/reference``):
 each prompt with the tokens the program served after it, teacher-forced.
 At each served position the reading is how far the served token's logit
 lies below the reference's best logit there; a cell compares the widest
@@ -12,13 +13,14 @@ served token is greedy, so a sound program reads near 0 and a token
 altered or computed in a lower precision reads far above it."""
 from __future__ import annotations
 
-from typing import Dict, List
+from types import ModuleType
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from bench.harness.closed_loop import Request
-from bench.reference.model import served_logits
+from bench.reference import default
 
 #: The control's linears: int4, the step below the int8 and 7-bit
 #: fixed point the configurations run (``bench/control.py``).
@@ -57,25 +59,30 @@ def _gaps(ref_logits, picks) -> List[torch.Tensor]:
     return out
 
 
-def gaps(params, arch, reqs: List[Request], bits: int, wide: bool, device
-         ) -> List[torch.Tensor]:
+def gaps(params, arch, reqs: List[Request], bits: int, wide: bool, device,
+         ref: Optional[ModuleType] = None) -> List[torch.Tensor]:
     """Per request, the gap at each served position below the reference's
     best logit (its linears at ``bits``, rescaled in float64 when
-    ``wide``) of the token served there."""
-    logits = served_logits(params, arch, sequences(reqs, device), bits, wide)
+    ``wide``) of the token served there; ``ref``: the cell's reference,
+    the default one if None."""
+    ref = ref or default
+    logits = ref.served_logits(params, arch, sequences(reqs, device), bits,
+                               wide)
     return _gaps(logits, [torch.as_tensor(r.tokens) for r in reqs])
 
 
 def control_gaps(params, arch, reqs: List[Request], bits: int, wide: bool,
-                 control_bits: int, device) -> List[torch.Tensor]:
+                 control_bits: int, device, ref: Optional[ModuleType] = None
+                 ) -> List[torch.Tensor]:
     """The control: the reference put in the program's place with its
     linears at ``control_bits``.  At each served position, the gap below
     the reference's best (at ``bits``) of the token the control puts
     first."""
+    ref = ref or default
     seqs = sequences(reqs, device)
-    ref = served_logits(params, arch, seqs, bits, wide)
-    ctl = served_logits(params, arch, seqs, control_bits)
-    return _gaps(ref, [lc.argmax(dim=-1) for lc in ctl])
+    best = ref.served_logits(params, arch, seqs, bits, wide)
+    ctl = ref.served_logits(params, arch, seqs, control_bits)
+    return _gaps(best, [lc.argmax(dim=-1) for lc in ctl])
 
 
 def readings(per_req: List[torch.Tensor]) -> Dict[str, float]:

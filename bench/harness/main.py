@@ -6,7 +6,8 @@ what was served against the plain reference, print one JSON line.
 With ``--trace 0`` the line's metrics are the cell's end-to-end metrics.
 With ``--trace 1`` they are its per-layer metrics: ``trace_seconds`` of
 steps run under ``torch.profiler`` after the warm-up (the device metrics
-read them), then the window runs untraced (the others read it)."""
+read them, by the benchmark's ``bench:`` spans and by the program's
+``repro:`` spans), then the window runs untraced (the others read it)."""
 from __future__ import annotations
 
 import argparse
@@ -19,10 +20,10 @@ import sys
 from pathlib import Path
 from typing import Dict, List, Optional
 
-from bench.harness import check, closed_loop, trace as trace_mod
+from bench.harness import check, closed_loop, spans as spans_mod
+from bench.harness import trace as trace_mod
 from bench.harness.spec import Cell, load_cell
 from bench.harness.traffic import Stream
-from bench.reference import params as ref_params
 
 #: Top-level module names that may not be loaded in a run: the JAX
 #: package this program was ported from, and JAX itself.
@@ -44,6 +45,7 @@ class Run:
     uploads: int                        # pim state uploads in the window
     trace: Optional[trace_mod.Trace]    # the traced steps' (--trace 1)
     traced_steps: List[closed_loop.Step]
+    spans: Optional[spans_mod.Spans] = None   # the same steps by repro: span
 
     @property
     def window_s(self) -> float:
@@ -89,9 +91,8 @@ def check_tree(params, cfg) -> None:
     from repro_torch.models import model_lib as M
     from repro_torch.tree import leaves
 
-    want = {tuple(p): (tuple(s.shape), s.dtype)
-            for p, s in leaves(M.param_specs(cfg))}
-    have = ref_params.shapes(params)
+    want, have = ({tuple(p): (tuple(s.shape), s.dtype) for p, s in leaves(t)}
+                  for t in (M.param_specs(cfg), params))
     if want != have:
         raise RuntimeError(
             "the program's parameter tree differs from the benchmark's: "
@@ -118,7 +119,7 @@ def serve(cell: Cell, seed: int, seconds: float, traced_run: bool, dev,
     from repro_torch.serving.scheduler import Scheduler, ServingConfig
 
     cfg = program_config(cell)
-    params = ref_params.draw(cell.arch, seed, dev)
+    params = cell.reference.draw(cell.arch, seed, dev)
     check_tree(params, cfg)
     if dev.type == "cuda":
         from repro_torch.kernels import build
@@ -131,7 +132,7 @@ def serve(cell: Cell, seed: int, seconds: float, traced_run: bool, dev,
                              cell.mix.clients,
                              span=record_function if traced_run else None)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    trace, traced = None, []
+    trace, program_spans, traced = None, None, []
     with contextlib.ExitStack() as stack:
         if traced_run:
             trace_mod.install(stack, record_function)
@@ -147,10 +148,12 @@ def serve(cell: Cell, seed: int, seconds: float, traced_run: bool, dev,
             with profile(activities=acts) as prof:
                 with record_function(trace_mod.WINDOW):
                     loop.window(cell.trace_seconds)
-            trace = trace_mod.summarize(prof.profiler.kineto_results.events(),
-                                        torch.autograd.DeviceType.CUDA)
+            events = list(prof.profiler.kineto_results.events())
+            cuda = torch.autograd.DeviceType.CUDA
+            trace = trace_mod.summarize(events, cuda)
+            program_spans = spans_mod.reduce(events, cuda)
             traced = loop.steps[n0:]
-            del prof
+            del events, prof
         uploads0 = engine.cache_info().exec_uploads
         n_active0 = len(sched.metrics.active_samples)
         n_steps0 = len(loop.steps)
@@ -160,7 +163,7 @@ def serve(cell: Cell, seed: int, seconds: float, traced_run: bool, dev,
               requests=loop.requests, program_metrics=sched.metrics,
               active_samples=list(sched.metrics.active_samples[n_active0:]),
               uploads=engine.cache_info().exec_uploads - uploads0,
-              trace=trace, traced_steps=traced)
+              trace=trace, traced_steps=traced, spans=program_spans)
     return run, params
 
 
@@ -228,7 +231,8 @@ def main(argv=None, *, root: Optional[Path] = None, device=None,
     run.program_metrics = None
     del program_metrics
     free_program()
-    per_req = check.gaps(params, cell.arch, smp, cell.bits, cell.wide, dev)
+    per_req = check.gaps(params, cell.arch, smp, cell.bits, cell.wide, dev,
+                         ref=cell.reference)
     read = check.readings(per_req)
     correct, checks = check.judge(read, cell.limits)
     device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
@@ -246,6 +250,8 @@ def main(argv=None, *, root: Optional[Path] = None, device=None,
         device_info["busy_s"] = run.trace.busy_s
         device_info["window_s"] = run.trace.window_s
         result["breakdown"] = run.trace.breakdown()
+        if run.spans is not None:
+            result["breakdown"].update(run.spans.breakdown())
     result["checks"] = checks
     print(f"checked {sum(len(r.tokens) for r in smp)} served tokens of "
           f"{len(smp)} requests; readings {read}; per request "

@@ -41,18 +41,18 @@ def mfu(run) -> Optional[float]:
     if t is None or not steps or t.busy_s <= 0:
         return None
     tokens = sum(s.prefill_tokens + s.decode_tokens for s in steps)
-    flops = arith.model_flops(run.cell.arch, tokens)
+    flops = run.cell.reference.model_flops(run.cell.arch, tokens)
     return 100.0 * flops / (t.window_s * arith.PEAK_INT8_OPS)
 
 
 def _bounds(run, phase: str, mode: str) -> float:
-    a = run.cell.arch
+    linears = run.cell.reference.step_linears(run.cell.arch)
     total = 0.0
     for s in run.traced_steps:
         if phase == "decode" and s.decode_tokens:
-            total += arith.linear_bound_s(a, s.decode_tokens, mode)
+            total += arith.linear_bound_s(linears, s.decode_tokens, mode)
         if phase == "prefill":
-            total += sum(arith.linear_bound_s(a, n, mode)
+            total += sum(arith.linear_bound_s(linears, n, mode)
                          for n in s.prompts)
     return total
 

@@ -12,8 +12,9 @@ gap of the device goes under the innermost range open on the main thread
 
 A range's name loses its ``|rid=...`` part; a device operation launched
 outside every range, or by no runtime call in the trace, goes under
-:data:`OUTSIDE`.  The reduction reads the same events as
-``trace.summarize`` and writes nothing to disk.  To read one cell's
+:data:`OUTSIDE`.  A ``--trace 1`` run reduces the same events as
+``trace.summarize`` onto ``Run.spans``, which a metric reads with
+``run.spans.share(...)``, and writes nothing to disk.  To read one cell's
 traced steps by span on the card (JSON on standard output)::
 
     PYTHONPATH=src python3 -m bench.harness.spans --workload <cell> --seed <n>
@@ -21,11 +22,9 @@ traced steps by span on the card (JSON on standard output)::
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
 import sys
 from typing import Dict, FrozenSet, List, Optional, Tuple
-from unittest import mock
 
 from bench.harness import trace as trace_mod
 
@@ -203,24 +202,6 @@ def reduce(events, device_type_cuda) -> Spans:
                  dict(gaps), n)
 
 
-@contextlib.contextmanager
-def capture():
-    """While open, each ``trace.summarize`` of a traced run (``main.serve``
-    with ``traced_run``) also reduces the same events here; yields the
-    list the reductions go to.  The benchmark's run does not call it: its
-    line does not carry these numbers yet."""
-    got: List[Spans] = []
-    summarize = trace_mod.summarize
-
-    def both(events, device_type_cuda):
-        events = list(events)
-        got.append(reduce(events, device_type_cuda))
-        return summarize(events, device_type_cuda)
-
-    with mock.patch.object(trace_mod, "summarize", both):
-        yield got
-
-
 def main(argv=None) -> int:
     """Serve one cell with its traced steps, as a ``--trace 1`` run does
     before its window, and print the device time by span as JSON."""
@@ -241,10 +222,8 @@ def main(argv=None) -> int:
     t_start = closed_loop.clock()
     cell = load_cell(args.workload)
     dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    with capture() as got:
-        run, _ = harness.serve(cell, args.seed, args.seconds, True, dev,
-                               t_start)
-    sp = got[0]
+    run, _ = harness.serve(cell, args.seed, args.seconds, True, dev, t_start)
+    sp = run.spans
     steps = len(run.traced_steps)
     print(json.dumps({
         "card": harness.power_limit(), "traced_steps": steps,

@@ -3,19 +3,23 @@
 ``BENCHMARK.json`` names a cell's configuration and traffic mix and the
 metrics it reports; ``bench/configs/<config>.json``,
 ``bench/traffic/<mix>.json``, ``bench/cells/<cell>.json`` and
-``bench/metrics/<metric>.py`` hold the rest.  Adding a configuration, a
-mix, a cell or a metric is adding files and entries: nothing here names
-one."""
+``bench/metrics/<metric>.py`` hold the rest, and a configuration file may
+name its plain reference (``"reference": "<module>"``, the module
+``bench/reference/<module>.py``; ``default`` without the key).  Adding a
+configuration, its reference, a mix, a cell or a metric is adding files
+and entries: nothing here names one."""
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import importlib.util
 import json
+import sys
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 from bench.harness.traffic import Mix
-from bench.reference.arch import Arch
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 
@@ -23,6 +27,7 @@ CELL_KEYS = {"mode", "serving", "trace_seconds", "check"}
 CHECK_KEYS = {"sample", "limits"}
 STATS = ("logit_gap_max", "logit_gap_mean")
 MODE_BITS = {"quant": 8, "pim_sim": 7}
+DEFAULT_REFERENCE = "default"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +44,8 @@ class Cell:
     name: str
     chips: int
     config: Dict            # the configuration file
-    arch: Arch
+    reference: ModuleType   # its plain reference (bench/reference/default.py)
+    arch: object            # the reference's Arch of the configuration
     mix: Mix
     mode: str               # "quant" | "pim_sim"
     serving: Dict           # ServingConfig fields
@@ -76,6 +82,45 @@ def load_metric(bench_dir: Path, name: str) -> Callable:
     return mod.read
 
 
+def load_reference(bench_dir: Path, name: str) -> ModuleType:
+    """The plain reference module ``bench/reference/<name>.py``."""
+    path = (bench_dir / "reference" / f"{name}.py").resolve()
+    if not path.is_file():
+        raise FileNotFoundError(f"no reference module {path}")
+    if path == (BENCH_DIR / "reference" / f"{name}.py").resolve():
+        return importlib.import_module(f"bench.reference.{name}")
+    # another checkout's module (the tests' copies of bench/): a name of
+    # its own, registered so that the classes it defines can find it
+    modname = f"bench.reference._{name}_{abs(hash(str(path))):x}"
+    if modname not in sys.modules:
+        spec = importlib.util.spec_from_file_location(modname, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[modname] = mod
+        try:
+            spec.loader.exec_module(mod)
+        except BaseException:
+            del sys.modules[modname]
+            raise
+    return sys.modules[modname]
+
+
+def covered(name: str, model: Dict, ref: ModuleType) -> None:
+    """Refuse a configuration its reference would compute otherwise than
+    the program: a block kind it does not compute, or a field of
+    ``"model"`` that neither its ``Arch`` reads nor it lists as the
+    program's alone."""
+    kinds = [k for k in model.get("pattern", ["ad"]) if k not in ref.KINDS]
+    if kinds:
+        raise ValueError(f"{name}: the reference {ref.__name__} computes "
+                         f"no block kind {kinds[0]!r} (it computes "
+                         f"{list(ref.KINDS)})")
+    read = {f.name for f in dataclasses.fields(ref.Arch)}
+    unread = sorted(set(model) - read - set(ref.PROGRAM_ONLY))
+    if unread:
+        raise ValueError(f"{name}: the reference {ref.__name__} does not "
+                         f"read the model field {unread[0]!r}")
+
+
 def _metrics(entries: List[Dict], cell: str, bench_dir: Path
              ) -> List[Metric]:
     return [Metric(e["name"], e["unit"], e["better"], e["source"],
@@ -108,11 +153,15 @@ def load_cell(name: str, root: Optional[Path] = None) -> Cell:
     if own["mode"] not in MODE_BITS:
         raise ValueError(f"{name}: mode {own['mode']!r} is not one of "
                          f"{sorted(MODE_BITS)}")
-    arch = Arch.from_model(config["model"])
+    ref = load_reference(bench_dir, config.get("reference",
+                                               DEFAULT_REFERENCE))
+    covered(f"{name} ({w['config']})", config["model"], ref)
+    arch = ref.Arch.from_model(config["model"])
     if mix.longest_request > arch.max_seq_len:
         raise ValueError(f"{name}: a request of {mix.longest_request} "
                          f"tokens passes the pool's {arch.max_seq_len}")
-    return Cell(name=name, chips=int(w["chips"]), config=config, arch=arch,
+    return Cell(name=name, chips=int(w["chips"]), config=config,
+                reference=ref, arch=arch,
                 mix=mix, mode=own["mode"],
                 serving=dict(own["serving"]),
                 trace_seconds=float(own["trace_seconds"]),

@@ -141,14 +141,3 @@ def draw(a: Arch, seed: int, device) -> Dict:
             node = node.setdefault(k, {})
         node[path[-1]] = t
     return tree
-
-
-def shapes(tree: Dict, prefix: Tuple[str, ...] = ()) -> Dict:
-    """``{path: (shape, dtype)}`` of a drawn tree."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(shapes(v, prefix + (k,)))
-        else:
-            out[prefix + (k,)] = (tuple(v.shape), v.dtype)
-    return out

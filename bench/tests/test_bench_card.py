@@ -29,10 +29,10 @@ def test_control_fails_and_program_passes(card, name):
         run.program_metrics = None
         harness.free_program()
         prog = check.readings(check.gaps(params, cell.arch, smp, cell.bits,
-                                         cell.wide, card))
+                                         cell.wide, card, cell.reference))
         ctl = check.readings(check.control_gaps(
             params, cell.arch, smp, cell.bits, cell.wide, check.CONTROL_BITS,
-            card))
+            card, cell.reference))
         assert check.judge(prog, cell.limits)[0], (seed, prog)
         assert not check.judge(ctl, cell.limits)[0], (seed, ctl)
         del params, run

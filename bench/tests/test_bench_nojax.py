@@ -1,16 +1,23 @@
 """Nothing a run loads is JAX or the JAX package, compared by whole
 top-level names (``repro_torch`` begins with ``repro``, so a prefix match
-would be wrong), and the reference loads nothing of the program."""
+would be wrong), and no module of the references loads anything of the
+program."""
 import json
 import os
 import subprocess
 import sys
 import textwrap
 
+import pytest
+
 from bench.conftest import write_root
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+#: every module of the plain references, a configuration's own included
+REFERENCE_MODULES = sorted(
+    f[:-3] for f in os.listdir(os.path.join(ROOT, "bench", "reference"))
+    if f.endswith(".py") and f != "__init__.py")
 
 BLOCK = textwrap.dedent("""
     import importlib.abc, json, sys
@@ -55,11 +62,11 @@ def test_a_run_loads_no_jax(tmp_path):
     assert not tops & {"jax", "jaxlib", "flax", "repro"}
 
 
-def test_the_reference_loads_nothing_of_the_program():
-    tops = _top_levels(textwrap.dedent("""
-        import bench.reference.model, bench.reference.params
-        import bench.reference.arch
-        print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
+@pytest.mark.parametrize("module", REFERENCE_MODULES)
+def test_the_reference_loads_nothing_of_the_program(module):
+    tops = _top_levels(textwrap.dedent(f"""
+        import bench.reference.{module}
+        print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
     """))
     assert "bench" in tops
     assert not tops & {"jax", "jaxlib", "flax", "repro", "repro_torch"}

@@ -2,7 +2,7 @@
 the ``repro:`` range open when its launch began, not where it ran; nested
 ranges give self and inclusive time; an idle gap goes under the innermost
 range open at its middle; the layers' shares read their spans, and a
-traced run's events reach the reduction.  On the card, one traced window
+traced run's events reach the reduction (``Run.spans``).  On the card, one traced window
 of the guarded cell holds the crossbar kernel under ``repro:pim.exec``."""
 import dataclasses
 from pathlib import Path
@@ -11,7 +11,6 @@ import pytest
 import torch
 
 from bench.harness import closed_loop, main as harness, readers, spans
-from bench.harness import trace as trace_mod
 from bench.harness.spec import load_cell
 
 CPU, CUDA = "cpu", "cuda"
@@ -154,18 +153,38 @@ def test_the_layer_shares_read_their_spans():
                                  "linear_quant_share": 15.0})
 
 
+@pytest.mark.parametrize("name", sorted(spans.SHARES))
+def test_the_share_metrics_read_run_spans(name):
+    """Each of the guarded cell's span metrics reads its spans' share of
+    ``Run.spans``, and nothing without a trace."""
+    cell = load_cell("jamba-pim.decode")
+    metric = {m.name: m for m in cell.per_layer}[name]
+    names = spans.SHARES[name]
+    sp = spans.Spans(800, {n: 10 for n in names} | {"pim.exec": 700},
+                     {frozenset({"linear", n}): 10 for n in names}
+                     | {frozenset({"linear", "pim.exec"}): 700}, {}, 3)
+    run = harness.Run(cell=cell, setup_s=1.0, t_open=0.0, t_close=1.0,
+                      steps=[], requests={}, program_metrics=None,
+                      active_samples=[], uploads=0, trace=None,
+                      traced_steps=[], spans=sp)
+    assert metric.read(run) == pytest.approx(100.0 * 10 * len(names) / 800)
+    run.spans = None
+    assert metric.read(run) is None
+
+
 def test_capture_reduces_the_events_a_traced_run_summarizes(smoke_root):
     # a traced smoke run on the CPU: the program's ranges are in the
-    # window, no device work is, and the harness's own summary is intact
+    # window and reach Run.spans, no device work is, and the harness's
+    # own summary is intact; an untraced run has no spans
     cell = load_cell("j.pim", Path(smoke_root))
-    real = trace_mod.summarize
-    with spans.capture() as got:
-        run, _ = harness.serve(cell, 2147483951, 0.2, True,
-                               torch.device("cpu"), closed_loop.clock())
-    assert trace_mod.summarize is real
-    assert len(got) == 1 and run.trace is not None
-    assert got[0].n_ranges > 0
-    assert got[0].busy_ns == 0 and got[0].share("pim.pack") is None
+    run, _ = harness.serve(cell, 2147483951, 0.2, True,
+                           torch.device("cpu"), closed_loop.clock())
+    assert run.trace is not None and run.spans is not None
+    assert run.spans.n_ranges > 0
+    assert run.spans.busy_ns == 0 and run.spans.share("pim.pack") is None
+    run, _ = harness.serve(cell, 2147483951, 0.2, False,
+                           torch.device("cpu"), closed_loop.clock())
+    assert run.trace is None and run.spans is None
 
 
 @pytest.mark.card
@@ -174,10 +193,9 @@ def test_pim_exec_holds_the_crossbar_kernel(card):
     ``repro:pim.exec`` is the crossbar kernel's within 1 %, and at least
     98 % of the device time falls under some ``repro:`` range."""
     cell = load_cell("jamba-pim.decode")
-    with spans.capture() as got:
-        run, _ = harness.serve(cell, 2147483951, 1.0, True, card,
-                               closed_loop.clock())
-    sp = got[0]
+    run, _ = harness.serve(cell, 2147483951, 1.0, True, card,
+                           closed_loop.clock())
+    sp = run.spans
     kernel = run.trace.kernel_s(readers.CROSSBAR_KERNEL) * 1e9
     under = sp.inclusive_ns("pim.exec")
     assert kernel > 0
