@@ -3049,6 +3049,26 @@ def moe_routes_on_host(ids, t, cap, n_experts):
     return served, dropped, last
 
 
+def served_from_rows(dispatches, ids, t):
+    """The (token, expert) pairs that the recorded ``moe._dispatch`` calls
+    (each ``(tok_of_slot, rows, order, n_e, e_base)``) read back, and the
+    read-backs that are wrong: a slot that holds another token, or an
+    expert the token was not routed to."""
+    got, wrong = set(), []
+    for tok_of_slot, rows, order, n_e, e_base in dispatches:
+        slots = tok_of_slot.shape[1]
+        flat = tok_of_slot.reshape(-1).tolist()
+        for i, (row, col) in enumerate(zip(rows.tolist(), order.tolist())):
+            for r, j in zip(row, col):
+                if r == n_e * slots:
+                    continue
+                ex = e_base + r // slots
+                if flat[r] != i or ids[i][j] != ex:
+                    wrong.append((i, ex, flat[r]))
+                got.add((i, ex))
+    return got, wrong
+
+
 def check_moe_dispatch(params, cfg, dev):
     """``moe_ffn`` on one full-width layer: bit-identical over two runs;
     the (token, expert) pairs its slot maps served equal to a host
@@ -3066,13 +3086,13 @@ def check_moe_dispatch(params, cfg, dev):
     x = (shared + MOE_DISPATCH_NOISE * torch.randn(
         (b, s, d), generator=g, device=dev)).to(cfg.compute_dtype)
     cap = moe.expert_capacity(t, cfg.top_k, cfg.capacity_factor, e)
-    maps, routes = [], []
-    real_map, real_top_k = moe._slot_map, moe.router_top_k
+    dispatches, routes = [], []
+    real_dispatch, real_top_k = moe._dispatch, moe.router_top_k
 
-    def record_map(any_hit, tok, capacity):
-        m = real_map(any_hit, tok, capacity)
-        maps.append(m)
-        return m
+    def record_dispatch(top_ids, capacity, n_e, e_base=0):
+        out = real_dispatch(top_ids, capacity, n_e, e_base)
+        dispatches.append(out + (n_e, e_base))
+        return out
 
     def record_top_k(x2d, router, k):
         w, ids = real_top_k(x2d, router, k)
@@ -3080,7 +3100,7 @@ def check_moe_dispatch(params, cfg, dev):
         return w, ids
 
     with torch.no_grad():
-        with mock.patch.object(moe, "_slot_map", record_map), \
+        with mock.patch.object(moe, "_dispatch", record_dispatch), \
                 mock.patch.object(moe, "router_top_k", record_top_k):
             out1 = moe.moe_ffn(x, layer, cfg)
         out2 = moe.moe_ffn(x, layer, cfg)
@@ -3088,11 +3108,11 @@ def check_moe_dispatch(params, cfg, dev):
     identical = torch.equal(out1, out2)
     ids = routes[0].cpu().numpy()
     want, dropped, last = moe_routes_on_host(ids, t, cap, e)
-    # a slot's token is served if it was routed there (the trash slot's
-    # winner may be a token that was not)
-    got = {(i, ex) for ex, m in enumerate(maps) for i in m.tolist()
-           if i < t and (ids[i] == ex).any()}
-    exact = len(maps) == e and got == want
+    # the pairs whose outputs the dispatch read back, each from a slot
+    # that holds the token itself
+    got, wrong = served_from_rows(dispatches, ids.tolist(), t)
+    exact = [d[3:] for d in dispatches] == [(e, 0)] and got == want \
+        and not wrong
 
     wide = cfg.scaled(capacity_factor=32.0)
     wide_cap = moe.expert_capacity(t, cfg.top_k, 32.0, e)
@@ -3125,7 +3145,8 @@ def check_moe_dispatch(params, cfg, dev):
         failures.append("two runs of the dispatch differ")
     if not exact:
         failures.append(f"served pairs differ from the host rule: "
-                        f"{sorted(got ^ want)[:8]}")
+                        f"{sorted(got ^ want)[:8]}, read back from "
+                        f"another token's slot: {wrong[:8]}")
     if not dropped or not last:
         failures.append(f"the case must drop tokens ({len(dropped)}) and "
                         f"the last token ({last} experts)")
@@ -4589,13 +4610,14 @@ def tp_moe_layer(mesh, dev, cfg, layer, shape):
     x = (shared + MOE_DISPATCH_NOISE * torch.randn(
         (b, s, d), generator=g, device=dev)).to(cfg.compute_dtype)
     cap = moe.expert_capacity(t, cfg.top_k, cfg.capacity_factor, e)
-    maps, routes, parts = [], [], []
-    real_map, real_top_k, real_local = (moe._slot_map, moe.router_top_k,
-                                        moe._local_moe)
+    dispatches, routes, parts = [], [], []
+    real_dispatch, real_top_k, real_local = (moe._dispatch, moe.router_top_k,
+                                             moe._local_moe)
 
-    def record_map(any_hit, tok, capacity):
-        maps.append(real_map(any_hit, tok, capacity))
-        return maps[-1]
+    def record_dispatch(top_ids, capacity, n_e, e_base=0):
+        out = real_dispatch(top_ids, capacity, n_e, e_base)
+        dispatches.append(out + (n_e, e_base))
+        return out
 
     def record_top_k(x2d, router, k):
         w, ids = real_top_k(x2d, router, k)
@@ -4608,7 +4630,7 @@ def tp_moe_layer(mesh, dev, cfg, layer, shape):
         return y
 
     with torch.no_grad():
-        with mock.patch.object(moe, "_slot_map", record_map), \
+        with mock.patch.object(moe, "_dispatch", record_dispatch), \
                 mock.patch.object(moe, "router_top_k", record_top_k), \
                 mock.patch.object(moe, "_local_moe", record_local), \
                 dctx.use_mesh(mesh):
@@ -4624,13 +4646,13 @@ def tp_moe_layer(mesh, dev, cfg, layer, shape):
     ids_np = routes[0].cpu().numpy()
     want, dropped, _ = moe_routes_on_host(ids_np, t, cap, e)
     want = {(i, ex) for i, ex in want if e0 <= ex < e0 + e_loc}
-    got = {(i, e0 + j) for j, m in enumerate(maps) for i in m.tolist()
-           if i < t and (ids_np[i] == e0 + j).any()}
+    got, wrong = served_from_rows(dispatches, ids_np.tolist(), t)
     scale = float(meshless.float().abs().max())
     err = float((out.float() - meshless.float()).abs().max())
     res = dict(capacity=cap, e_base=e0, experts=e_loc,
                ids_equal=bool(torch.equal(routes[0], ids)),
-               routes_equal=len(maps) == e_loc and got == want,
+               routes_equal=[d[3:] for d in dispatches] == [(e_loc, e0)]
+               and got == want and not wrong,
                capacity_equal=[(c, b) for c, b, _ in parts] == [(cap, e0)],
                partial_equal=len(parts) == 1 and torch.equal(parts[0][2],
                                                              plain),

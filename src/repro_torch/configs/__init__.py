@@ -5,7 +5,9 @@ dense ``"ad"`` stack, sliding windows included, the MoE blocks ``"ae"``
 (granite-moe) and ``"ar"`` (arctic, with its dense residual), the
 encoder-decoder seamless-m4t-medium and the vision llama-3.2-vision-11b
 (``"adx"`` cross-attention, ``"enc"`` encoder blocks), the
-Mamba/attention/MoE hybrid jamba and the xLSTM stack."""
+Mamba/attention/MoE hybrid jamba and the xLSTM stack; then the port's
+own: granite-4.0-h-small (Mamba-2 and attention blocks with a shared
+expert, ``"ms"`` and ``"as"``), which the reference has no model for."""
 from __future__ import annotations
 
 import importlib
@@ -24,6 +26,8 @@ _MODULES = {
     "llama-3.2-vision-11b": "llama_3_2_vision_11b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "xlstm-1.3b": "xlstm_1_3b",
+    # the port's own, beyond the reference's registry
+    "granite-4.0-h-small": "granite_4_0_h_small",
 }
 
 ARCH_NAMES: List[str] = list(_MODULES)

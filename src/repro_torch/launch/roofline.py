@@ -52,8 +52,8 @@ def _expert_params(cfg) -> int:
     if not cfg.n_experts:
         return 0
     f = cfg.moe_d_ff or cfg.d_ff
-    n_moe_layers = sum(1 for k in cfg.pattern if k in ("ae", "ar", "me")
-                       ) * cfg.n_super
+    n_moe_layers = sum(1 for k in cfg.pattern
+                       if k in ("ae", "ar", "me", "ms", "as")) * cfg.n_super
     return n_moe_layers * cfg.n_experts * 3 * cfg.d_model * f
 
 
@@ -79,6 +79,8 @@ def recurrence_flops(cfg, tokens: int) -> float:
     for kind in cfg.pattern:
         if kind in ("md", "me"):
             fl += per * 6 * cfg.d_inner * cfg.mamba_d_state
+        if kind == "ms":  # Mamba-2: one decay a head, so 5 a state element
+            fl += per * 5 * cfg.d_inner * cfg.mamba_d_state
         if kind == "xm":
             p = int(cfg.xlstm_proj_factor * cfg.d_model)
             dh = p // cfg.n_heads

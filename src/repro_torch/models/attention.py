@@ -6,7 +6,8 @@ kernels.  ``flash_attention`` keeps the reference's blockwise online
 softmax (query/key blocks of 512), so memory is O(Bq*Bk) per block pair;
 ``direct_attention`` materializes the scores.  Scores and the weighted sum
 accumulate in float32, as the reference's ``preferred_element_type``
-does.
+does.  ``scale`` replaces the scores' ``1 / sqrt(D)`` where a model sets
+its own (granite-4.0-h's attention multiplier); None keeps it.
 """
 from __future__ import annotations
 
@@ -38,9 +39,15 @@ def _positions(sq: int, sk: int, q_offset: int, positions, device):
             torch.arange(sk, device=device))
 
 
+def _scaled(s, d: int, scale: Optional[float]):
+    """Scores over ``sqrt(d)``, or times ``scale`` when one is given."""
+    return s / math.sqrt(d) if scale is None else s * scale
+
+
 def direct_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
                      q_offset: int = 0, segment_ids=None,
-                     positions=None) -> torch.Tensor:
+                     positions=None, scale: Optional[float] = None
+                     ) -> torch.Tensor:
     """Materialized-scores attention. q: (B, Sq, H, D), k/v: (B, Sk, Hkv, D).
 
     ``positions``/``segment_ids``: packed-prefill support.  ``positions``
@@ -52,8 +59,8 @@ def direct_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
     _, sk, hkv, _ = k.shape
     k = _repeat_kv(k, h // hkv)
     v = _repeat_kv(v, h // hkv)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
-                     k.to(torch.float32)) / math.sqrt(d)
+    s = _scaled(torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                             k.to(torch.float32)), d, scale)
     q_pos, k_pos = _positions(sq, sk, q_offset, positions, q.device)
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -72,7 +79,8 @@ def direct_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
 def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
                     q_offset: int = 0, block_q: int = 512,
                     block_k: int = 512, segment_ids=None,
-                    positions=None) -> torch.Tensor:
+                    positions=None, scale: Optional[float] = None
+                    ) -> torch.Tensor:
     """q: (B, Sq, H, D), k/v: (B, Sk, Hkv, D) -> (B, Sq, H, D).
 
     ``q_offset``: absolute position of q[0] (for prefill continuation).
@@ -85,7 +93,8 @@ def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
     _, sk, hkv, _ = k.shape
     k = _repeat_kv(k, h // hkv)
     v = _repeat_kv(v, h // hkv)
-    scale = 1.0 / math.sqrt(d)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     dev = q.device
     qt = q.permute(0, 2, 1, 3)            # (B, H, Sq, D)
     kt = k.permute(0, 2, 1, 3)
@@ -132,7 +141,8 @@ def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
 
 def decode_attention(q, k_cache, v_cache, cache_len=None, *,
                      window: Optional[int] = None,
-                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     valid: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """Decode-step attention: q (B, Sq, H, D) over cache (B, S, Hkv, D).
 
     The key mask comes from ``cache_len`` (prefix semantics: indices below
@@ -149,7 +159,7 @@ def decode_attention(q, k_cache, v_cache, cache_len=None, *,
     qg = q.reshape(b, sq, hkv, n_rep, d)
     scores = torch.einsum("bqhgd,bshd->bhgqs", qg.to(torch.float32),
                           k_cache.to(torch.float32))
-    scores = scores / math.sqrt(d)
+    scores = _scaled(scores, d, scale)
     if valid is not None:
         mask = valid
     else:

@@ -12,9 +12,15 @@ Layer kinds:
     "adx"  self-attention + cross-attention + dense MLP (VLM / enc-dec)
     "md"   Mamba mixer + dense MLP
     "me"   Mamba mixer + MoE
+    "ms"   Mamba-2 mixer + MoE beside a shared expert (granite-4.0-h)
+    "as"   self-attention + MoE beside a shared expert (granite-4.0-h)
     "xm"   xLSTM mLSTM block (up-proj / matrix-memory / down-proj)
     "xs"   xLSTM sLSTM block
 Encoder stacks (enc-dec models) are uniform "enc" self-attention blocks.
+
+The fields after ``max_seq_len`` are the port's own (the reference has no
+Mamba-2 mixer, shared expert or multiplier); their defaults leave every
+other configuration as the reference computes it.
 """
 from __future__ import annotations
 
@@ -101,6 +107,16 @@ class ModelConfig:
     pim_mode: Optional[str] = None
     # training
     max_seq_len: int = 8_192
+    # port only: Mamba-2 ("ms"), the shared expert, muP multipliers, NoPE
+    mamba_n_heads: int = 0           # Mamba-2 heads, each with its own decay
+    shared_d_ff: int = 0             # the shared expert's width ("ms", "as")
+    embedding_multiplier: float = 1.0   # the embedding's scale
+    residual_multiplier: float = 1.0    # each sublayer's output's scale
+                                        # before its residual add
+    attention_multiplier: Optional[float] = None   # score scale (None:
+                                                    # 1 / sqrt(head dim))
+    logits_scaling: float = 1.0      # logits are divided by it
+    use_rope: bool = True            # False: no positional encoding (NoPE)
 
     # ------------------------------------------------------------------
     @property
@@ -132,6 +148,11 @@ class ModelConfig:
         return self.mamba_expand * self.d_model
 
     @property
+    def mamba_d_head(self) -> int:
+        """A Mamba-2 head's width: d_inner over the heads."""
+        return self.d_inner // self.mamba_n_heads
+
+    @property
     def is_encoder_decoder(self) -> bool:
         return self.n_encoder_layers > 0
 
@@ -139,7 +160,7 @@ class ModelConfig:
     def has_recurrent_blocks(self) -> bool:
         """Any SSM/xLSTM block in the stack (state folds the whole prefix,
         so e.g. right-padded prompts are not admissible)."""
-        return any(k in ("md", "me", "xm", "xs") for k in self.pattern)
+        return any(k in ("md", "me", "ms", "xm", "xs") for k in self.pattern)
 
     def window_ring_blocks(self, block_size: int) -> Optional[int]:
         """Blocks in a sliding-window decode ring (None when unwindowed).
@@ -203,4 +224,9 @@ class ModelConfig:
             kw.update(vision_dim=24, n_patches=9)
         if self.family == "ssm":
             kw.update(n_heads=2, n_kv_heads=2, head_dim=32)
+        if self.mamba_n_heads:
+            # Mamba-2: 4 heads of 16 (d_inner 64), 8 experts top 2
+            kw.update(mamba_n_heads=4, mamba_expand=1,
+                      mamba_d_state=16, n_experts=8, top_k=2,
+                      shared_d_ff=48)
         return dataclasses.replace(self, **kw)

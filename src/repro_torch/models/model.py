@@ -1,7 +1,9 @@
 """Model assembly: parameter specs, prefill, decode and the train mode of
 the dense ``"ad"`` stack, the MoE blocks ``"ae"`` and ``"ar"``, the Mamba
 blocks ``"md"`` and ``"me"``, the xLSTM blocks ``"xm"`` and ``"xs"``, the
-cross-attention block ``"adx"`` and the encoder block ``"enc"``.
+cross-attention block ``"adx"``, the encoder block ``"enc"``, and
+granite-4.0-h's Mamba-2 and attention blocks with a shared expert
+(``"ms"``, ``"as"``).
 
 Parameters keep the reference's tree: ``{"embed", "final_norm", "blocks":
 {"0": {name: (n_super, ...)}}}`` with every block weight stacked over the
@@ -70,6 +72,19 @@ outputs as the ``xk``/``xv`` cache leaves, slot-indexed and not paged;
 decode reads them and never writes them, so a decode step needs no
 memory.  The encoder runs inside prefill's and ``loss_fn``'s transient
 context like every other linear of theirs.
+
+granite-4.0-h's blocks run the Mamba-2 mixer (``"ms"``:
+:func:`ssm.mamba2_mixer`, state ``ssm`` and ``conv`` like Mamba's) or
+self-attention (``"as"``), then the MoE with a shared expert beside it: a
+gated MLP of ``shared_d_ff`` (``w_in``, ``w_gate``, ``w_out``) through
+``linear`` on the same normed input, added to the routed experts' output
+as arctic's dense residual is.  Its muP multipliers are fields of the
+config: the embedding is scaled by ``embedding_multiplier``, each
+sublayer's output by ``residual_multiplier`` before its residual add, the
+attention scores by ``attention_multiplier`` (instead of ``1 /
+sqrt(hd)``), and the logits divided by ``logits_scaling``; ``use_rope``
+False drops RoPE (NoPE).  At their defaults none of them adds an
+operation.
 """
 from __future__ import annotations
 
@@ -89,7 +104,7 @@ from repro_torch.models.layers import (Spec, activation, apply_rope,
                                        embed_lookup, linear, materialize,
                                        rms_norm, unembed)
 from repro_torch.models.moe import moe_ffn
-from repro_torch.models.ssm import mamba_mixer
+from repro_torch.models.ssm import mamba2_mixer, mamba_mixer
 from repro_torch.models.xlstm import mlstm_block, slstm_block
 from repro_torch.runtime.trace import span
 from repro_torch.tree import leaves as _leaves
@@ -101,14 +116,18 @@ PAGED_KV_KEYS = ("k", "v", "k_scale", "v_scale")
 
 #: Block kinds the port runs: dense, MoE, MoE with a dense residual,
 #: dense with cross-attention, the encoder's, Mamba with a dense MLP or the
-#: MoE, mLSTM and sLSTM.
-PORTED_KINDS = ("ad", "ae", "ar", "adx", "enc", "md", "me", "xm", "xs")
+#: MoE, mLSTM and sLSTM, Mamba-2 and attention with a shared expert.
+PORTED_KINDS = ("ad", "ae", "ar", "adx", "enc", "md", "me", "xm", "xs",
+                "ms", "as")
 
 #: Kinds with self-attention (``"enc"`` only in the encoder stack, so never
-#: with a KV cache) and with the dense MLP.
-_ATTN_KINDS = ("ad", "ae", "ar", "adx", "enc")
+#: with a KV cache), with the dense MLP, with the MoE, and with a shared
+#: expert beside it.
+_ATTN_KINDS = ("ad", "ae", "ar", "adx", "enc", "as")
 _MLP_KINDS = ("ad", "adx", "enc", "md", "ar")
-_MAMBA_KINDS = ("md", "me")
+_MOE_KINDS = ("ae", "ar", "me", "ms", "as")
+_SHARED_KINDS = ("ms", "as")
+_MAMBA_KINDS = ("md", "me", "ms")
 _XLSTM_KINDS = ("xm", "xs")
 #: Cross-attention cache leaves: written by prefill, read by decode.
 _XATTN_KEYS = ("xk", "xv")
@@ -211,6 +230,31 @@ def _mamba_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
             "out_proj": _spec((di, d), dt)}
 
 
+def _shared_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
+    d, f = cfg.d_model, cfg.shared_d_ff
+    return {"w_in": _spec((d, f), dt),
+            "w_gate": _spec((d, f), dt),
+            "w_out": _spec((f, d), dt)}
+
+
+def _mamba2_specs(cfg: ModelConfig, dt) -> Dict[str, Spec]:
+    d, di, ds, dc, nh = (cfg.d_model, cfg.d_inner, cfg.mamba_d_state,
+                         cfg.mamba_d_conv, cfg.mamba_n_heads)
+    if di % nh:
+        raise ValueError(f"{cfg.name}: d_inner {di} is not {nh} Mamba-2 "
+                         f"heads of one width")
+    f32 = torch.float32
+    return {"norm_m": _spec((d,), f32, "ones"),
+            "in_proj": _spec((d, 2 * di + 2 * ds + nh), dt),
+            "conv_w": _spec((dc, di + 2 * ds), f32, "normal", 0.5),
+            "conv_b": _spec((di + 2 * ds,), f32, "zeros"),
+            "dt_bias": _spec((nh,), f32, "zeros"),
+            "a_log": _spec((nh,), f32, "alog"),
+            "d_skip": _spec((nh,), f32, "ones"),
+            "gate_norm": _spec((di,), f32, "ones"),
+            "out_proj": _spec((di, d), dt)}
+
+
 def _xlstm_inner(cfg: ModelConfig) -> Tuple[int, int]:
     """(p, dh): the xLSTM blocks' inner width and head width."""
     p = int(cfg.xlstm_proj_factor * cfg.d_model)
@@ -247,11 +291,15 @@ def _block_specs(kind: str, cfg: ModelConfig, dt) -> Dict[str, Spec]:
         s.update(_attn_specs(cfg, dt))
     if kind in _MLP_KINDS:
         s.update(_mlp_specs(cfg, dt))
-    if kind in ("ae", "ar", "me"):
+    if kind in _MOE_KINDS:
         s.update(_moe_specs(cfg, dt))
+    if kind in _SHARED_KINDS:
+        s.update(_shared_specs(cfg, dt))
     if kind == "adx":
         s.update(_xattn_specs(cfg, dt))
-    if kind in _MAMBA_KINDS:
+    if kind == "ms":
+        s.update(_mamba2_specs(cfg, dt))
+    elif kind in _MAMBA_KINDS:
         s.update(_mamba_specs(cfg, dt))
     if kind == "xm":
         s.update(_mlstm_specs(cfg, dt))
@@ -409,9 +457,10 @@ def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
     q = linear(hh, p["wq"], p.get("bq")).reshape(b, s, h, hd)
     k = linear(hh, p["wk"], p.get("bk")).reshape(b, s, hkv, hd)
     v = linear(hh, p["wv"], p.get("bv")).reshape(b, s, hkv, hd)
-    if causal:  # RoPE only on the causal (decoder) stacks
+    if causal and cfg.use_rope:  # RoPE only on the causal (decoder) stacks
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    scale = cfg.attention_multiplier
     new_cache = None
     if mode == "decode" and block_tables is not None:
         # Block-paged cache: leaves are (num_blocks, block, ...) physical
@@ -451,7 +500,7 @@ def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
         gathered = {key: c[block_tables].reshape((b, lcap) + c.shape[2:])
                     for key, c in cache.items()}
         k_full, v_full = _read_kv(gathered, cfg, quant)
-        out = _decode_attention(q, k_full, v_full, valid)
+        out = _decode_attention(q, k_full, v_full, valid, scale)
         new_cache = cache
     elif mode == "decode":
         cap = cache["k"].shape[1]
@@ -493,9 +542,10 @@ def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
             cache_len = min(int(pos) + 1, cap)
         k_full, v_full = _read_kv(cache, cfg, quant)
         if valid is None:
-            out = attn.decode_attention(q, k_full, v_full, cache_len)
+            out = attn.decode_attention(q, k_full, v_full, cache_len,
+                                        scale=scale)
         else:
-            out = _decode_attention(q, k_full, v_full, valid)
+            out = _decode_attention(q, k_full, v_full, valid, scale)
         new_cache = cache
     else:
         window = cfg.sliding_window if causal else None
@@ -514,7 +564,8 @@ def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
             pk, pv = _read_kv(cache, cfg, quant)
             out = attn_fn(q, torch.cat([pk.to(k.dtype), k], dim=1),
                           torch.cat([pv.to(v.dtype), v], dim=1),
-                          causal=causal, window=window, q_offset=m_len)
+                          causal=causal, window=window, q_offset=m_len,
+                          scale=scale)
             new_cache = _tail_kv(k, v, cfg, quant)
         elif segment_ids is not None:
             # Packed prefill: several prompts share one (1, L) stream.
@@ -525,10 +576,12 @@ def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
             # windowed segment packs only while it fits the window, where
             # the ring layout is the dense one).
             out = attn_fn(q, k, v, causal=causal, window=window,
-                          segment_ids=segment_ids, positions=positions)
+                          segment_ids=segment_ids, positions=positions,
+                          scale=scale)
             new_cache = _tail_kv(k, v, cfg, quant)
         else:
-            out = attn_fn(q, k, v, causal=causal, window=window)
+            out = attn_fn(q, k, v, causal=causal, window=window,
+                          scale=scale)
         if mode == "prefill" and new_cache is None:
             if window:
                 # the ring: the window, with decode headroom padded for a
@@ -555,15 +608,23 @@ def _self_attention(x, p, cfg: ModelConfig, positions, mode, cache, pos,
                 kc, vc = kc.to(cfg.compute_dtype), vc.to(cfg.compute_dtype)
             new_cache = _kv_leaves(kc, vc, quant)
     y = linear(out.reshape(b, s, h * hd), p["wo"])
-    return x + y, new_cache
+    return x + _residual(y, cfg), new_cache
 
 
-def _decode_attention(q, k_full, v_full, valid):
+def _residual(y, cfg: ModelConfig):
+    """A sublayer's output as its residual add takes it."""
+    if cfg.residual_multiplier == 1.0:
+        return y
+    return y * cfg.residual_multiplier
+
+
+def _decode_attention(q, k_full, v_full, valid, scale=None):
     """Decode attention of queries (B, s) under a per-query mask
     (B, s, S), one query position at a time (see the module docstring)."""
     return _per_position(
         lambda qi, vi: attn.decode_attention(qi, k_full, v_full,
-                                             valid=vi[:, 0]), q, valid)
+                                             valid=vi[:, 0], scale=scale),
+        q, valid)
 
 
 def _tail_kv(k, v, cfg: ModelConfig, quant: bool):
@@ -619,10 +680,13 @@ def _moe(x, p, cfg: ModelConfig, dense_residual: bool, run: bool = False):
     """The MoE block on the normed residual; all rows route together (a
     multi-position decode step's too, as in the reference)."""
     hh = _norm(x, p["norm_moe"], cfg, run)
-    y = moe_ffn(hh, p, cfg)
-    if dense_residual:  # arctic: parallel dense MLP on the same input
-        y = y + _dense_ffn(hh, p, cfg)
-    return x + y
+    if not dense_residual:
+        return x + _residual(moe_ffn(hh, p, cfg), cfg)
+    # arctic's dense MLP, or a shared expert, beside it; launched first, so
+    # that on the card its linears run while the host dispatches the experts
+    with span("moe.shared"):
+        dense = _dense_ffn(hh, p, cfg)
+    return x + _residual(moe_ffn(hh, p, cfg) + dense, cfg)
 
 
 def _recurrent_cache(mode, cache, state):
@@ -636,11 +700,12 @@ def _recurrent_cache(mode, cache, state):
     return state if mode == "prefill" else None
 
 
-def _mamba(x, p, cfg: ModelConfig, mode, cache):
+def _mamba(x, p, cfg: ModelConfig, mode, cache, kind):
     hh = rms_norm(x, p["norm_m"], cfg.norm_eps)
     state = (cache["ssm"], cache["conv"]) if mode == "decode" else None
-    y, (ssm, conv) = mamba_mixer(hh, p, cfg, state)
-    return x + y, _recurrent_cache(mode, cache, {
+    fn = mamba2_mixer if kind == "ms" else mamba_mixer
+    y, (ssm, conv) = fn(hh, p, cfg, state)
+    return x + _residual(y, cfg), _recurrent_cache(mode, cache, {
         "ssm": ssm.to(torch.float32), "conv": conv.to(cfg.compute_dtype)})
 
 
@@ -659,11 +724,11 @@ def apply_block(kind: str, x, p, cfg: ModelConfig, *, positions, mode,
                 cache=None, pos=None, memory=None, block_tables=None,
                 segment_ids=None):
     """Returns (x, cache_out or None), in the reference's order: the
-    mixer (self-attention, Mamba or xLSTM), the cross-attention of
-    ``"adx"`` onto ``memory``, then the dense MLP (``"ad"``, ``"adx"``,
+    mixer (self-attention, Mamba, Mamba-2 or xLSTM), the cross-attention
+    of ``"adx"`` onto ``memory``, then the dense MLP (``"ad"``, ``"adx"``,
     ``"enc"``, ``"md"``) or the MoE (``"ae"``, ``"me"``; ``"ar"`` with
-    arctic's dense residual).  ``"enc"`` attends without a causal mask or
-    RoPE."""
+    arctic's dense residual, ``"ms"`` and ``"as"`` with a shared expert).
+    ``"enc"`` attends without a causal mask or RoPE."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     # a multi-position decode step: the speculative verify run
@@ -682,11 +747,12 @@ def apply_block(kind: str, x, p, cfg: ModelConfig, *, positions, mode,
             if xc:
                 c = {**c, **xc}
     elif kind in _MAMBA_KINDS:
-        x, c = _mamba(x, p, cfg, mode, cache)
+        x, c = _mamba(x, p, cfg, mode, cache, kind)
     else:
         x, c = _xlstm(x, p, cfg, mode, cache, kind)
-    if kind in ("ae", "me", "ar"):
-        x = _moe(x, p, cfg, dense_residual=kind == "ar", run=run)
+    if kind in _MOE_KINDS:
+        x = _moe(x, p, cfg, dense_residual=kind in ("ar",) + _SHARED_KINDS,
+                 run=run)
     elif kind in _MLP_KINDS:
         x = _mlp(x, p, cfg, run=run)
     return x, c
@@ -811,11 +877,21 @@ def _embed_in(params, tokens, cfg: ModelConfig):
     x = embed_lookup(params["embed"], tokens).to(cfg.compute_dtype)
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     return x
 
 
 def _unembed_table(params, cfg):
     return params["lm_head"] if "lm_head" in params else params["embed"]
+
+
+def _logits(x, table, cfg: ModelConfig, chunk=None):
+    """float32 logits of the final-normed ``x``, over ``logits_scaling``."""
+    logits = unembed(x, table, chunk=chunk).to(torch.float32)
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits
 
 
 def _pim_ctx(cfg: ModelConfig):
@@ -881,8 +957,7 @@ def _loss_fn(params, batch, cfg: ModelConfig):
     chunk = cfg.loss_chunk if n_tok % cfg.loss_chunk == 0 else n_tok
 
     def chunk_nll(xc, yc):
-        logits = unembed(xc, table, chunk=cfg.unembed_chunk or None
-                         ).to(torch.float32)
+        logits = _logits(xc, table, cfg, chunk=cfg.unembed_chunk or None)
         m = logits.amax(dim=-1, keepdim=True).detach()
         lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[:, 0]
         # the gold logit: the one term of the reference's mask-sum
@@ -939,8 +1014,7 @@ def prefill(params, batch, cfg: ModelConfig, last_index=None, prefix=None):
         else:
             li = torch.as_tensor(last_index, device=x.device).long()
             xl = x[torch.arange(x.shape[0], device=x.device), li]
-        logits = unembed(xl, _unembed_table(params, cfg))
-        return logits.to(torch.float32), caches
+        return _logits(xl, _unembed_table(params, cfg), cfg), caches
 
 
 def prefill_packed(params, tokens, positions, segment_ids, last_index,
@@ -968,9 +1042,9 @@ def prefill_packed(params, tokens, positions, segment_ids, last_index,
         table = _unembed_table(params, cfg)
         # one (1, d) unembed per segment: the row the unpacked prefill
         # runs, so each segment keeps that prefill's reduction order
-        logits = torch.cat([unembed(xl[i:i + 1], table)
+        logits = torch.cat([_logits(xl[i:i + 1], table, cfg)
                             for i in range(xl.shape[0])], dim=0)
-        return logits.to(torch.float32), caches
+        return logits, caches
 
 
 def decode_step(params, token, pos, caches, cfg: ModelConfig):
@@ -985,8 +1059,7 @@ def decode_step(params, token, pos, caches, cfg: ModelConfig):
                                        mode="decode", caches=caches,
                                        pos=int(pos))
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = unembed(x[:, -1], _unembed_table(params, cfg)
-                         ).to(torch.float32)
+        logits = _logits(x[:, -1], _unembed_table(params, cfg), cfg)
         next_tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         return next_tok, logits, new_caches
 
@@ -1016,8 +1089,7 @@ def decode_step_slots(params, tokens, pos, active, caches, cfg: ModelConfig,
             block_tables=None if block_tables is None
             else block_tables.long())
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = unembed(x[:, -1], _unembed_table(params, cfg)
-                         ).to(torch.float32)
+        logits = _logits(x[:, -1], _unembed_table(params, cfg), cfg)
         next_tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         next_tok = torch.where(active[:, None], next_tok,
                                torch.zeros_like(next_tok))
@@ -1064,10 +1136,9 @@ def decode_run_slots(params, tokens, pos, active, caches, cfg: ModelConfig,
         # one (B, d) unembed per run position: the row the single-position
         # step runs (a (B * S, d) matmul may reduce in another order)
         logits = torch.stack(
-            [unembed(rms_norm(x[:, i:i + 1].contiguous(),
+            [_logits(rms_norm(x[:, i:i + 1].contiguous(),
                               params["final_norm"], cfg.norm_eps)[:, -1],
-                     table) for i in range(tokens.shape[1])],
-            dim=1).to(torch.float32)
+                     table, cfg) for i in range(tokens.shape[1])], dim=1)
         verify_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         verify_tok = torch.where(active[:, None], verify_tok,
                                  torch.zeros_like(verify_tok))
@@ -1104,7 +1175,13 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Dict:
             rows = cfg.n_patches or seq_len // cfg.audio_frames_div
             for key in _XATTN_KEYS:
                 c[key] = ((ns, batch, rows, hkv, hd), cfg.compute_dtype)
-        if kind in _MAMBA_KINDS:
+        if kind == "ms":
+            ds = cfg.mamba_d_state
+            c["ssm"] = ((ns, batch, cfg.mamba_n_heads, cfg.mamba_d_head, ds),
+                        f32)
+            c["conv"] = ((ns, batch, cfg.mamba_d_conv - 1,
+                          cfg.d_inner + 2 * ds), cfg.compute_dtype)
+        elif kind in _MAMBA_KINDS:
             c["ssm"] = ((ns, batch, cfg.d_inner, cfg.mamba_d_state), f32)
             c["conv"] = ((ns, batch, cfg.mamba_d_conv - 1, cfg.d_inner),
                          cfg.compute_dtype)

@@ -4,9 +4,13 @@ Each token's router logits are a float32 product; it picks its ``top_k``
 experts (ties to the lower expert index) and weighs them by a softmax
 over the k logits.  Each expert accepts at most ``capacity`` tokens, in
 token order; the rest are dropped for that expert (the router's other
-choices still serve them).  The experts are gather -> dense FFN in the
-compute dtype -> scatter-add into a float32 output, expert after expert;
-dispatch is a gather, not a one-hot product.
+choices still serve them).  The experts run grouped: one gather puts
+every expert's accepted tokens into an ``(E, capacity + 1, d)`` buffer,
+three batched products in the compute dtype run every expert at once,
+and each token adds its experts' weighted float32 outputs in ascending
+expert order (the order of an expert-after-expert loop, so the sums are
+that loop's); dispatch is a gather, not a one-hot product.  A layer costs
+the same few dozen launches at any expert count.
 
 Without a mesh (or at model 1) one process runs every expert: the
 reference's ``mesh is None`` branch.  Under a mesh whose ``"model"`` axis
@@ -42,12 +46,12 @@ its contribution is kept, through the trash row, while every earlier
 overflow token is dropped.  The port reproduces that rule
 deterministically: the slot-to-token map is a ``scatter_reduce`` with
 ``amax`` of the token indices (the largest index is the last writer), and
-the expert's buffer is *gathered* through that map.  The accumulation's
-``index_add_`` gives each real row at most one add per expert, so its
-result does not depend on the order of the adds; only the discarded row
-``t`` takes many.
+the expert's buffer is *gathered* through that map.  A token reads its
+output back from the slot it was served in, or from the trash slot it
+won; a token the trash slot took but did not route there adds nothing.
 
-The loop is fixed-shape: no ``nonzero``, no ``.item()``, no host sync.
+The dispatch is fixed-shape: no ``nonzero``, no ``.item()``, no host
+sync.
 """
 from __future__ import annotations
 
@@ -90,47 +94,73 @@ def router_top_k(x2d, router, k: int):
 
 
 def _slot_map(any_hit, tok, capacity: int):
-    """One expert's (capacity + 1,) slot -> token map over (T,) hits:
-    the hits in token order up to ``capacity``, then the trash slot with
-    the largest token index sent there (the reference's last writer: an
-    overflow or a token not routed here); ``T`` marks an empty slot."""
-    t = any_hit.shape[0]
-    slot = torch.cumsum(any_hit, 0) - 1
+    """Each expert's (capacity + 1,) slot -> token map over its (E, T)
+    row of hits: the hits in token order up to ``capacity``, then the
+    trash slot with the largest token index sent there (the reference's
+    last writer: an overflow or a token not routed here); ``T`` marks an
+    empty slot.  Returns (E, capacity + 1)."""
+    t = any_hit.shape[-1]
+    slot = torch.cumsum(any_hit, -1) - 1
     slot = torch.where(any_hit & (slot < capacity), slot, capacity)
-    tok_of_slot = torch.full((capacity + 1,), -1, dtype=tok.dtype,
-                             device=tok.device).scatter_reduce(
-        0, slot, tok, reduce="amax")
+    tok_of_slot = torch.full(any_hit.shape[:-1] + (capacity + 1,), -1,
+                             dtype=tok.dtype, device=tok.device
+                             ).scatter_reduce(-1, slot, tok.expand_as(slot),
+                                              reduce="amax")
     return torch.where(tok_of_slot < 0, t, tok_of_slot)
+
+
+def _dispatch(top_ids, capacity: int, n_e: int, e_base: int = 0):
+    """Where the experts ``e_base`` to ``e_base + n_e - 1`` take the
+    (T, k) routes ``top_ids``: each expert's (capacity + 1,) slot map
+    ``tok_of_slot`` (E, capacity + 1), and for each token's experts in
+    ascending order (``order`` (T, k) indexes ``top_ids``' columns) the
+    flat slot ``rows`` (T, k) its output is read back from: the token's
+    slot, or the trash slot it won, or ``E * (capacity + 1)`` where it was
+    dropped or the expert is not held here."""
+    t, dev = top_ids.shape[0], top_ids.device
+    slots = capacity + 1
+    tok = torch.arange(t, device=dev)
+    experts = torch.arange(e_base, e_base + n_e, device=dev)
+    any_hit = (top_ids[:, :, None] == experts).any(1).T    # (E, T)
+    tok_of_slot = _slot_map(any_hit, tok, capacity)        # (E, cap + 1)
+    ids, order = torch.sort(top_ids, dim=1)                # (T, k)
+    local = ids - e_base
+    mine = (local >= 0) & (local < n_e)
+    local = local.clamp(0, n_e - 1)
+    rank = (torch.cumsum(any_hit, 1) - 1).T.gather(1, local)
+    won = tok_of_slot[:, capacity][local] == tok[:, None]
+    served = mine & ((rank < capacity) | won)
+    rows = torch.where(served, local * slots + rank.clamp(max=capacity),
+                       n_e * slots)
+    return tok_of_slot, rows, order
 
 
 def _local_moe(x, top_ids, top_w, w1, w2, w3, *, capacity: int,
                act_name: str, e_base: int = 0):
-    """The expert loop over (T, d) tokens and the experts ``e_base`` to
-    ``e_base + len(w1) - 1``; returns the (T, d) float32 sum over those
-    experts of each token's weighted expert outputs."""
-    t, d = x.shape
-    dev = x.device
-    out = torch.zeros((t + 1, d), dtype=torch.float32, device=dev)
+    """The experts ``e_base`` to ``e_base + len(w1) - 1`` over (T, d)
+    tokens, grouped; returns the (T, d) float32 sum over those experts of
+    each token's weighted expert outputs, added in ascending expert
+    order."""
+    d, n_e = x.shape[1], w1.shape[0]
     act = activation(act_name)
-    tok = torch.arange(t, device=dev)
-    zero_row = torch.zeros((1, d), dtype=x.dtype, device=dev)
-    zero_w = torch.zeros((1,), dtype=top_w.dtype, device=dev)
-    for e in range(w1.shape[0]):
-        hit = top_ids == e_base + e                        # (T, k)
-        tok_w = (hit * top_w).sum(-1)                      # (T,)
-        any_hit = hit.any(-1)
-        tok_of_slot = _slot_map(any_hit, tok, capacity)    # (cap + 1,)
-        # the expert's input rows, gathered (an empty slot reads the zero
-        # row, the trash slot its winner's row if it was routed here)
-        xm = torch.where(any_hit[:, None], x, 0)
-        buf = torch.cat([xm, zero_row])[tok_of_slot]       # (cap + 1, d)
-        h = act(buf @ w1[e].to(x.dtype))
-        if w3 is not None:
-            h = h * (buf @ w3[e].to(x.dtype))
-        y = (h @ w2[e].to(x.dtype)).to(torch.float32)
-        gathered_w = torch.cat([tok_w, zero_w])[tok_of_slot]
-        out.index_add_(0, tok_of_slot, y * gathered_w[:, None])
-    return out[:t]
+    tok_of_slot, rows, order = _dispatch(top_ids, capacity, n_e, e_base)
+
+    # every expert's slots, gathered (an empty slot reads the zero row; a
+    # trash slot won by a token not routed there is never read back)
+    buf = torch.cat([x, x.new_zeros((1, d))])[tok_of_slot]
+    h = act(torch.bmm(buf, w1.to(x.dtype)))
+    if w3 is not None:
+        h = h * torch.bmm(buf, w3.to(x.dtype))
+    # the outputs in the compute dtype, with a zero row for dropped pairs;
+    # each is widened to float32 exactly where its weight multiplies it
+    y = torch.bmm(h, w2.to(x.dtype)).reshape(-1, d)       # (E (cap + 1), d)
+    y = torch.cat([y, y.new_zeros((1, d))])
+    w = top_w.gather(1, order)[..., None]
+    # (T, k, d) float32 terms at most 256 MiB at a time (a long prefill)
+    step = max(1, (1 << 28) // (rows.shape[1] * d * 4))
+    parts = [(y[r] * w_).sum(1) for r, w_ in zip(rows.split(step),
+                                                 w.split(step))]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def moe_ffn(x, params: Dict, cfg) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Mamba selective-SSM mixer (Jamba's recurrent block).
+"""Mamba selective-SSM mixers: Mamba-1 (Jamba's recurrent block) and
+Mamba-2 (granite-4.0-h's).
 
 Prefill and training run the recurrence as a Python loop over the
 sequence, in float32 and in the reference's step order (``h = da * h +
@@ -9,6 +10,18 @@ plus the conv tail ``(B, d_conv - 1, d_inner)``, O(1) per token.
 
 The projections are plain products in the compute dtype, outside
 ``linear``, as in the reference.
+
+:func:`mamba2_mixer` is Mamba-2 with one group: ``in_proj`` gives ``z``,
+``xBC`` and one ``dt`` per head; a causal depthwise conv with bias and
+SiLU runs over ``xBC``, which splits into ``x`` (heads of ``mamba_d_head``)
+and the ``B`` and ``C`` that every head shares.  Each head decays by the
+scalar ``exp(dt * A)``: ``h = exp(dt A) h + dt x B^T`` and ``y = h C + D
+x``, then ``y * silu(z)`` is RMS-normed over ``d_inner`` (the gated norm)
+before ``out_proj``.  Its state is ``(B, heads, d_head, d_state)``
+float32 and the conv tail ``(B, d_conv - 1, d_inner + 2 d_state)``.  The
+recurrence, ``dt`` and the gated norm are float32 (``dt_bias``,
+``a_log``, ``d_skip`` and ``gate_norm`` are float32 leaves); prefill steps
+position by position, as the Mamba-1 loop does.
 """
 from __future__ import annotations
 
@@ -19,7 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.runtime.trace import span
 
-__all__ = ["mamba_mixer"]
+__all__ = ["mamba_mixer", "mamba2_mixer"]
 
 
 def _softplus(x):
@@ -74,4 +87,59 @@ def mamba_mixer(x, params: Dict, cfg, state: Tuple = None):
         y = y + u * params["d_skip"].to(cdt)
         y = y * F.silu(z)
         out = y @ params["out_proj"].to(cdt)
+        return out, (h, new_tail)
+
+
+def gated_norm(y, z, weight, eps: float):
+    """Mamba-2's gated RMSNorm in float32: ``y * silu(z)`` normed over its
+    last axis, times ``weight`` (float32)."""
+    g = y * F.silu(z.to(torch.float32))
+    return F.rms_norm(g, (g.shape[-1],), weight, eps)
+
+
+def mamba2_mixer(x, params: Dict, cfg, state: Tuple = None):
+    """x: (B, S, d). Returns (y, new_state).
+
+    ``state`` = (ssm_state (B, nh, hd, ds) float32, conv_state (B,
+    d_conv-1, d_inner + 2 ds)) or None for a fresh sequence.  Written for
+    few launches a decode step: the conv is one product over the unfolded
+    window, and each position's state update two."""
+    with span("ssm.mamba2"):
+        b, s, _ = x.shape
+        di, ds, dc = cfg.d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+        nh, hd = cfg.mamba_n_heads, cfg.mamba_d_head
+        cdt, f32 = x.dtype, torch.float32
+
+        z, xbc, dt = torch.split(x @ params["in_proj"].to(cdt),
+                                 [di, di + 2 * ds, nh], dim=-1)
+        if state is None:
+            tail = torch.zeros((b, dc - 1, di + 2 * ds), dtype=cdt,
+                               device=x.device)
+        else:
+            tail = state[1]
+        pad = torch.cat([tail, xbc], dim=1)              # (B, S+dc-1, C)
+        new_tail = pad[:, s:]
+        # the causal depthwise conv in float32 (the taps are float32)
+        conv = (pad.unfold(1, dc, 1) * params["conv_w"].T).sum(-1) \
+            + params["conv_b"]
+        xs, b_t, c_t = torch.split(F.silu(conv), [di, ds, ds], dim=-1)
+        xh = xs.reshape(b, s, nh, hd)
+
+        # the float32 leaves (dt_bias, a_log, d_skip) per head
+        dt = F.softplus(dt + params["dt_bias"])           # (B, S, nh)
+        da = torch.exp(dt * -torch.exp(params["a_log"])).view(b, s, nh, 1,
+                                                              1)
+        dbx = (dt[..., None] * xh)[..., None] * b_t.view(b, s, 1, 1, ds)
+        c_col = c_t.view(b, s, 1, ds, 1)
+        h = (torch.zeros((b, nh, hd, ds), dtype=f32, device=x.device)
+             if state is None else state[0])
+        ys = []
+        for t in range(s):
+            h = da[:, t] * h + dbx[:, t]
+            ys.append(h @ c_col[:, t])                    # (B, nh, hd, 1)
+        y = torch.stack(ys, dim=1).view(b, s, nh, hd) \
+            + xh * params["d_skip"].view(nh, 1)
+        g = gated_norm(y.view(b, s, di), z, params["gate_norm"],
+                       cfg.norm_eps)
+        out = g.to(cdt) @ params["out_proj"].to(cdt)
         return out, (h, new_tail)

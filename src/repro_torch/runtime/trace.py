@@ -20,8 +20,10 @@ The spans, by layer (each reader strips the ``|rid=`` part):
   ``linear.rescale`` (``pim/engine.py::_sim_forward``,
   ``kernels/quant_matmul/ops.py::quant_linear``) and ``quant.gemm``;
 * ``pim.pack``, ``pim.exec``, ``pim.read`` (``pim/engine.py``);
-* ``moe.ffn``, ``moe.route``, ``moe.experts`` (``models/moe.py``);
-* ``ssm.mixer`` (``models/ssm.py``).
+* ``moe.ffn``, ``moe.route``, ``moe.experts`` (``models/moe.py``) and
+  ``moe.shared`` (``models/model.py::_moe``: a shared expert, or arctic's
+  dense residual, its linears included);
+* ``ssm.mixer`` and ``ssm.mamba2`` (``models/ssm.py``).
 """
 from __future__ import annotations
 

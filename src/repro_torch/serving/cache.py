@@ -63,11 +63,11 @@ counts once per referencing slot), ``tokens_in_use`` the *physical*
 occupancy (allocated blocks x block_size, each block once);
 ``blocks_shared``, ``prefix_blocks`` and ``cow_copies`` report sharing.
 
-**Recurrent state** (Mamba's ``ssm``/``conv``, xLSTM's ``c``/``n``/``m``)
-is fixed-size per slot and stays slot-indexed in both pools
-(``models.model.PAGED_KV_KEYS`` names what pages): admit installs it into
-the slot, evict zeroes it, ``read_slot`` returns it and ``fork`` copies
-it.  A pure-recurrent stack pages nothing and reserves no block.
+**Recurrent state** (Mamba's and Mamba-2's ``ssm``/``conv``, xLSTM's
+``c``/``n``/``m``) is fixed-size per slot and stays slot-indexed in both
+pools (``models.model.PAGED_KV_KEYS`` names what pages): admit installs it
+into the slot, evict zeroes it, ``read_slot`` returns it and ``fork``
+copies it.  A pure-recurrent stack pages nothing and reserves no block.
 
 Both pools update their cache tensors in place.
 """

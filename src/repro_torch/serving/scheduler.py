@@ -25,9 +25,9 @@ and *defer* when it runs short, evictions return blocks, and the decode
 step reads through a fixed-shape block table.  Sliding-window configs
 serve as rings over their block lists and page unconditionally (prompts
 bucket only while the padded length stays inside the window).  A stack
-with recurrent blocks (Mamba, xLSTM) folds padding into its state, so it
-serves only at ``prompt_bucket=1``; its per-slot state stays slot-indexed
-in either pool.
+with recurrent blocks (Mamba, Mamba-2, xLSTM) folds padding into its
+state, so it serves only at ``prompt_bucket=1``; its per-slot state stays
+slot-indexed in either pool.
 
 ``ServingConfig(prefix_cache=True)`` attaches the pool's prefix index:
 admission walks a trie over the prompt tokens, maps every fully matched

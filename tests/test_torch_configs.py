@@ -40,6 +40,15 @@ NEW = ("gemma-7b", "granite-20b", "h2o-danube-1.8b")
 MOE = ("granite-moe-1b-a400m", "arctic-480b")
 RECURRENT = ("jamba-v0.1-52b", "xlstm-1.3b")
 MULTIMODAL = ("seamless-m4t-medium", "llama-3.2-vision-11b")
+#: The port's own configurations, which the reference has no model for
+#: (tests/test_torch_granite_hybrid.py holds them to the benchmark's plain
+#: reference), and the port's own fields, each with the default that
+#: leaves every reference configuration as the reference computes it.
+PORT_ONLY_ARCHS = ("granite-4.0-h-small",)
+PORT_ONLY_FIELDS = {"mamba_n_heads": 0, "shared_d_ff": 0,
+                    "embedding_multiplier": 1.0, "residual_multiplier": 1.0,
+                    "attention_multiplier": None, "logits_scaling": 1.0,
+                    "use_rope": True}
 
 
 def _t(a):
@@ -50,10 +59,13 @@ def _t(a):
                          + MULTIMODAL)
 def test_every_field_equals_the_reference(name):
     got, want = TC.get(name), RC.get(name)
-    names = [f.name for f in dataclasses.fields(got)]
-    assert names == [f.name for f in dataclasses.fields(want)]
+    names = [f.name for f in dataclasses.fields(want)]
+    assert [f.name for f in dataclasses.fields(got)] == \
+        names + list(PORT_ONLY_FIELDS)
     for f in names:
         assert getattr(got, f) == getattr(want, f), f
+    for f, default in PORT_ONLY_FIELDS.items():
+        assert getattr(got, f) == default, f
     assert (got.hd, got.padded_vocab, got.n_super) == \
         (want.hd, want.padded_vocab, want.n_super)
     assert (got.dt_rank, got.d_inner, got.has_recurrent_blocks,
@@ -63,12 +75,14 @@ def test_every_field_equals_the_reference(name):
     smoke_t, smoke_r = got.smoke(), want.smoke()
     for f in names:
         assert getattr(smoke_t, f) == getattr(smoke_r, f), f
+    for f, default in PORT_ONLY_FIELDS.items():
+        assert getattr(smoke_t, f) == default, f
 
 
 def test_registry():
-    """Every reference configuration, in the reference's order; an
-    unknown name raises ``KeyError``."""
-    assert TC.ARCH_NAMES == RC.ARCH_NAMES
+    """Every reference configuration, in the reference's order, then the
+    port's own; an unknown name raises ``KeyError``."""
+    assert TC.ARCH_NAMES == RC.ARCH_NAMES + list(PORT_ONLY_ARCHS)
     assert set(NEW + MOE + RECURRENT + MULTIMODAL) <= set(TC.ARCH_NAMES)
     assert list(TC.all_configs()) == TC.ARCH_NAMES
     with pytest.raises(KeyError):

@@ -50,11 +50,17 @@ SMOKE = ("qwen1.5-0.5b", "granite-moe-1b-a400m", "jamba-v0.1-52b")
 
 def test_assigned_cell_matrix():
     """The mirror of tests/test_arch_smoke.py's: 40 cells, the same 7
-    long_500k skips with the same reasons, the same four shapes."""
+    long_500k skips with the same reasons, the same four shapes; the
+    port's own configurations (granite-4.0-h-small, recurrent, so all four
+    run) come after the reference's."""
     assert [(s.name, s.seq_len, s.global_batch, s.kind) for s in SHAPES] \
         == [(s.name, s.seq_len, s.global_batch, s.kind) for s in R_SHAPES]
+    port_only = TC.ARCH_NAMES[len(RC.ARCH_NAMES):]
+    assert port_only == ["granite-4.0-h-small"]
+    assert all(TC.get(a).runnable(s) == (True, "") for a in port_only
+               for s in SHAPES)
     got = [(a, s.name, TC.get(a).runnable(s))
-           for a in TC.ARCH_NAMES for s in SHAPES]
+           for a in TC.ARCH_NAMES[:len(RC.ARCH_NAMES)] for s in SHAPES]
     want = [(a, s.name, RC.get(a).runnable(s))
             for a in RC.ARCH_NAMES for s in R_SHAPES]
     assert len(got) == 40 and got == want

@@ -194,6 +194,44 @@ def test_trash_slot_rule_against_a_host_recomputation():
     torch.testing.assert_close(got, want, rtol=0, atol=MOE_TOL)
 
 
+def test_chip_smoke_reads_the_served_pairs_from_the_dispatch():
+    """``chip_smoke.served_from_rows``, the on-card check of the grouped
+    dispatch, reads the (token, expert) pairs from the rows that
+    ``_local_moe`` gathers back: on overflowing routes (the dispatch at
+    two expert offsets, as under a mesh) they equal the host rule of
+    ``chip_smoke.moe_routes_on_host``, and a row read back from another
+    token's slot or a dropped read-back is caught."""
+    import chip_smoke
+
+    rng = np.random.default_rng(5)
+    t, k, e = 37, 2, 8
+    # most tokens pick experts 0-2, so those overflow
+    ids = np.stack([rng.permutation(np.r_[rng.choice(3, 1), 3 + rng.choice(
+        5, 1)] if i % 4 else rng.choice(3, 2, replace=False))[:k]
+        for i in range(t)])
+    cap = t_moe.expert_capacity(t, k, 1.25, e)
+    top_ids = torch.from_numpy(ids)
+    want, dropped, last = chip_smoke.moe_routes_on_host(ids, t, cap, e)
+    assert dropped
+    halves = [t_moe._dispatch(top_ids, cap, e // 2, b) + (e // 2, b)
+              for b in (0, e // 2)]
+    got, wrong = chip_smoke.served_from_rows(halves, ids.tolist(), t)
+    assert (got, wrong) == (want, [])
+
+    tok_of_slot, rows, order, n_e, b = halves[0]
+    i, j = map(int, np.argwhere(rows.numpy() < n_e * (cap + 1))[0])
+    moved = rows.clone()
+    moved[i, j] = (moved[i, j] + 1) % (n_e * (cap + 1))
+    _, wrong = chip_smoke.served_from_rows(
+        [(tok_of_slot, moved, order, n_e, b)], ids.tolist(), t)
+    assert wrong
+    lost = rows.clone()
+    lost[i, j] = n_e * (cap + 1)
+    got, wrong = chip_smoke.served_from_rows(
+        [(tok_of_slot, lost, order, n_e, b), halves[1]], ids.tolist(), t)
+    assert got == want - {(i, int(ids[i, order[i, j]]))} and not wrong
+
+
 def test_top_k_tie_order_is_the_reference():
     """Exact ties (duplicated router columns, zero tokens) resolve to the
     lower expert index in both packages."""
